@@ -1,0 +1,13 @@
+from .attention import AttnMode
+from .unet import UNetConfig, UNet2DCondition, SD15_UNET
+from .vae import VAEConfig, AutoencoderKL, SD_VAE
+from .clip import CLIPTextConfig, CLIPTextModel, SD15_TEXT
+from .controlnet import ControlNet, apply_multi_controlnet
+from . import schedulers
+
+__all__ = [
+    "AttnMode", "UNetConfig", "UNet2DCondition", "SD15_UNET",
+    "VAEConfig", "AutoencoderKL", "SD_VAE",
+    "CLIPTextConfig", "CLIPTextModel", "SD15_TEXT",
+    "ControlNet", "apply_multi_controlnet", "schedulers",
+]

@@ -1,0 +1,188 @@
+"""The port's attention against the JAX package's, on the CPU in fp32.
+
+- The flash-attention wrapper's plain version (what the wrapper runs for a
+  CPU tensor) against JAX `dot_product_attention`, which on the CPU is
+  `_pallas_flash`'s plain reference `_manual_attention`. Tolerance
+  rtol 1e-5 / atol 1e-5: both compute f32 scores and softmax and differ
+  only in summation order.
+- The routing predicate `uses_flash` against the conditions under which
+  JAX's `_pallas_flash` returns a result, over a table of shapes.
+- `CrossAttention` in joint mode and `Transformer2D` with weights bridged
+  from flax; rtol 1e-4 and atol 1e-4 * max|ref|, because the projections
+  sum in a different order than XLA's.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mvedit_tpu.models.diffusion import attention as JA
+import mvedit_tpu_torch.models.diffusion.attention as TA
+from mvedit_tpu_torch.kernels import flash_attention as FA
+from mvedit_tpu_torch.models.diffusion.weights import _leaf, flatten
+
+torch.set_num_threads(2)
+
+
+def _qkv(rng, B, Lq, Lk, H, D):
+    return (rng.standard_normal((B, Lq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Lk, H, D)).astype(np.float32),
+            rng.standard_normal((B, Lk, H, D)).astype(np.float32))
+
+
+def _close(out, ref, rtol=1e-4):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("L", [1280, 2048])
+@pytest.mark.parametrize("D", [40, 80])
+def test_plain_attention_matches_jax(L, D):
+    q, k, v = _qkv(np.random.RandomState(L + D), 1, L, L, 2, D)
+    ref = np.asarray(JA.dot_product_attention(q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    np.testing.assert_allclose(
+        FA.attention_reference(tq, tk, tv).numpy(), ref, rtol=1e-5,
+        atol=1e-5)
+    # the wrapper itself takes the plain version for CPU tensors and
+    # launches nothing
+    before = FA.flash_attention.launches
+    np.testing.assert_allclose(FA.flash_attention(tq, tk, tv).numpy(), ref,
+                               rtol=1e-5, atol=1e-5)
+    assert FA.flash_attention.launches == before
+
+
+def test_chunked_attention_matches_jax():
+    # ragged Lk exercises the reference's padded last chunk
+    q, k, v = _qkv(np.random.RandomState(0), 1, 300, 2 * JA._KV_CHUNK + 77,
+                   2, 8)
+    ref = JA._chunked_attention(q, k, v)
+    out = TA._chunked_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+# (Lq, Lk, D): path shapes at 512^2, the thresholds' edges, ragged lengths
+_ROUTES = [(4096, 4096, 40), (8192, 8192, 40), (24576, 24576, 40),
+           (2048, 2048, 80), (6144, 6144, 80), (1024, 1024, 80),
+           (1152, 1152, 64), (1024, 77, 40), (4096, 77, 40),
+           (4096, 4096, 512), (4096, 4096, 128), (4096, 4096, 136),
+           (1000, 1000, 40), (2000, 2048, 40), (2048, 2000, 40),
+           (1280, 1280, 40), (1088, 64, 8), (64, 1152, 8)]
+
+
+@pytest.mark.parametrize("Lq,Lk,D", _ROUTES)
+def test_flash_predicate_matches_jax(monkeypatch, Lq, Lk, D):
+    """`uses_flash` holds exactly where JAX's dot_product_attention would
+    take `_pallas_flash`'s result on a TPU."""
+    import jax.experimental.pallas.ops.tpu.flash_attention as pf
+    monkeypatch.setattr(pf, "flash_attention",
+                        lambda q, k, v, **kw: jnp.zeros_like(q))
+    q = jnp.zeros((1, Lq, 1, D), jnp.bfloat16)
+    kv = jnp.zeros((1, Lk, 1, D), jnp.bfloat16)
+    jax_takes_flash = (max(Lq, Lk) > JA._CHUNK_THRESHOLD
+                       and JA._pallas_flash(q, kv, kv) is not None)
+    assert TA.uses_flash(Lq, Lk, D) == jax_takes_flash
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("Lq,Lk,D", _ROUTES)
+def test_dispatch_routes(monkeypatch, Lq, Lk, D, device):
+    """dot_product_attention sends each shape where the JAX package does:
+    flash kernel, chunked online softmax (Lq * Lk > 4096 * 8192), or plain
+    matmul attention. The `meta` device stands in for the card (any
+    non-CPU device); CPU tensors never take the kernel, as JAX skips
+    `_pallas_flash` on its CPU backend."""
+    seen = []
+    for name in ("flash_attention", "_chunked_attention",
+                 "attention_reference"):
+        monkeypatch.setattr(TA, name,
+                            lambda q, k, v, _n=name: seen.append(_n) or q)
+    q = torch.empty((1, Lq, 1, D), device=device)
+    kv = torch.empty((1, Lk, 1, D), device=device)
+    TA.dot_product_attention(q, kv, kv)
+    if device != "cpu" and TA.uses_flash(Lq, Lk, D):
+        want = "flash_attention"
+    elif Lq * Lk > 4096 * 8192:
+        want = "_chunked_attention"
+    else:
+        want = "attention_reference"
+    assert seen == [want]
+
+
+def test_wrapper_rejects_bad_inputs():
+    q = torch.zeros((1, 128, 2, 40))
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q[:, :, :1], q)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q.double(), q)
+
+
+def _bridge_state(params, rename=lambda p: p):
+    """Flax params of one attention-side module -> its torch state dict
+    (the bridge's leaf rules; module paths mapped by `rename`)."""
+    state = {}
+    for path, arr in flatten(params).items():
+        module, leaf = path.rsplit("/", 1)
+        name, a = _leaf(leaf, np.asarray(arr))
+        state[f"{rename(module).replace('/', '.')}.{name}"] = \
+            torch.from_numpy(np.array(a))
+    return state
+
+
+def _rename_inner(path):
+    return (path.replace("to_out_0", "to_out.0")
+            .replace("net_0_proj", "net.0.proj").replace("net_2", "net.2")
+            .replace("transformer_blocks_", "transformer_blocks/"))
+
+
+@pytest.mark.parametrize("num_views", [2, 3])
+def test_cross_attention_joint_mode(num_views):
+    rng = np.random.RandomState(num_views)
+    x = rng.standard_normal((2 * num_views, 64, 32)).astype(np.float32)
+    mode = JA.AttnMode(num_views=num_views)
+    jmod = JA.CrossAttention(32, None, heads=4, dim_head=8)
+    params = jmod.init(jax.random.PRNGKey(num_views), x, None,
+                       mode=mode)["params"]
+    # non-zero output bias so the bridge's bias path is checked too
+    params = dict(params, to_out_0=dict(
+        params["to_out_0"],
+        bias=jnp.asarray(rng.standard_normal(32).astype(np.float32))))
+    ref, _ = jmod.apply({"params": params}, x, None, mode=mode)
+    tmod = TA.CrossAttention(32, None, heads=4, dim_head=8)
+    tmod.load_state_dict(_bridge_state(params, _rename_inner), strict=True)
+    with torch.no_grad():
+        out = tmod(torch.from_numpy(x), None,
+                   TA.AttnMode(num_views=num_views))
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("use_linear", [False, True])
+def test_transformer2d_takes_flash_route(use_linear):
+    """Joint 2-view self-attention over 32x32 tokens (L = 2048), a shape
+    the card sends to the flash kernel; on the CPU both packages run the
+    plain attention there. Both projection forms: 1x1 convs (SD1.5) and
+    linear (SD2.x)."""
+    rng = np.random.RandomState(7)
+    x = rng.standard_normal((2, 32, 32, 32)).astype(np.float32)
+    ctx = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    mode = JA.AttnMode(num_views=2)
+    jmod = JA.Transformer2D(32, heads=4, dim_head=8, context_dim=16,
+                            use_linear=use_linear)
+    params = jax.tree_util.tree_map(
+        lambda p: p + 0.1 * jnp.asarray(
+            rng.standard_normal(p.shape).astype(np.float32)),
+        jmod.init(jax.random.PRNGKey(0), x, ctx, mode=mode)["params"])
+    ref, _ = jmod.apply({"params": params}, x, ctx, mode=mode)
+    tmod = TA.Transformer2D(32, heads=4, dim_head=8, context_dim=16,
+                            use_linear=use_linear)
+    tmod.load_state_dict(_bridge_state(params, _rename_inner), strict=True)
+    assert TA.uses_flash(2 * 32 * 32, 2 * 32 * 32, 8)
+    with torch.no_grad():
+        out = tmod(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(
+            ctx), TA.AttnMode(num_views=2)).permute(0, 2, 3, 1)
+    _close(out.numpy(), ref)
