@@ -3,25 +3,40 @@
 
     python3 chip_smoke.py                    # the whole run, as below
     python3 chip_smoke.py --kernels-only     # phases 1-3
+    python3 chip_smoke.py --kernels-only --kernel raster_select
+                                             # phases 1-3, one kernel's check
     python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
-the shapes the main path gives it, then drives the port's denoise slice at
-the full width of SD1.5 with seeded random weights:
+the shapes the main path gives it, then drives the port's two slices at
+full width with seeded random weights: the SD1.5 denoise and the DMTet
+mesh phase of `run_3d_to_3d`.
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc of the flash-attention kernel, with ptxas' report;
-3. kernel against plain version, in bf16, timed with CUDA events;
+2. build: nvcc of every kernel source, all started together, with ptxas'
+   report;
+3. kernels against their plain versions, timed with CUDA events:
+   flash attention (bf16) at every path shape; the raster selection at the
+   fit's, `load_init_mesh`'s and the render-size ramp's configs (ids must
+   match at all but 1 pixel in 1e5, keys within 1e-6 relative); the JAX
+   package's own flash kernel API (`ops/flash_attention.py`);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
-   renders as tile and depth hints (the 3D fuse is not ported yet).
+   renders as tile and depth hints;
+6. the DMTet mesh phase at the `run_3d_to_3d` defaults (tet 128, 512^2):
+   `load_init_mesh` renders a seeded torus-knot mesh (~250k faces) at 32
+   views, the switch to DMTet from a seeded dense field, 16 fit steps (two
+   topology refreshes; the pipeline's first DMTet fit runs 120, cut to
+   keep the smoke short), and the re-render of 16 views with their depth
+   maps.
 
 Every phase asserts; any failure exits non-zero before the last line. The
-kernels' launch counters are set to 0 before phase 4 and read after phase
-5: a kernel of the path with no launch there fails the run. Without a CUDA
-device the script exits non-zero and prints no result.
+launch counters are set to 0 before each path and read after it (the
+denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
+phase 6): a kernel of a path with no launch there fails the run. Without a
+CUDA device the script exits non-zero and prints no result.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request and two warm denoise timesteps, reads the trace
@@ -70,6 +85,25 @@ KERNEL_CASES = [
     ((2, 200, 8, 40), 2.0),
 ]
 HOT_SHAPE = (6, 8192, 8, 40)   # the shape whose times go into the JSON line
+# raster selection: (case, size, span, k_per_tile, mesh), the configs the
+# path gives the kernel: the mesh fit and re-render (`_mesh_raster_cfg`),
+# `load_init_mesh` (the default RasterConfig) and the render-size ramp
+RASTER_CASES = [("fit", 512, 2, 1024, "dmtet"),
+                ("load_init_mesh", 512, 4, 256, "knot"),
+                ("ramp_256", 256, 2, 256, "dmtet"),
+                ("ramp_128", 128, 2, 256, "dmtet")]
+RASTER_HOT = "fit"
+MAX_ID_MISMATCH = 1e-5       # share of the pixels whose winner may differ
+KEY_RTOL = 1e-6              # keys where the winners agree
+# the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
+FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
+FWD_HOT = (48, 8192, 40)
+# the mesh phase at the run_3d_to_3d defaults
+MESH_VIEWS = 32              # the rig of run_3d_to_3d
+RERENDER_VIEWS = 16          # the mid view bucket
+TET = 128
+FIT_STEPS = 16               # of tet_init_inverse_steps = 120 (cut)
+DENSITY_BIAS = 10.0          # log-density offset of the stand-in field
 DEV = "cuda"
 TIMED_RUNS = 10
 R = torch.profiler.record_function   # named ranges, read by --profile
@@ -94,14 +128,26 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc of every kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mvedit_tpu_torch.kernels import flash_attention as FA
-    t0 = time.perf_counter()
-    FA.build()
-    log(f"[build] flash_attention.cu: {time.perf_counter() - t0:.2f} s")
-    with open(FA.BUILD_LOG) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"[build]   {line.strip()}")
+    from mvedit_tpu_torch.kernels import raster_select as RS
+
+    def build(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+    mods = {"flash_attention.cu": FA, "raster_select.cu": RS}
+    with ThreadPoolExecutor(len(mods)) as ex:
+        secs = dict(zip(mods, ex.map(build, mods.values())))
+    for name, mod in mods.items():
+        log(f"[build] {name}: {secs[name]:.2f} s")
+        with open(mod.BUILD_LOG) as f:
+            for line in f:
+                if "registers" in line or "spill" in line \
+                        or "Compiling" in line:
+                    log(f"[build]   {line.strip()}")
 
 
 def plain_sliced(q, k, v, budget=4 << 30):
@@ -292,9 +338,318 @@ def phase_denoise(runner, prof=None):
     log(f"[denoise] peak memory allocated: {peak / 2**30:.2f} GiB")
 
 
+def torus_knot(p=2, q=3, nu=1000, nv=125, radius=0.8, tube=0.09):
+    """A (p, q) torus-knot tube, seeded by nothing: (nu * nv) verts, 2 nu nv
+    faces (250k at the defaults), inside the unit sphere; `vc` None."""
+    import types
+    t = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+
+    def curve(t):
+        r = 2 + np.cos(q * t)
+        return np.stack([r * np.cos(p * t), r * np.sin(p * t),
+                         -np.sin(q * t)], -1) * (radius / 3)
+    c, dt = curve(t), 1e-4
+    tan = curve(t + dt) - curve(t - dt)
+    acc = curve(t + dt) - 2 * c + curve(t - dt)
+    tan /= np.linalg.norm(tan, axis=-1, keepdims=True)
+    nrm = acc - (acc * tan).sum(-1, keepdims=True) * tan
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    bnm = np.cross(tan, nrm)
+    a = np.linspace(0, 2 * np.pi, nv, endpoint=False)
+    v = (c[:, None] + tube * (np.cos(a)[None, :, None] * nrm[:, None]
+                              + np.sin(a)[None, :, None] * bnm[:, None]))
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    v00, v10 = i * nv + j, ((i + 1) % nu) * nv + j
+    v11, v01 = ((i + 1) % nu) * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    f = np.concatenate([np.stack([v00, v10, v11], -1).reshape(-1, 3),
+                        np.stack([v00, v11, v01], -1).reshape(-1, 3)])
+    return types.SimpleNamespace(v=v.reshape(-1, 3).astype(np.float32),
+                                 f=f.astype(np.int32), vc=None)
+
+
+def _rig(size):
+    from mvedit_tpu_torch.apis import cameras as C
+    from mvedit_tpu_torch.utils import camera as cu
+    c = C.CONSTANTS
+    rng = np.random.default_rng(SEED)
+    poses, intr = C.surround_rig(
+        MESH_VIEWS, c["proc_3d_to_3d_camera_distance"],
+        c["proc_3d_to_3d_fov"], c["proc_3d_to_3d_min_elev"],
+        c["proc_3d_to_3d_max_elev"], size, rng=rng)
+    lights, _ = cu.light_sampling(poses, rng=rng)
+    return poses.astype(np.float32), intr, lights.astype(np.float32)
+
+
+def _raster_soup(kind):
+    """(verts, faces, face_mask) on the card: a DMTet surface at tet 128 of
+    a bumpy sphere, or the torus knot, each with 12 large triangles added
+    so that the tiles' big list wins pixels too."""
+    from mvedit_tpu_torch.models.mesh import (StructuredTetGrid,
+                                              marching_tets_structured)
+    if kind == "dmtet":
+        g = StructuredTetGrid(TET)
+        v = torch.as_tensor(g.verts, device=DEV)
+        sdf = 0.6 - v.norm(dim=-1) + 0.08 * torch.sin(5 * v[:, 0]) \
+            * torch.cos(4 * v[:, 1]) * torch.sin(3 * v[:, 2])
+        mt = marching_tets_structured(g, g.arrays(DEV), sdf,
+                                      vert_cap=262144, face_cap=393216)
+        verts, faces, fmask = mt["verts"], mt["faces"], mt["face_mask"]
+    else:
+        m = torus_knot()
+        verts = torch.as_tensor(m.v, device=DEV)
+        faces = torch.as_tensor(m.f, device=DEV).long()
+        fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    # corners up to 0.6 from a centre within 0.5 of the origin: wider than
+    # span tiles at every case's size, so they go to the big list
+    ctr = torch.rand((12, 1, 3), generator=gen, device=DEV) - 0.5
+    big_v = (ctr + (torch.rand((12, 3, 3), generator=gen, device=DEV) * 2 - 1)
+             * 0.6).reshape(-1, 3)
+    big_f = torch.arange(12 * 3, device=DEV).reshape(12, 3) + verts.shape[0]
+    return (torch.cat([verts, big_v]), torch.cat([faces, big_f]),
+            torch.cat([fmask, torch.ones(12, dtype=torch.bool, device=DEV)]))
+
+
+def phase_raster_kernel():
+    """The raster selection kernel against `select_reference` on the same
+    candidate lists, at every config the path gives it."""
+    from mvedit_tpu_torch.kernels.raster_select import (raster_select,
+                                                        select_reference)
+    from mvedit_tpu_torch.models.mesh import (RasterConfig, pose_to_w2c,
+                                              project_mesh)
+    from mvedit_tpu_torch.models.mesh.rasterize import candidates
+    log(f"[raster] bounds: winners differ at <= {MAX_ID_MISMATCH:g} of the "
+        f"pixels, keys within {KEY_RTOL:g} relative where they agree")
+    rows, failed, soups = [], [], {}
+    for name, size, span, k, kind in RASTER_CASES:
+        if kind not in soups:
+            soups[kind] = _raster_soup(kind)
+        verts, faces, fmask = soups[kind]
+        poses, intr, _ = _rig(size)
+        cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k)
+        pts = project_mesh(verts, pose_to_w2c(torch.as_tensor(
+            poses[0], device=DEV)), torch.as_tensor(intr[0], device=DEV))
+        cand, cval = candidates(pts, faces, fmask, cfg)
+        args = (pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
+        bk, kk = raster_select(*args)
+        bp, kp = select_reference(*args)
+        torch.cuda.synchronize()
+
+        def ids(b, key):
+            return torch.where(key < 1e38, cand.gather(1, b.long()),
+                               torch.full_like(cand[:, :1], -1))
+        tk, tp = ids(bk, kk), ids(bp, kp)
+        npx = tp.numel()
+        mism = int((tk != tp).sum())
+        both = (tk == tp) & (tp >= 0)
+        d = (kk - kp).abs()[both]
+        err = float(d.max()) if d.numel() else 0.0
+        rel = float((d / kp.abs()[both].clamp(min=1e-30)).max()) \
+            if d.numel() else 0.0
+        hits = int((tp >= 0).sum())
+        big = int(((bp >= k) & (tp >= 0)).sum())
+        ms = median_ms(lambda: raster_select(*args))
+        plain_ms = median_ms(lambda: select_reference(*args))
+        ok = (mism <= MAX_ID_MISMATCH * npx and rel <= KEY_RTOL
+              and hits > 0.01 * npx and big > 0)
+        log(f"[raster] {name}: {size}^2, span {span}, K {cand.shape[1]}, "
+            f"{int(fmask.sum())} faces; {hits} of {npx} pixels hit, {big} "
+            f"won from the big list; mismatched ids {mism}, max key rel err "
+            f"{rel:.2e}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        rows.append(dict(case=name, ms=ms, plain_ms=plain_ms,
+                         mismatched=mism, key_err=err))
+        if not ok:
+            failed.append(name)
+    del soups
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"raster_select disagrees with its plain "
+                             f"version at {failed}")
+    return rows
+
+
+def phase_flash_fwd():
+    """`ops.flash_attention.flash_fwd` (the JAX package's own flash API,
+    on kernel 1's CUDA source) against its plain version."""
+    from mvedit_tpu_torch.kernels.flash_attention import agreement
+    from mvedit_tpu_torch.ops import flash_attention as OF
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    rows, failed, worst = [], [], 0.0
+
+    def plain(q, k, v, s, chunk=4):
+        # (chunk, L, L) f32 scores at a time
+        return torch.cat([OF.flash_reference(q[i:i + chunk], k[i:i + chunk],
+                                             v[i:i + chunk], s)
+                          for i in range(0, q.shape[0], chunk)])
+    for shape, scale in FWD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEV,
+                               dtype=torch.bfloat16) for _ in range(3))
+        s = scale if scale is not None else shape[-1] ** -0.5
+        out = OF.flash_fwd(q, k, v, s)
+        ref = plain(q, k, v, s)
+        torch.cuda.synchronize()
+        r = agreement(out, ref)
+        ms = median_ms(lambda: OF.flash_fwd(q, k, v, s))
+        plain_ms = median_ms(lambda: plain(q, k, v, s))
+        log(f"[flash_fwd] {shape} sm_scale {s:.4g}: max|d| "
+            f"{r['max_abs']:.3e} = {r['max_rel']:.2e} of max|ref|; mean|d| "
+            f"{r['mean_abs']:.3e} = {r['mean_rel']:.2e} of mean|ref|; kernel "
+            f"{ms:.3f} ms plain {plain_ms:.3f} ms {'ok' if r['ok'] else 'FAIL'}")
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms))
+        worst = max(worst, r["max_abs"])
+        if not r["ok"]:
+            failed.append(shape)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"at {failed}")
+    return rows, worst
+
+
+def phase_mesh(runner):
+    """The DMTet mesh phase of `run_3d_to_3d` at its defaults: init renders,
+    the switch to DMTet, the first fit (cut to FIT_STEPS), the re-render.
+    Returns the raster kernel's launches in each part."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.fields import INGPConfig, ingp_init
+    from mvedit_tpu_torch.models.mesh_fit import mesh_caps
+    from mvedit_tpu_torch.ops.dense_grid import DenseGridConfig
+    from mvedit_tpu_torch.pipelines.mvedit_3d import (MVEdit3DConfig,
+                                                      MVEdit3DPipeline)
+    from mvedit_tpu_torch.utils.geometry import normalize_depth
+    poses, intr, lights = _rig(SIZE)
+    mesh = torus_knot()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+
+    def timed(part, fn):
+        RS.raster_select.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[part] = RS.raster_select.launches
+        return out, time.perf_counter() - t0
+
+    init, wall = timed("load_init_mesh", lambda: runner.load_init_mesh(
+        mesh, poses, intr, SIZE, lights))
+    ok = (init["images"].shape == (MESH_VIEWS, SIZE, SIZE, 3)
+          and all(bool(torch.isfinite(x).all()) for x in init.values())
+          and 0.01 < float(init["masks"].mean()) < 0.9)
+    log(f"[mesh] load_init_mesh: {len(mesh.f)} faces, {MESH_VIEWS} views x "
+        f"{SIZE}^2 in {wall:.3f} s, mask mean "
+        f"{float(init['masks'].mean()):.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("load_init_mesh output is malformed")
+
+    # run_3d_to_3d's config: dense field (32, 160), tet 128, 512^2
+    cfg = MVEdit3DConfig(num_views=MESH_VIEWS, tet_resolution=TET,
+                         render_size=SIZE, ingp=INGPConfig(
+                             backend="dense",
+                             dense=DenseGridConfig(resolutions=(32, 160))))
+    pipe = MVEdit3DPipeline(None, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    field = ingp_init(cfg.ingp, gen, DEV)
+    # the pipeline switches to DMTet from a NeRF-fitted field; this seeded
+    # one stands in for it. Its density is exp of the origin blob, within
+    # 8% of 1, so the surface init_sdf_from_density finds (its 70th
+    # percentile) lies in the blob's flat tail with |sdf| ~1e-4, and the
+    # first Adam steps (2.8e-4 each) flip signs all around it (on the CPU
+    # at tet 128, 179k crossings became 462k in 16 steps, over the 262144
+    # cap). A log-density bias of DENSITY_BIAS scales the density by e^10,
+    # so the sdf changes by ~0.06 per cell near the surface, as a fitted
+    # field's does.
+    with torch.no_grad():
+        field["mlp"][-1]["b"][0] = DENSITY_BIAS
+    (tet_grid, state, opt), wall = timed(
+        "switch", lambda: pipe._init_mesh_phase(field, device=DEV))
+    # the same again, warm: how much of the switch is first-use cost
+    _, wall_warm = timed("switch", lambda: pipe._init_mesh_phase(
+        field, device=DEV))
+    log(f"[mesh] switch to DMTet (tet {TET}): {wall:.3f} s ({wall_warm:.3f} "
+        f"s warm), sdf > 0 at "
+        f"{float((state['sdf'] > 0).float().mean()):.4f} of the lattice")
+    t = {k: torch.as_tensor(v, device=DEV) for k, v in
+         (("poses", poses), ("intrinsics", intr), ("cam_lights", lights))}
+    targets = {"images": init["images"], "masks": init["masks"],
+               "cam_weights": torch.ones(MESH_VIEWS, device=DEV), **t}
+    run, _, _ = pipe._mesh_fit_fns(tet_grid, FIT_STEPS)
+    draws = run.draw(targets, gen)
+    # the last step renders the first step's views: its loss is comparable
+    draws[-1]["view_ids"][-1] = draws[0]["view_ids"][0]
+    (state, opt, out), wall = timed("fit", lambda: run(
+        state, opt, targets, sched=pipe._sched_weights(0.6, "mesh"),
+        draws=draws))
+    loss = out["loss"].float().cpu().numpy()
+    mt = out["mt"]
+    nv, nf = int(mt["n_verts"]), int(mt["n_faces"])
+    vcap, fcap = mesh_caps(TET)
+    ok = (np.isfinite(loss).all() and loss[-1] < loss[0]
+          and 0 < nv <= vcap and 0 < nf <= fcap)
+    log(f"[mesh] fit: {FIT_STEPS} steps in chunks {run.chunks} in "
+        f"{wall:.3f} s = {wall / FIT_STEPS:.4f} s per step (warm-up "
+        f"included); loss first {loss[0]:.5f} last {loss[-1]:.5f} (same "
+        f"views); n_verts {nv} / {vcap}, n_faces {nf} / {fcap} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[mesh]   losses: {' '.join(f'{x:.4f}' for x in loss)}")
+    if not ok:
+        raise AssertionError("the mesh fit did not run as it should")
+    # one more chunk, warm: every later fit of the pipeline (80 steps per
+    # timestep) runs chunks of this program
+    n_fit = launches["fit"]
+    steps = cfg.fit_steps_per_program
+    warm, _, _ = pipe._mesh_fit_fns(tet_grid, steps)
+    (state, opt, out), wall = timed("fit", lambda: warm(
+        state, opt, targets, sched=pipe._sched_weights(0.6, "mesh"),
+        generator=gen))
+    launches["fit"] += n_fit
+    mt = out["mt"]
+    ok = bool(torch.isfinite(out["loss"]).all()) \
+        and int(mt["n_faces"]) <= fcap
+    log(f"[mesh] fit, warm chunk: {steps} steps in {wall:.3f} s = "
+        f"{wall / steps:.4f} s per step; n_faces {int(mt['n_faces'])} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the warm fit chunk failed")
+
+    def rerender():
+        r = pipe._render_chunk(state["field"], state, mt, None,
+                               t["poses"][:RERENDER_VIEWS],
+                               t["intrinsics"][:RERENDER_VIEWS], SIZE)
+        return r, normalize_depth(r["depth"], r["alpha"])
+    (r, depth), wall = timed("rerender", rerender)
+    ok = (r["rgb"].shape == (RERENDER_VIEWS, SIZE, SIZE, 3)
+          and depth.shape == (RERENDER_VIEWS, SIZE, SIZE)
+          and all(bool(torch.isfinite(x).all()) for x in (*r.values(), depth))
+          and float(r["alpha"].mean()) > 0.01)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mesh] re-render: {RERENDER_VIEWS} views x {SIZE}^2 in {wall:.3f} "
+        f"s, alpha mean {float(r['alpha'].mean()):.4f}, depth map mean "
+        f"{float(depth.mean()):.4f} {'ok' if ok else 'FAIL'}")
+    log(f"[mesh] peak memory allocated over the mesh phase: "
+        f"{peak / 2**30:.2f} GiB")
+    if not ok:
+        raise AssertionError("the mesh re-render is malformed")
+    del launches["switch"]
+    log(f"[launches] raster_select: {launches['load_init_mesh']} in "
+        f"load_init_mesh, {launches['fit']} in the fit, "
+        f"{launches['rerender']} in the re-render")
+    if min(launches.values()) == 0:
+        raise AssertionError("a part of the mesh phase did not launch "
+                             "raster_select")
+    ctx = dict(pipe=pipe, tet_grid=tet_grid, state=state, opt=opt,
+               targets=targets, gen=gen)
+    return launches, ctx
+
+
 # kernel families by name, first match wins
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
+    ("raster select kernel", r"raster_select_kernel"),
+    ("sort / scan", r"radix|Sort|scan|cub::"),
+    ("index / scatter", r"index|scatter|gather"),
     ("layout transpose", r"nchwToNhwc|nhwcToNchw"),
     ("convolution", r"fprop|dgrad|conv"),
     ("matmul", r"gemm|nvjet|cutlass"),
@@ -385,11 +740,12 @@ def _report(out_dir, label, window):
             f"{t['name'][:100]}")
 
 
-def phase_profile(runner, out_dir):
-    """`torch.profiler` over one warm `run_text_to_img` request and two
-    warm denoise timesteps (the first of three is the profiler's warm-up).
-    The profiler's own host cost per op widens the gaps, so the idle share
-    under it bounds the unprofiled one from above."""
+def phase_profile(runner, out_dir, mesh_ctx):
+    """`torch.profiler` over one warm `run_text_to_img` request, two warm
+    denoise timesteps (the first of three is the profiler's warm-up) and
+    two warm 2-step mesh fit chunks. The profiler's own host cost per op
+    widens the gaps, so the idle share under it bounds the unprofiled one
+    from above."""
     from torch.profiler import ProfilerActivity, profile, schedule
     os.makedirs(out_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -415,6 +771,20 @@ def phase_profile(runner, out_dir):
                                    repeat=1)) as prof:
         phase_denoise(runner, prof)
     _report(out_dir, "denoise", "timestep")
+    log("[profile] mesh fit chunks (2 steps each) under the profiler:")
+    c = mesh_ctx
+    run, _, _ = c["pipe"]._mesh_fit_fns(c["tet_grid"], 2)
+    with profile(activities=acts, on_trace_ready=export("mesh_fit"),
+                 schedule=schedule(wait=0, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        for _ in range(3):
+            with R("fit_chunk"):
+                run(c["state"], c["opt"], c["targets"],
+                    sched=c["pipe"]._sched_weights(0.6, "mesh"),
+                    generator=c["gen"])
+                torch.cuda.synchronize()
+            prof.step()
+    _report(out_dir, "mesh_fit", "fit_chunk")
 
 
 def main():
@@ -422,22 +792,37 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-3: build the kernels and hold them "
                          "against their plain versions")
+    ap.add_argument("--kernel", choices=("flash_attention", "raster_select",
+                                         "flash_fwd"),
+                    help="with --kernels-only: check this kernel only")
     ap.add_argument("--profile", metavar="OUT_DIR",
                     help="after the run, profile a warm request and two "
                          "warm denoise timesteps into OUT_DIR")
     args = ap.parse_args()
+    if args.kernel and not args.kernels_only:
+        ap.error("--kernel needs --kernels-only")
     smi = phase_device()
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.kernels.flash_attention import flash_attention
-    rows, worst = phase_kernel()
+    from mvedit_tpu_torch.ops.flash_attention import flash_fwd
+    todo = [args.kernel] if args.kernel else ["flash_attention",
+                                              "raster_select", "flash_fwd"]
+    if "flash_attention" in todo:
+        rows, worst = phase_kernel()
+    if "raster_select" in todo:
+        raster_rows = phase_raster_kernel()
+    if "flash_fwd" in todo:
+        fwd_rows, fwd_worst = phase_flash_fwd()
     if args.kernels_only:
-        log("[kernels-only] every kernel agrees with its plain version")
+        log(f"[kernels-only] {', '.join(todo)}: every kernel agrees with "
+            f"its plain version")
         return
     runner = Adapter3DRunner(seed=SEED, device=DEV)
     phase_unet_route(runner)
-    # the main path: every launch from here on is the path's
-    flash_attention.launches = 0
+    # the denoise path: every launch from here to its end is the path's
+    flash_attention.launches = flash_fwd.launches = 0
     phase_text_to_img(runner)
     t2i_launches = flash_attention.launches
     phase_denoise(runner)
@@ -446,18 +831,40 @@ def main():
         f"{launches - t2i_launches} in the denoise timesteps")
     if t2i_launches == 0 or launches == t2i_launches:
         raise AssertionError("the main path did not launch flash_attention")
+    # the mesh path: counted part by part inside
+    mesh_launches, mesh_ctx = phase_mesh(runner)
+    # the JAX package's own flash API is on no path of the system (nothing
+    # outside its file calls it there): its count over both paths is 0
+    fwd_launches = flash_fwd.launches
+    log(f"[launches] flash_fwd: {fwd_launches} over both paths (on no path)")
     if args.profile:
-        phase_profile(runner, args.profile)
+        phase_profile(runner, args.profile, mesh_ctx)
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
-    log(f"[kernels] ms / plain_ms below at {HOT_SHAPE}; max_abs_err over "
-        f"all checked shapes")
+    rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
+    fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
+    log(f"[kernels] ms / plain_ms below at {HOT_SHAPE} (flash_attention), "
+        f"the {RASTER_HOT} config (raster_select), {FWD_HOT} (flash_fwd); "
+        f"errors over all checked cases (raster_select: max |key| error "
+        f"where the winners agree, and the mismatched ids)")
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
-        "launches": launches, "max_abs_err": worst, "ms": hot["ms"],
-        "plain_ms": hot["plain_ms"]}]}))
+    log(json.dumps({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
+         "launches": launches, "max_abs_err": worst, "ms": hot["ms"],
+         "plain_ms": hot["plain_ms"]},
+        {"name": "raster_select", "route": "cuda",
+         "source": "mvedit_tpu_torch/csrc/raster_select.cu",
+         "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
+         "launches": sum(mesh_launches.values()),
+         "max_abs_err": max(r["key_err"] for r in raster_rows),
+         "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
+         "ms": rhot["ms"], "plain_ms": rhot["plain_ms"]},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "mvedit_tpu/ops/flash_attention.py:73",
+         "launches": fwd_launches, "max_abs_err": fwd_worst,
+         "ms": fhot["ms"], "plain_ms": fhot["plain_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

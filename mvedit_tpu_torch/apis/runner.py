@@ -1,8 +1,9 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
-Counterpart of `mvedit_tpu/apis/runner.py`, for the parts the denoise
-slice needs: the SD1.5 UNet, VAE and CLIP text encoder, the tile and depth
-ControlNets, and prompt encoding. Models are built on `device` with seeded
+Counterpart of `mvedit_tpu/apis/runner.py`, for the parts the ported
+slices need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and depth
+ControlNets, prompt encoding, and the rig constants of `run_3d_to_3d`
+(`constants`, with `apis/cameras.py` and `utils/camera.py`). Models are built on `device` with seeded
 random weights (drawn from a `torch.Generator`; loading checkpoints from
 `checkpoint_dir` is not ported yet). Full-size models store bf16 weights,
 as the reference casts them; the f32 layers compute in f32 all the same.
@@ -17,6 +18,7 @@ from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
                                 UNet2DCondition, UNetConfig, VAEConfig,
                                 schedulers as S)
 from ..models.diffusion.tokenizer import CLIPTokenizer, HashTokenizer
+from . import cameras as C
 from .endpoints import EndpointsMixin
 
 __all__ = ["Adapter3DRunner", "init_random_"]
@@ -52,6 +54,7 @@ class Adapter3DRunner(EndpointsMixin):
         self.seed = seed
         self.tiny = tiny_models
         self.device = torch.device(device)
+        self.constants = C.CONSTANTS
         self._cache = {}
         tok_dir = checkpoint_dir and os.path.join(checkpoint_dir, "tokenizer")
         if tok_dir and os.path.exists(os.path.join(tok_dir, "vocab.json")):

@@ -13,8 +13,11 @@ bf16 with f32 softmax statistics and returned in the input dtype.
   dtype (the JAX package likewise runs its plain attention on the CPU).
 
 `flash_attention.launches` counts kernel launches, so a run can show that
-its attention went through the kernel. `agreement(out, ref)` is the check
-that holds the kernel against its plain version.
+its attention went through the kernel. `launch(q, k, v, scale)` is the
+bare entry with a caller-given scale, which `ops/flash_attention.py` (the
+JAX package's own flash API) also uses, with its own count.
+`agreement(out, ref)` is the check that holds the kernel against its
+plain version.
 """
 import ctypes
 import os
@@ -23,8 +26,8 @@ import threading
 
 import torch
 
-__all__ = ["flash_attention", "attention_reference", "agreement", "build",
-           "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "launch", "attention_reference", "agreement",
+           "build", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 # Kernel against the plain version from the same bf16 inputs, relative to
@@ -131,6 +134,16 @@ def flash_attention(q, k, v):
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
+    out = launch(q, k, v, q.shape[-1] ** -0.5)
+    flash_attention.launches += 1
+    return out
+
+
+def launch(q, k, v, scale):
+    """Launch the kernel on CUDA tensors (B, Lq, H, D) x (B, Lk, H, D) with
+    softmax scale `scale`; returns (B, Lq, H, D) in q's dtype. Counts
+    nothing: each public wrapper keeps its own launch count."""
+    _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
@@ -159,10 +172,9 @@ def flash_attention(q, k, v):
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            D ** -0.5, vec, stream)
+            float(scale), vec, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
     return out.to(dt)
 
 

@@ -1,1 +1,2 @@
-"""Models of the port (the diffusion stack so far)."""
+"""Models of the port: the diffusion stack, the field, the losses, the mesh
+stack and the mesh fit."""

@@ -1,1 +1,2 @@
-"""Pipelines of the port (the multi-view denoise steps so far)."""
+"""Pipelines of the port: the multi-view denoise steps and the mesh phase of
+the MVEdit 3D pipeline."""

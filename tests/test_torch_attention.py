@@ -10,6 +10,10 @@
 - `CrossAttention` in joint mode and `Transformer2D` with weights bridged
   from flax; rtol 1e-4 and atol 1e-4 * max|ref|, because the projections
   sum in a different order than XLA's.
+- `ops.flash_attention` (the counterpart of the JAX package's own flash
+  kernel `mvedit_tpu/ops/flash_attention.py`): its plain version against
+  the Pallas kernel in interpret mode, within `FA.agreement`; `supported`
+  and the shapes it rejects, against JAX's block picker.
 """
 import jax
 import jax.numpy as jnp
@@ -186,3 +190,65 @@ def test_transformer2d_takes_flash_route(use_linear):
         out = tmod(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(
             ctx), TA.AttnMode(num_views=2)).permute(0, 2, 3, 1)
     _close(out.numpy(), ref)
+
+
+# ---- ops/flash_attention: the JAX package's own flash kernel ---------------
+
+def _jax_ops_flash_interpret(monkeypatch):
+    """`mvedit_tpu.ops.flash_attention` with its Pallas kernel run in
+    interpret mode on the CPU (pallas_call patched, `_flash_fwd` re-jitted);
+    nothing in the JAX package changes."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    import mvedit_tpu.ops.flash_attention as JF
+    monkeypatch.setattr(JF.pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=True))
+    monkeypatch.setattr(JF, "_flash_fwd", jax.jit(
+        JF._flash_fwd.__wrapped__, static_argnames=("sm_scale",)))
+    return JF
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,D,scale", [
+    (1, 256, 256, 2, 40, 0.1), (1, 128, 1024, 2, 64, None),
+    (2, 384, 512, 1, 80, 0.2)])
+def test_ops_flash_plain_matches_jax_kernel(monkeypatch, B, Lq, Lk, H, D,
+                                            scale):
+    """The plain version (what `ops.flash_attention` runs on a CPU tensor)
+    against the JAX kernel in interpret mode, from the same bf16-rounded
+    inputs; tolerance `FA.agreement` (bf16 P and output, another summation
+    order; Lk = 1024 runs the kernel's online softmax over two key
+    blocks)."""
+    from mvedit_tpu_torch.ops import flash_attention as TOF
+    JF = _jax_ops_flash_interpret(monkeypatch)
+    rng = np.random.RandomState(Lq + Lk + D)
+    q = rng.standard_normal((B, Lq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Lk, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, Lk, H, D)).astype(np.float32)
+    ref = np.asarray(JF.flash_attention(q, k, v, sm_scale=scale))
+    before = TOF.flash_fwd.launches
+    out = TOF.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              sm_scale=scale)
+    assert TOF.flash_fwd.launches == before
+    assert out.dtype == torch.float32 and out.shape == (B, Lq, H, D)
+    r = FA.agreement(out, torch.from_numpy(ref))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("Lq,Lk,D", [(256, 256, 40), (1000, 1024, 40),
+                                     (1024, 1000, 40), (128, 128, 128),
+                                     (128, 128, 136), (3072, 2560, 64),
+                                     (64, 128, 40)])
+def test_ops_flash_supported_matches_jax(Lq, Lk, D):
+    import mvedit_tpu.ops.flash_attention as JF
+    from mvedit_tpu_torch.ops import flash_attention as TOF
+    want = JF.supported((1, Lq, D), (1, Lk, D))
+    assert TOF.supported((1, Lq, D), (1, Lk, D)) == want
+    q = torch.zeros((1, Lq, D), dtype=torch.bfloat16)
+    kv = torch.zeros((1, Lk, D), dtype=torch.bfloat16)
+    if want:
+        assert TOF.flash_fwd(q, kv, kv, 0.1).shape == (1, Lq, D)
+    else:
+        with pytest.raises(ValueError):
+            TOF.flash_fwd(q, kv, kv, 0.1)

@@ -349,7 +349,13 @@ def test_run_text_to_img_tiny():
 def test_port_imports_no_jax():
     code = ("import sys, mvedit_tpu_torch, mvedit_tpu_torch.apis, "
             "mvedit_tpu_torch.pipelines.denoise, "
-            "mvedit_tpu_torch.kernels.flash_attention\n"
+            "mvedit_tpu_torch.kernels.flash_attention, "
+            "mvedit_tpu_torch.models.mesh_fit, "
+            "mvedit_tpu_torch.models.mesh.rasterize, "
+            "mvedit_tpu_torch.models.mesh.renderer, "
+            "mvedit_tpu_torch.pipelines.mvedit_3d, "
+            "mvedit_tpu_torch.kernels.raster_select, "
+            "mvedit_tpu_torch.ops.flash_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mvedit_tpu'))\n"
             "assert not bad, bad\n")

@@ -6,11 +6,18 @@ machine needs no JAX):
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m gpu --noconftest
 
-Tolerance: `FA.agreement`, which bounds max|d| and mean|d| relative to
-the plain version's magnitude (from the same bf16 inputs): both round P
-and the output to bf16 (eps 2^-8) at other points and sum in another
-order. The bounds fail a kernel that scales by 1/sqrt(padded D) or leaves
-ragged keys unmasked.
+Tolerances:
+- flash attention (both APIs, `kernels/flash_attention.py` and
+  `ops/flash_attention.py`): `FA.agreement`, which bounds max|d| and
+  mean|d| relative to the plain version's magnitude (from the same bf16
+  inputs): both round P and the output to bf16 (eps 2^-8) at other points
+  and sum in another order. The bounds fail a kernel that scales by
+  1/sqrt(padded D) or leaves ragged keys unmasked.
+- raster selection: exact. The kernel evaluates every coefficient and
+  affine test op by op in the plain version's order with IEEE rounding
+  and no FMA contraction, so winners and keys are bit-equal.
+Dispatch: a CUDA tensor launches the kernel (the launch counters move), a
+CPU tensor takes the plain version.
 """
 import pytest
 import torch
@@ -73,3 +80,87 @@ def test_flash_attention_rejects(cuda):
     q = torch.zeros((1, 128, 2, 40), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         FA.flash_attention(q, q, q)
+
+
+# ---- raster selection ------------------------------------------------------
+
+def _soup(cuda, n_faces, size, seed):
+    """A random soup in front of the camera, big and small triangles and
+    both windings, projected at `size`^2."""
+    from mvedit_tpu_torch.models.mesh import project_mesh
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ctr = torch.rand((n_faces, 1, 3), generator=g, device=cuda) * 1.6 - 0.8
+    ext = torch.rand((n_faces, 1, 1), generator=g, device=cuda) ** 4 * 0.5
+    verts = (ctr + (torch.rand((n_faces, 3, 3), generator=g, device=cuda)
+                    * 2 - 1) * ext).reshape(-1, 3)
+    faces = torch.arange(3 * n_faces, device=cuda).reshape(-1, 3)
+    pose = torch.tensor([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2.5]],
+                        dtype=torch.float32, device=cuda)
+    f = 1.2 * size
+    intr = torch.tensor([f, f, size / 2, size / 2], device=cuda)
+    return project_mesh(verts, pose, intr), faces
+
+
+@pytest.mark.parametrize("size,span,k", [(512, 2, 1024), (512, 4, 256),
+                                         (256, 2, 256), (128, 2, 256)])
+def test_raster_select_matches_plain(cuda, size, span, k):
+    """Winners equal at every pixel (the kernel rounds every op as the
+    plain version does, without FMA contraction) and keys bit-equal."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import RasterConfig
+    from mvedit_tpu_torch.models.mesh.rasterize import candidates
+    pts, faces = _soup(cuda, 20000, size, size + k)
+    cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k)
+    fv = torch.ones(faces.shape[0], dtype=torch.bool, device=cuda)
+    cand, cval = candidates(pts, faces, fv, cfg)
+    before = RS.raster_select.launches
+    bk, kk = RS.raster_select(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
+    torch.cuda.synchronize()
+    assert RS.raster_select.launches == before + 1
+    bp, kp = RS.select_reference(pts, faces, cand, cval, cfg.tile,
+                                 cfg.tiles_x)
+    assert bool((kp < 1e38).any()) and bool((bp >= k).any())
+    assert torch.equal(bk, bp) and torch.equal(kk, kp)
+
+
+def test_rasterize_launches_kernel_and_cpu_takes_plain(cuda):
+    """Dispatch: a CUDA tensor launches the kernel (no fallback), a CPU
+    tensor takes the plain version and launches nothing; both agree."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import RasterConfig, rasterize
+    pts, faces = _soup(cuda, 3000, 128, 1)
+    fv = torch.ones(faces.shape[0], dtype=torch.bool, device=cuda)
+    cfg = RasterConfig(height=128, width=128, span=2)
+    before = RS.raster_select.launches
+    r_gpu = rasterize(pts, faces, fv, cfg)
+    assert RS.raster_select.launches == before + 1
+    r_cpu = rasterize(pts.cpu(), faces.cpu(), fv.cpu(), cfg)
+    assert RS.raster_select.launches == before + 1
+    assert torch.equal(r_gpu["tri_id"].cpu(), r_cpu["tri_id"])
+    with pytest.raises(ValueError):
+        RS.raster_select(pts[:, :2], faces, faces[:1], fv[:1, None], 16, 8)
+
+
+# ---- the JAX package's own flash kernel API --------------------------------
+
+@pytest.mark.parametrize("shape,scale", [((8, 1024, 40), 0.1),
+                                         ((4, 2048, 64), None),
+                                         ((2, 256, 128), 0.05)])
+def test_flash_fwd_matches_plain(cuda, shape, scale):
+    from mvedit_tpu_torch.ops import flash_attention as OF
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    s = scale if scale is not None else shape[-1] ** -0.5
+    before = OF.flash_fwd.launches
+    out = OF.flash_fwd(q, k, v, s)
+    torch.cuda.synchronize()
+    assert OF.flash_fwd.launches == before + 1
+    r = FA.agreement(out, OF.flash_reference(q, k, v, s))
+    assert r["ok"], r
+    # the (B, L, H, D) wrapper too, with its default scale
+    q4 = q.reshape(2, -1, *shape[1:]).transpose(1, 2)
+    out4 = OF.flash_attention(q4, q4, q4)
+    assert out4.shape == q4.shape
+    with pytest.raises(ValueError):
+        OF.flash_fwd(q[:, :100], k, v, s)
