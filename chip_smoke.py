@@ -9,18 +9,19 @@
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
-the shapes the main path gives it, then drives the port's two slices at
-full width with seeded random weights: the SD1.5 denoise and the DMTet
-mesh phase of `run_3d_to_3d`.
+the shapes the main path gives it, then drives the port at full width with
+seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
+`run_3d_to_3d` requests.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of every kernel source, all started together, with ptxas'
    report;
 3. kernels against their plain versions, timed with CUDA events:
    flash attention (bf16) at every path shape; the raster selection at the
-   fit's, `load_init_mesh`'s and the render-size ramp's configs (ids must
-   match at all but 1 pixel in 1e5, keys within 1e-6 relative); the JAX
-   package's own flash kernel API (`ops/flash_attention.py`);
+   fit's, `load_init_mesh`'s, the render-size ramp's and the UV bake's
+   configs (ids must match at all but 1 pixel in 1e5, keys within 1e-6
+   relative); the JAX package's own flash kernel API
+   (`ops/flash_attention.py`); LPIPS in bf16 against f32 (within 5e-2);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
@@ -30,21 +31,36 @@ mesh phase of `run_3d_to_3d`.
    views, the switch to DMTet from a seeded dense field, 16 fit steps (two
    topology refreshes; the pipeline's first DMTet fit runs 120, cut to
    keep the smoke short), and the re-render of 16 views with their depth
-   maps.
+   maps;
+7. `run_3d_to_3d`, twice, at full width: SD1.5 UNet / ControlNets / VAE /
+   CLIP, 512^2 renders, 32 views pruned 32 -> 16 -> 9, the dense field
+   (32, 160), tet 128, LPIPS (VGG16) and the SRVGG enhancer (64 features,
+   32 convs), on the torus knot written to a GLB. Cut in depth only:
+   steps 8 (of 24), init_inverse_steps 32 (of 256), n_inverse_steps 16
+   (of 80), tet_init_inverse_steps 24 (of 120). The warm request's wall
+   time, phase times (`utils.profiling.PhaseTimer`) and peak memory are
+   printed; the raster kernel's launches are counted in `load_init_mesh`,
+   the mesh fit, the re-render and the bake, each on its own;
+8. tet 256 on the request's fitted field: the switch, 8 fit steps (of
+   120), then the bake with `mesh_reduction` 0.5: QEM decimation, 4 steps
+   (of 24) of texture refinement, the UV bake.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
-phase 6): a kernel of a path with no launch there fails the run. Without a
-CUDA device the script exits non-zero and prints no result.
+phase 6; the request, part by part, in phase 7): a kernel of a path with
+no launch there fails the run. Without a CUDA device the script exits
+non-zero and prints no result.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
-`run_text_to_img` request and two warm denoise timesteps, reads the trace
+`run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
+chunks and two warm NeRF-fit chunks at 256^2, reads the trace
 kernel by kernel (device busy share, time per pipeline range, per kernel
 family, top kernels), prints the breakdown and writes it, with the gzipped
 chrome traces, to OUT_DIR.
 """
 import argparse
+import dataclasses
 import gzip
 import json
 import os
@@ -83,15 +99,23 @@ KERNEL_CASES = [
     ((6, 8192, 8, 40), 2.0),
     ((6, 2048, 8, 80), 2.0),
     ((2, 200, 8, 40), 2.0),
+    # run_3d_to_3d (1-pass, reference pairs, diff_bs 8 view chunks)
+    ((8, 8192, 8, 40), 1.0),    # reference pairs, level 1
+    ((8, 4096, 8, 40), 1.0),    # uncond views, level 1
+    ((16, 4096, 8, 40), 1.0),   # ControlNets on the CFG chunk, level 1
+    ((8, 2048, 8, 80), 1.0),    # reference pairs, level 2
 ]
 HOT_SHAPE = (6, 8192, 8, 40)   # the shape whose times go into the JSON line
-# raster selection: (case, size, span, k_per_tile, mesh), the configs the
-# path gives the kernel: the mesh fit and re-render (`_mesh_raster_cfg`),
-# `load_init_mesh` (the default RasterConfig) and the render-size ramp
-RASTER_CASES = [("fit", 512, 2, 1024, "dmtet"),
-                ("load_init_mesh", 512, 4, 256, "knot"),
-                ("ramp_256", 256, 2, 256, "dmtet"),
-                ("ramp_128", 128, 2, 256, "dmtet")]
+# raster selection: (case, size, span, k_per_tile, k_big, mesh), the
+# configs the path gives the kernel: the mesh fit and re-render
+# (`_mesh_raster_cfg`), `load_init_mesh` (the default RasterConfig), the
+# render-size ramp and the UV bake (`_extract_and_bake`: the grid atlas of
+# the extracted surface at 1024^2, tile 16)
+RASTER_CASES = [("fit", 512, 2, 1024, 64, "dmtet"),
+                ("load_init_mesh", 512, 4, 256, 64, "knot"),
+                ("ramp_256", 256, 2, 256, 64, "dmtet"),
+                ("ramp_128", 128, 2, 256, 64, "dmtet"),
+                ("bake", 1024, 4, 64, 32, "atlas")]
 RASTER_HOT = "fit"
 MAX_ID_MISMATCH = 1e-5       # share of the pixels whose winner may differ
 KEY_RTOL = 1e-6              # keys where the winners agree
@@ -104,6 +128,16 @@ RERENDER_VIEWS = 16          # the mid view bucket
 TET = 128
 FIT_STEPS = 16               # of tet_init_inverse_steps = 120 (cut)
 DENSITY_BIAS = 10.0          # log-density offset of the stand-in field
+# run_3d_to_3d at full width, cut in depth (the defaults in brackets)
+REQ_VIEWS = 32
+REQ_STEPS = 8                # diffusion steps (24)
+REQ_INIT_INV = 32            # init_inverse_steps (256)
+REQ_N_INV = 16               # n_inverse_steps (80)
+REQ_TET_INIT = 24            # tet_init_inverse_steps (120)
+TET_BIG = 256
+TET_BIG_FIT = 8              # the first fit at tet 256 (120)
+REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
+LPIPS_BF16_RTOL = 5e-2       # bf16 LPIPS against f32, relative
 DEV = "cuda"
 TIMED_RUNS = 10
 R = torch.profiler.record_function   # named ranges, read by --profile
@@ -380,31 +414,55 @@ def _rig(size):
     return poses.astype(np.float32), intr, lights.astype(np.float32)
 
 
-def _raster_soup(kind):
-    """(verts, faces, face_mask) on the card: a DMTet surface at tet 128 of
-    a bumpy sphere, or the torus knot, each with 12 large triangles added
-    so that the tiles' big list wins pixels too."""
+def _dmtet_surface():
+    """A DMTet surface at tet 128 of a bumpy sphere: (verts, faces,
+    face_mask) on the card."""
     from mvedit_tpu_torch.models.mesh import (StructuredTetGrid,
                                               marching_tets_structured)
-    if kind == "dmtet":
-        g = StructuredTetGrid(TET)
-        v = torch.as_tensor(g.verts, device=DEV)
-        sdf = 0.6 - v.norm(dim=-1) + 0.08 * torch.sin(5 * v[:, 0]) \
-            * torch.cos(4 * v[:, 1]) * torch.sin(3 * v[:, 2])
-        mt = marching_tets_structured(g, g.arrays(DEV), sdf,
-                                      vert_cap=262144, face_cap=393216)
-        verts, faces, fmask = mt["verts"], mt["faces"], mt["face_mask"]
-    else:
-        m = torus_knot()
-        verts = torch.as_tensor(m.v, device=DEV)
-        faces = torch.as_tensor(m.f, device=DEV).long()
+    g = StructuredTetGrid(TET)
+    v = torch.as_tensor(g.verts, device=DEV)
+    sdf = 0.6 - v.norm(dim=-1) + 0.08 * torch.sin(5 * v[:, 0]) \
+        * torch.cos(4 * v[:, 1]) * torch.sin(3 * v[:, 2])
+    mt = marching_tets_structured(g, g.arrays(DEV), sdf,
+                                  vert_cap=262144, face_cap=393216)
+    return mt["verts"], mt["faces"], mt["face_mask"]
+
+
+def _raster_soup(kind):
+    """(verts, faces, face_mask) on the card: a DMTet surface at tet 128 of
+    a bumpy sphere, the torus knot, or (kind "atlas") the per-triangle
+    grid atlas of that DMTet surface as the UV bake rasterizes it (verts
+    (u, v, 1), to be scaled by the atlas size). Each has 12 large
+    triangles added so that the tiles' big list wins pixels too."""
+    if kind == "atlas":
+        from mvedit_tpu_torch.models.mesh import Mesh
+        verts, faces, fmask = _dmtet_surface()
+        f = faces[fmask].cpu().numpy()
+        m = Mesh(v=np.zeros((int(f.max()) + 1, 3), np.float32), f=f)
+        m.auto_uv()
+        uv = torch.as_tensor(m.vt, device=DEV)
+        verts = torch.cat([uv, torch.ones_like(uv[:, :1])], -1)
+        faces = torch.as_tensor(m.ft, device=DEV).long()
         fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=DEV)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
-    # corners up to 0.6 from a centre within 0.5 of the origin: wider than
-    # span tiles at every case's size, so they go to the big list
-    ctr = torch.rand((12, 1, 3), generator=gen, device=DEV) - 0.5
-    big_v = (ctr + (torch.rand((12, 3, 3), generator=gen, device=DEV) * 2 - 1)
-             * 0.6).reshape(-1, 3)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+        ctr = torch.rand((12, 1, 2), generator=gen, device=DEV)
+        big = (ctr + (torch.rand((12, 3, 2), generator=gen, device=DEV)
+                      * 2 - 1) * 0.2).reshape(-1, 2)
+        big_v = torch.cat([big, torch.ones_like(big[:, :1])], -1)
+    else:
+        if kind == "dmtet":
+            verts, faces, fmask = _dmtet_surface()
+        else:
+            m = torus_knot()
+            verts = torch.as_tensor(m.v, device=DEV)
+            faces = torch.as_tensor(m.f, device=DEV).long()
+            fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+        # corners up to 0.6 from a centre within 0.5 of the origin: wider
+        # than span tiles at every case's size, so they go to the big list
+        ctr = torch.rand((12, 1, 3), generator=gen, device=DEV) - 0.5
+        big_v = (ctr + (torch.rand((12, 3, 3), generator=gen, device=DEV)
+                        * 2 - 1) * 0.6).reshape(-1, 3)
     big_f = torch.arange(12 * 3, device=DEV).reshape(12, 3) + verts.shape[0]
     return (torch.cat([verts, big_v]), torch.cat([faces, big_f]),
             torch.cat([fmask, torch.ones(12, dtype=torch.bool, device=DEV)]))
@@ -421,14 +479,18 @@ def phase_raster_kernel():
     log(f"[raster] bounds: winners differ at <= {MAX_ID_MISMATCH:g} of the "
         f"pixels, keys within {KEY_RTOL:g} relative where they agree")
     rows, failed, soups = [], [], {}
-    for name, size, span, k, kind in RASTER_CASES:
+    for name, size, span, k, k_big, kind in RASTER_CASES:
         if kind not in soups:
             soups[kind] = _raster_soup(kind)
         verts, faces, fmask = soups[kind]
-        poses, intr, _ = _rig(size)
-        cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k)
-        pts = project_mesh(verts, pose_to_w2c(torch.as_tensor(
-            poses[0], device=DEV)), torch.as_tensor(intr[0], device=DEV))
+        cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
+                           k_big=k_big)
+        if kind == "atlas":
+            pts = verts * torch.tensor([size, size, 1.0], device=DEV)
+        else:
+            poses, intr, _ = _rig(size)
+            pts = project_mesh(verts, pose_to_w2c(torch.as_tensor(
+                poses[0], device=DEV)), torch.as_tensor(intr[0], device=DEV))
         cand, cval = candidates(pts, faces, fmask, cfg)
         args = (pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
         bk, kk = raster_select(*args)
@@ -644,6 +706,239 @@ def phase_mesh(runner):
     return launches, ctx
 
 
+def phase_lpips():
+    """LPIPS with bf16 weights (the runner's cast at full size) against the
+    same seeded VGG16 in f32, on 128^2 patches (the fits' patch size)."""
+    from mvedit_tpu_torch.models.losses import lpips_apply, lpips_init
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    p32 = lpips_init(gen, DEV)
+    p16 = {"convs": [{k: v.bfloat16() for k, v in c.items()}
+                     for c in p32["convs"]],
+           "lins": [v.bfloat16() for v in p32["lins"]]}
+    pred, tgt = (torch.rand((4, 128, 128, 3), generator=gen, device=DEV)
+                 for _ in range(2))
+    d32 = float(lpips_apply(p32, pred, tgt))
+    d16 = float(lpips_apply(p16, pred, tgt))
+    rel = abs(d16 - d32) / d32
+    ok = d32 > 0 and rel <= LPIPS_BF16_RTOL
+    log(f"[lpips] bf16 {d16:.6f} against f32 {d32:.6f}: relative {rel:.3e} "
+        f"(bound {LPIPS_BF16_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bf16 LPIPS is off its f32 value")
+
+
+class _PartCounter:
+    """Counts the raster kernel's launches in named parts of a request by
+    wrapping the pipeline's methods (the launches themselves are counted
+    by the kernel's wrapper) and keeps the fits' loss histories."""
+
+    def __init__(self, runner):
+        from mvedit_tpu_torch.kernels import raster_select as RS
+        from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+        self.RS, self.P, self.runner = RS, MVEdit3DPipeline, runner
+        self.parts, self.losses, self._saved = {}, [], []
+
+    def _count(self, part, fn):
+        def wrapped(*a, **k):
+            before = self.RS.raster_select.launches
+            try:
+                return fn(*a, **k)
+            finally:
+                self.parts[part] = self.parts.get(part, 0) + (
+                    self.RS.raster_select.launches - before)
+        return wrapped
+
+    def _patch(self, obj, name, new):
+        self._saved.append((obj, name, obj.__dict__.get(name)))
+        setattr(obj, name, new)
+
+    def __enter__(self):
+        P, cnt = self.P, self
+
+        def fit_fns(name, part):
+            orig = getattr(P, name)
+
+            def method(pipe, *a, **k):
+                run, *rest = orig(pipe, *a, **k)
+
+                def run2(*ra, **rk):
+                    out = cnt._count(part, run)(*ra, **rk)
+                    cnt.losses.append(out[-1]["loss"])
+                    return out
+                run2.__dict__.update(run.__dict__)
+                return (run2, *rest)
+            return method
+        self._patch(P, "_nerf_fit_fns", fit_fns("_nerf_fit_fns", "nerf_fit"))
+        self._patch(P, "_mesh_fit_fns", fit_fns("_mesh_fit_fns", "mesh_fit"))
+        for name, part in (("_render_all", "render_all"),
+                           ("_extract_and_bake", "bake")):
+            orig = getattr(P, name)
+            self._patch(P, name, (lambda o, pt: lambda pipe, *a, **k:
+                                  self._count(pt, o)(pipe, *a, **k))(
+                                      orig, part))
+        self._patch(self.runner, "load_init_mesh", self._count(
+            "load_init_mesh", self.runner.load_init_mesh))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in reversed(self._saved):
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def phase_request(runner, tmp):
+    """`run_3d_to_3d` at full width, twice (see the module doc). Returns the
+    raster kernel's launches per part and the flash kernel's, summed over
+    both requests, and what the tet-256 phase reuses."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.models.mesh import Mesh
+    from mvedit_tpu_torch.utils import profiling as PR
+    knot = torus_knot()
+    src = os.path.join(tmp, "knot.glb")
+    Mesh(v=knot.v, f=knot.f).write_glb(src)
+    log(f"[request] cuts in depth: steps {REQ_STEPS} (of 24), "
+        f"init_inverse_steps {REQ_INIT_INV} (of 256), n_inverse_steps "
+        f"{REQ_N_INV} (of 80), tet_init_inverse_steps {REQ_TET_INIT} (of "
+        f"120); {REQ_VIEWS} views, 512^2, tet {TET}, LPIPS and SRVGG on")
+    shapes, kernel = {}, TA.flash_attention
+
+    def recording(q, k, v):
+        key = tuple(q.shape) if q.shape == k.shape else \
+            (tuple(q.shape), tuple(k.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+        return kernel(q, k, v)
+    out, total_parts, total_fa = None, {}, 0
+    for run in ("cold", "warm"):
+        dst = os.path.join(tmp, f"out_{run}.glb")
+        pt = PR.PhaseTimer()
+        PR.set_phase_timer(pt)
+        TA.flash_attention = recording
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _PartCounter(runner) as parts:
+                out = runner.run_3d_to_3d(
+                    src, "a golden torus knot, studio light", seed=SEED,
+                    steps=REQ_STEPS, num_views=REQ_VIEWS,
+                    init_inverse_steps=REQ_INIT_INV,
+                    n_inverse_steps=REQ_N_INV,
+                    tet_init_inverse_steps=REQ_TET_INIT, out_path=dst)
+                torch.cuda.synchronize()
+        finally:
+            TA.flash_attention = kernel
+            PR.set_phase_timer(None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        fa = flash_attention.launches
+        mesh = out["mesh"]
+        back = Mesh.load(dst)
+        losses = torch.cat([x.float().flatten() for x in parts.losses])
+        ok = (mesh is not None and back.albedo is not None
+              and len(back.f) > 0 and mesh.albedo.shape == (1024, 1024, 3)
+              and np.isfinite(mesh.albedo).all()
+              and bool(torch.isfinite(losses).all()) and fa > 0
+              and min(parts.parts.get(k, 0) for k in (
+                  "load_init_mesh", "mesh_fit", "render_all", "bake")) > 0)
+        log(f"[request] {run}: {wall:.3f} s wall, peak memory allocated "
+            f"{peak / 2**30:.2f} GiB; GLB {len(back.f)} faces, albedo "
+            f"{mesh.albedo.shape if mesh is not None else None}, "
+            f"{losses.numel()} fit losses (first {float(losses[0]):.4f}, "
+            f"last {float(losses[-1]):.4f}) {'ok' if ok else 'FAIL'}")
+        for name, sec in pt.report().items():
+            log(f"[request] {run}   phase {name}: {sec:.3f} s over "
+                f"{pt.counts[name]} ticks: " + ", ".join(
+                    f"{d:.3f} {sg}" for d, sg in zip(pt.durations[name],
+                                                     pt.sigs[name])))
+        log(f"[launches] {run} request: flash_attention {fa}; raster_select "
+            + ", ".join(f"{v} in {k}" for k, v in parts.parts.items()))
+        if not ok:
+            raise AssertionError("the run_3d_to_3d request failed its checks")
+        total_fa += fa
+        for k, v in parts.parts.items():
+            total_parts[k] = total_parts.get(k, 0) + v
+    log("[request] flash_attention shapes over both requests (calls): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
+    missing = [k for k in shapes if (k, 1.0) not in
+               [(c[0], c[1]) for c in KERNEL_CASES]]
+    if missing:
+        raise AssertionError(f"request shapes not checked in phase 3: "
+                             f"{missing}")
+    return total_parts, total_fa, dict(out=out, src=src)
+
+
+def phase_tet256(runner, ctx):
+    """Tet 256 on the request's fitted field: the switch, a cut first fit,
+    then decimation (`mesh_reduction` 0.5), a cut texture refinement and
+    the bake."""
+    from mvedit_tpu_torch.models.mesh_fit import mesh_caps
+    from mvedit_tpu_torch.native import native_available
+    from mvedit_tpu_torch.pipelines.mvedit_3d import (GeneratorDraws,
+                                                      MVEdit3DPipeline)
+    if not native_available():
+        raise AssertionError("the QEM decimation library did not build: "
+                             "the tet-256 phase would skip it")
+    m = runner.load_stable_diffusion()
+    m.lpips_params = runner.load_lpips()
+    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV,
+                             tet_resolution=TET_BIG,
+                             mesh_simplify_texture_steps=REFINE_STEPS)
+    # 128 / 256, as `_mvedit_cfg` sets it at tet 256
+    pipe = MVEdit3DPipeline(m, dataclasses.replace(cfg, mesh_reduction=0.5))
+    poses, intr, lights = _rig(SIZE)
+    init = runner.load_init_mesh(torus_knot(), poses, intr, SIZE, lights)
+    t = {k: torch.as_tensor(v, device=DEV) for k, v in
+         (("poses", poses), ("intrinsics", intr), ("cam_lights", lights))}
+    targets = {"images": init["images"], "masks": init["masks"],
+               "cam_weights": torch.ones(REQ_VIEWS, device=DEV), **t}
+    field = {"table": {k: v.detach().clone() for k, v in
+                       ctx["out"]["nerf_params"]["table"].items()},
+             "mlp": [{k: v.detach().clone() for k, v in l.items()}
+                     for l in ctx["out"]["nerf_params"]["mlp"]]}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tet_grid, state, opt = pipe._init_mesh_phase(field, device=DEV)
+    torch.cuda.synchronize()
+    t_switch = time.perf_counter() - t0
+    run, _, _ = pipe._mesh_fit_fns(tet_grid, TET_BIG_FIT)
+    t0 = time.perf_counter()
+    state, opt, out = run(state, opt, targets,
+                          sched=pipe._sched_weights(0.65, "mesh"),
+                          generator=gen, lpips_params=m.lpips_params)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    mt = out["mt"]
+    # n_faces counts every crossing; past the cap (as the reference's
+    # static buffers) faces are dropped and `face_mask` keeps the rest
+    nf, kept = int(mt["n_faces"]), int(mt["face_mask"].sum())
+    fcap = mesh_caps(TET_BIG)[1]
+    t0 = time.perf_counter()
+    mesh = pipe._extract_and_bake(state, mt, targets, GeneratorDraws(gen),
+                                  m.lpips_params)
+    torch.cuda.synchronize()
+    t_bake = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ok = (bool(torch.isfinite(out["loss"]).all()) and 0 < kept <= fcap
+          and mesh is not None and len(mesh.f) <= 0.55 * kept
+          and np.isfinite(mesh.albedo).all())
+    log(f"[tet256] switch {t_switch:.3f} s ({TET_BIG + 1}^3 = "
+        f"{(TET_BIG + 1) ** 3} verts); {TET_BIG_FIT} fit steps {t_fit:.3f} "
+        f"s, loss {float(out['loss'][0]):.4f} -> "
+        f"{float(out['loss'][-1]):.4f}; {nf} faces extracted, {kept} kept "
+        f"(cap {fcap}); decimation to "
+        f"{len(mesh.f) if mesh is not None else None} faces + "
+        f"{REFINE_STEPS} refine steps + bake {t_bake:.3f} s; peak "
+        f"{peak / 2**30:.2f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tet-256 phase failed its checks")
+
+
 # kernel families by name, first match wins
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
@@ -742,10 +1037,10 @@ def _report(out_dir, label, window):
 
 def phase_profile(runner, out_dir, mesh_ctx):
     """`torch.profiler` over one warm `run_text_to_img` request, two warm
-    denoise timesteps (the first of three is the profiler's warm-up) and
-    two warm 2-step mesh fit chunks. The profiler's own host cost per op
-    widens the gaps, so the idle share under it bounds the unprofiled one
-    from above."""
+    denoise timesteps (the first of three is the profiler's warm-up), two
+    warm 2-step mesh fit chunks and two warm 8-step NeRF fit chunks at
+    256^2 (LPIPS on). The profiler's own host cost per op widens the gaps,
+    so the idle share under it bounds the unprofiled one from above."""
     from torch.profiler import ProfilerActivity, profile, schedule
     os.makedirs(out_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -785,6 +1080,50 @@ def phase_profile(runner, out_dir, mesh_ctx):
                 torch.cuda.synchronize()
             prof.step()
     _report(out_dir, "mesh_fit", "fit_chunk")
+    log("[profile] NeRF fit chunks (8 steps each, 256^2) under the "
+        "profiler:")
+    from mvedit_tpu_torch.models.fields import ingp_init
+    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+    m = runner.load_stable_diffusion()
+    m.lpips_params = runner.load_lpips()
+    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV)
+    pipe = MVEdit3DPipeline(m, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    field = ingp_init(cfg.ingp, gen, DEV)
+    run, make_opt = pipe._nerf_fit_fns(256, 8)
+    opt = make_opt(field)
+    grid = OccupancyGrid.create(cfg.render.grid_size, device=DEV)
+    tgt = pipe._resize_targets(c["targets"], 256)
+    with profile(activities=acts, on_trace_ready=export("nerf_fit"),
+                 schedule=schedule(wait=0, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        for _ in range(3):
+            with R("nerf_chunk"):
+                field, opt, grid, out = run(
+                    field, opt, grid, tgt,
+                    sched=pipe._sched_weights(0.5, "nerf"),
+                    lpips_params=m.lpips_params, generator=gen)
+                torch.cuda.synchronize()
+            prof.step()
+    _report(out_dir, "nerf_fit", "nerf_chunk")
+    log("[profile] render-all of 16 views at 256^2 (NeRF branch) and the "
+        "SRVGG enhancer to 512^2 under the profiler:")
+    views = {"poses": c["targets"]["poses"][:16],
+             "intrinsics": c["targets"]["intrinsics"][:16]}
+    enhance = runner.load_image_enhancer()
+    with profile(activities=acts, on_trace_ready=export("render_all"),
+                 schedule=schedule(wait=0, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        for _ in range(3):
+            with R("render_all"):
+                with R("nerf_render"):
+                    r = pipe._render_all(field, None, None, grid, views, 256)
+                with R("srvgg"):
+                    enhance(r["rgb"], 512)
+                torch.cuda.synchronize()
+            prof.step()
+    _report(out_dir, "render_all", "render_all")
 
 
 def main():
@@ -796,8 +1135,9 @@ def main():
                                          "flash_fwd"),
                     help="with --kernels-only: check this kernel only")
     ap.add_argument("--profile", metavar="OUT_DIR",
-                    help="after the run, profile a warm request and two "
-                         "warm denoise timesteps into OUT_DIR")
+                    help="after the run, profile a warm text-to-image "
+                         "request, denoise timesteps, mesh and NeRF fit "
+                         "chunks into OUT_DIR")
     args = ap.parse_args()
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
@@ -815,6 +1155,8 @@ def main():
         raster_rows = phase_raster_kernel()
     if "flash_fwd" in todo:
         fwd_rows, fwd_worst = phase_flash_fwd()
+    if not args.kernel:
+        phase_lpips()
     if args.kernels_only:
         log(f"[kernels-only] {', '.join(todo)}: every kernel agrees with "
             f"its plain version")
@@ -833,6 +1175,11 @@ def main():
         raise AssertionError("the main path did not launch flash_attention")
     # the mesh path: counted part by part inside
     mesh_launches, mesh_ctx = phase_mesh(runner)
+    # the whole request, twice: counted part by part inside
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        req_launches, req_flash, req_ctx = phase_request(runner, tmp)
+        phase_tet256(runner, req_ctx)
     # the JAX package's own flash API is on no path of the system (nothing
     # outside its file calls it there): its count over both paths is 0
     fwd_launches = flash_fwd.launches
@@ -851,12 +1198,14 @@ def main():
         {"name": "flash_attention", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
-         "launches": launches, "max_abs_err": worst, "ms": hot["ms"],
+         "launches": launches + req_flash, "max_abs_err": worst,
+         "ms": hot["ms"],
          "plain_ms": hot["plain_ms"]},
         {"name": "raster_select", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
-         "launches": sum(mesh_launches.values()),
+         "launches": sum(mesh_launches.values())
+         + sum(req_launches.values()),
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
          "ms": rhot["ms"], "plain_ms": rhot["plain_ms"]},

@@ -1,14 +1,18 @@
 """Endpoints (mixed into Adapter3DRunner).
 
-Counterpart of `mvedit_tpu/apis/endpoints.py`; so far `run_text_to_img`
-and `load_init_mesh` (the init-mesh renders `run_3d_to_3d` starts from).
+Counterpart of `mvedit_tpu/apis/endpoints.py`; so far `run_text_to_img`,
+`load_init_mesh` and `run_3d_to_3d` (mesh editing: init renders -> the
+MVEdit loop -> a textured GLB). Texture superres (`superres=True`) waits
+for its slice.
 """
 import numpy as np
 import torch
 
+from . import cameras as C
 from ..models.diffusion import schedulers as S
 from ..models.mesh import RasterConfig, render_views
 from ..ops.tonemapping import Tonemapping
+from ..utils import camera as cam_utils
 from ..utils.geometry import normalize_depth
 
 __all__ = ["EndpointsMixin"]
@@ -86,3 +90,164 @@ class EndpointsMixin:
             lat, state = S.dpmsolver_step(sch, lat, g, int(t), tp, state)
         img = m.vae.decode(lat)
         return ((img[0] + 1) / 2).clamp(0, 1).float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def _mvedit_cfg(self, num_views, steps, n_inverse_steps,
+                    init_inverse_steps, keep_first_views=0, mode="2-pass",
+                    **overrides):
+        from ..models.fields import INGPConfig
+        from ..models.volume_renderer import RenderConfig
+        from ..ops.dense_grid import DenseGridConfig
+        from ..pipelines.mvedit_3d import MVEdit3DConfig
+        tiny = self.tiny
+        ingp = INGPConfig(backend="dense", dense=DenseGridConfig(
+            resolutions=(8, 32) if tiny else (32, 160)))
+        tet_resolution = overrides.pop("tet_resolution", 16 if tiny else 128)
+        return MVEdit3DConfig(
+            num_views=num_views,
+            # view schedule 32 -> 16 -> 9, clamped for small rigs
+            mid_num_views=overrides.pop("mid_num_views", min(16, num_views)),
+            min_num_views=overrides.pop("min_num_views", min(9, num_views)),
+            keep_first_views=keep_first_views,
+            render_size=64 if tiny else 512,
+            render_size_ramp=overrides.pop("render_size_ramp", not tiny),
+            diffusion_steps=steps,
+            n_inverse_steps=n_inverse_steps,
+            init_inverse_steps=init_inverse_steps,
+            tet_init_inverse_steps=overrides.pop(
+                "tet_init_inverse_steps", 8 if tiny else 120),
+            tet_resolution=tet_resolution,
+            # decimation above the reference's 128 grid
+            mesh_reduction=min(1.0, 128 / tet_resolution),
+            patch_size=16 if tiny else 128,
+            mode=mode,
+            use_lpips=overrides.pop("use_lpips", not tiny),
+            ingp=ingp,
+            render=RenderConfig(num_samples=32 if tiny else 128,
+                                grid_size=16 if tiny else 128),
+            **overrides)
+
+    @staticmethod
+    def _join_prompts(prompt, aux):
+        return ", ".join(p for p in (prompt, aux) if p)
+
+    def _parse_nerf_mesh(self, kwargs, task_overrides=None):
+        """The public nerf_mesh parameter schema: defaults <- per-task
+        overrides <- caller kwargs (None keeps the default)."""
+        from . import parameters as P
+        nk = dict(P.nerf_mesh_defaults)
+        nk.update(task_overrides or {})
+        for k, v in kwargs.items():
+            if k in nk and v is not None:
+                nk[k] = v
+        return nk
+
+    def _cfg_from_schema(self, nk, num_views, keep_first_views=0,
+                         default_init_steps=None):
+        """nerf_mesh schema dict -> MVEdit3DConfig."""
+        tiny = self.tiny
+        return self._mvedit_cfg(
+            num_views,
+            nk["steps"] or (2 if tiny else 24),
+            nk["n_inverse_steps"] or (4 if tiny else 80),
+            nk["init_inverse_steps"] or default_init_steps
+            or (8 if tiny else 256),
+            keep_first_views=keep_first_views,
+            mode=nk["mvedit_mode"],
+            guidance_scale=float(nk["cfg_scale"]),
+            denoising_strength=float(nk["denoising_strength"]
+                                     if nk["denoising_strength"]
+                                     is not None else 1.0),
+            mid_num_views=min(16, num_views),
+            min_num_views=min(int(nk["min_num_views"]), num_views),
+            patch_bs=int(nk["patch_bs_nerf"]),
+            alpha_soften=float(nk["alpha_soften"]),
+            start_normal_reg_weight=float(nk["normal_reg_weight"]),
+            start_entropy_weight=float(nk["start_entropy_weight"]),
+            end_entropy_weight=float(nk["end_entropy_weight"]),
+            entropy_d=float(nk["entropy_d"]),
+            mesh_smoothness=float(nk["mesh_smoothness"]),
+            start_lr=float(nk["start_lr"]),
+            end_lr=float(nk["end_lr"]),
+            tet_init_inverse_steps=(2 if tiny
+                                    else int(nk["tet_init_inverse_steps"])),
+            **({"tet_resolution": int(nk["tet_resolution"])}
+               if nk["tet_resolution"] else {}))
+
+    def run_3d_to_3d(self, mesh_path, prompt, negative_prompt="", seed=42,
+                     steps=None, num_views=None, n_inverse_steps=None,
+                     init_inverse_steps=None, instruct=False,
+                     front_view_id=None, out_path=None, draws=None,
+                     **kwargs):
+        """Mesh editing: render the input mesh's views -> the MVEdit
+        denoise <-> reconstruct loop -> a textured mesh (GLB at
+        `out_path`). Extra kwargs follow the public nerf_mesh parameter
+        schema (`apis/parameters.py`). front_view_id (an index into the
+        preprocessing turntable) weights the views by a von Mises pdf
+        around its azimuth and appends per-view direction prompts. The
+        random draws come from a generator seeded with `seed`, or from
+        `draws` (see `pipelines.mvedit_3d.GeneratorDraws`)."""
+        from ..pipelines.mvedit_3d import MVEdit3DPipeline
+        from . import parameters as P
+        if kwargs.get("superres", False):
+            raise NotImplementedError("texture superres is not ported yet")
+        dev = self.device
+        num_views = num_views or (3 if self.tiny else 32)
+        m = self.load_stable_diffusion()
+        m.controlnets = self.load_controlnets(
+            ("tile", "depth", "ip2p") if instruct else ("tile", "depth"))
+        m.segment_fn = None
+        m.lpips_params = self.load_lpips()
+        m.enhance_fn = None if self.tiny else self.load_image_enhancer()
+        pre = self.run_mesh_preproc(mesh_path)
+        mesh = pre["mesh"]
+        c = self.constants
+        # instruct mode: 1-pass, cfg 5.0, the ip2p net on the source renders
+        nk = self._parse_nerf_mesh(
+            dict(kwargs, steps=steps, n_inverse_steps=n_inverse_steps,
+                 init_inverse_steps=init_inverse_steps),
+            P.instruct_3d_to_3d_params if instruct
+            else P.text_3d_to_3d_params)
+        prompt = self._join_prompts(prompt, nk["aux_prompt"])
+        negative_prompt = self._join_prompts(negative_prompt,
+                                             nk["aux_negative_prompt"])
+        cfg = self._cfg_from_schema(nk, num_views)
+        rng = np.random.default_rng(seed)
+        poses, intr = C.surround_rig(
+            num_views, c["proc_3d_to_3d_camera_distance"],
+            c["proc_3d_to_3d_fov"], c["proc_3d_to_3d_min_elev"],
+            c["proc_3d_to_3d_max_elev"], cfg.render_size, rng=rng)
+        lights, _ = cam_utils.light_sampling(poses, rng=rng)
+        init = self.load_init_mesh(mesh, poses, intr, cfg.render_size,
+                                   lights)
+        # no normal supervision: the reference passes normal_model=None
+        cam_weights = np.ones((num_views,), np.float32)
+        prompts = [prompt] * num_views
+        if front_view_id is not None and \
+                0 <= front_view_id < c["preproc_num_views"]:
+            from scipy.stats import vonmises
+            front_azi = front_view_id / c["preproc_num_views"] * 2 * np.pi
+            cam_azi = np.arctan2(poses[:, 1, 3], poses[:, 0, 3])
+            cam_weights = (vonmises.pdf(
+                cam_azi, loc=front_azi,
+                kappa=c["vonmises_kappa"]) * 2 * np.pi).astype(np.float32)
+            prompts = [self._join_prompts(prompt, s_) for s_ in
+                       cam_utils.view_prompts(poses, front_azi)]
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        targets = {"images": init["images"], "masks": init["masks"],
+                   "poses": t(poses), "intrinsics": t(intr),
+                   "cam_weights": t(cam_weights), "cam_lights": t(lights)}
+        pos, neg = self.encode_prompt(m, prompts,
+                                      [negative_prompt] * num_views)
+        pipe = MVEdit3DPipeline(m, cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out = pipe(targets, pos.clone(), neg.clone(), generator=gen,
+                   draws=draws)
+        if out_path and out["mesh"] is not None:
+            out["mesh"].v = (out["mesh"].v / pre["scale"]
+                             + pre["center"]).astype(np.float32)
+            out["mesh"].write(out_path, flip_yz=True)
+        return out

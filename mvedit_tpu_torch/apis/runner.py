@@ -1,16 +1,19 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
-Counterpart of `mvedit_tpu/apis/runner.py`, for the parts the ported
-slices need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and depth
-ControlNets, prompt encoding, and the rig constants of `run_3d_to_3d`
-(`constants`, with `apis/cameras.py` and `utils/camera.py`). Models are built on `device` with seeded
-random weights (drawn from a `torch.Generator`; loading checkpoints from
-`checkpoint_dir` is not ported yet). Full-size models store bf16 weights,
-as the reference casts them; the f32 layers compute in f32 all the same.
+Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`
+and `run_text_to_img` need: the SD1.5 UNet, VAE and CLIP text encoder, the
+tile and depth (and ip2p) ControlNets, LPIPS, the SRVGG image enhancer,
+prompt encoding, the mesh preprocessing, and the rig constants (`constants`,
+with `apis/cameras.py` and `utils/camera.py`). Models are built on `device`
+with seeded random weights (drawn from a `torch.Generator`; loading
+checkpoints from `checkpoint_dir` is not ported yet). Full-size models
+store bf16 weights, as the reference casts them; the f32 layers compute in
+f32 all the same.
 """
 import os
 import types
 
+import numpy as np
 import torch
 
 from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
@@ -18,6 +21,7 @@ from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
                                 UNet2DCondition, UNetConfig, VAEConfig,
                                 schedulers as S)
 from ..models.diffusion.tokenizer import CLIPTokenizer, HashTokenizer
+from ..models.mesh import Mesh
 from . import cameras as C
 from .endpoints import EndpointsMixin
 
@@ -123,3 +127,92 @@ class Adapter3DRunner(EndpointsMixin):
             ids = torch.as_tensor(self.tokenizer(texts), device=self.device)
             return m.text(ids.long())
         return enc(prompts), enc(negative_prompts)
+
+    def load_lpips(self):
+        """LPIPS params for the fits' patch losses: None with tiny models
+        (the pipelines then run without LPIPS), else VGG16 at its published
+        widths, seeded, bf16 (the reference's cast)."""
+        if self.tiny:
+            return None
+        if "lpips" not in self._cache:
+            from ..models.losses import lpips_init
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed)
+            params = lpips_init(gen, self.device)
+            self._cache["lpips"] = {
+                "convs": [{k: v.to(torch.bfloat16) for k, v in c.items()}
+                          for c in params["convs"]],
+                "lins": [v.to(torch.bfloat16) for v in params["lins"]]}
+        return self._cache["lpips"]
+
+    def load_image_enhancer(self):
+        """The SRVGG x4 enhancer as the pipeline's `enhance_fn(images,
+        size)`: (N, h, w, 3) renders -> (N, size, size, 3) in [0, 1]."""
+        if "enhance_fn" in self._cache:
+            return self._cache["enhance_fn"]
+        from ..models.image_enhancer import SRVGGNetCompact
+        from ..ops.image import resize_bilinear
+        net = self._build("srvgg", lambda: SRVGGNetCompact(
+            num_feat=8 if self.tiny else 64, num_conv=2 if self.tiny else 32))
+        with torch.no_grad():
+            for mod in net.body:         # PReLU slopes start at 0.25
+                if isinstance(mod, torch.nn.PReLU):
+                    mod.weight.fill_(0.25)
+
+        @torch.inference_mode()
+        def enhance_fn(images, size):
+            up = net(images.clamp(0.0, 1.0))
+            if up.shape[1] != size:
+                up = resize_bilinear(up, (size, size))
+            return up.clamp(0.0, 1.0).clone()
+
+        self._cache["enhance_fn"] = enhance_fn
+        return enhance_fn
+
+    def run_mesh_preproc(self, mesh_path, out_path=None):
+        """Load and normalise an input mesh: multi-material GLB scenes
+        merge into one atlas-packed mesh, vertex colours become a texture,
+        the mesh is scaled into a sphere of radius 0.9."""
+        mesh_path = str(mesh_path)
+        if mesh_path.endswith((".glb", ".gltf")):
+            parts = Mesh.load_glb_parts(mesh_path)
+            if len(parts) > 1:
+                from ..models.mesh.atlas import merge_meshes
+                mesh = merge_meshes(parts)
+            else:
+                mesh = parts[0]
+        else:
+            mesh = Mesh.load(mesh_path)
+        center, scale = mesh.auto_size(0.9)
+        if mesh.vn is None:
+            mesh.auto_normal()
+        if mesh.vt is None:
+            mesh.auto_uv()
+        if mesh.albedo is None and mesh.vc is not None:
+            mesh.albedo = self._vc_to_texture(mesh)
+        if out_path:
+            mesh.write(out_path)
+        return {"mesh": mesh, "center": center, "scale": scale}
+
+    @staticmethod
+    def _vc_to_texture(mesh, size=512):
+        """Vertex colours -> a UV texture: nearest UV vertex per texel, then
+        edge dilation."""
+        from scipy.spatial import cKDTree
+        from ..ops.image import edge_dilation
+        vt = np.asarray(mesh.vt)
+        ft = np.asarray(mesh.ft if mesh.ft is not None else mesh.f)
+        f = np.asarray(mesh.f)
+        vc = np.asarray(mesh.vc, np.float32)
+        # a UV vertex takes the colour of the mesh vertex of its face corner
+        uv_color = np.zeros((len(vt), 3), np.float32)
+        uv_color[ft.reshape(-1)] = vc[f.reshape(-1)]
+        yy, xx = np.mgrid[0:size, 0:size]
+        pix_uv = np.stack([(xx + 0.5) / size, (yy + 0.5) / size],
+                          axis=-1).reshape(-1, 2)
+        dist, idx = cKDTree(vt).query(pix_uv)
+        tex = uv_color[idx].reshape(size, size, 3)
+        near = (dist < 4.0 / size).reshape(size, size).astype(np.float32)
+        tex = edge_dilation(torch.from_numpy(tex), torch.from_numpy(near),
+                            n_iters=16).numpy()
+        return np.clip(tex, 0.0, 1.0)

@@ -1,7 +1,6 @@
-"""Mesh renderer: rasterize + shade (counterpart of
-`mvedit_tpu/models/mesh/renderer.py`; `render_views`, `vertex_normals` and
-`pose_to_w2c` so far, `bake_texture` and `camera_weights_uv` wait for the
-pipeline slice).
+"""Mesh renderer: rasterize + shade + bake (counterpart of
+`mvedit_tpu/models/mesh/renderer.py`; `camera_weights_uv` waits for the
+superres / retex slices).
 
 `render_views` renders the views one after another, so the raster working
 set stays at one view (the role of the reference's `sequential=True`).
@@ -12,7 +11,8 @@ from ...ops.clip import clip
 from ...ops.segment import gather_rows, segment_add
 from .rasterize import RasterConfig, interpolate, project_mesh, rasterize
 
-__all__ = ["vertex_normals", "pose_to_w2c", "render_views"]
+__all__ = ["vertex_normals", "pose_to_w2c", "render_views",
+           "bake_texture"]
 
 
 def vertex_normals(verts, faces, face_mask=None):
@@ -98,3 +98,31 @@ def render_views(verts, faces, face_mask, poses_c2w, intrinsics,
                                           *x.shape[3:])
         out = {k: pool(v) if v.dim() >= 3 else v for k, v in out.items()}
     return out
+
+
+@torch.no_grad()
+def bake_texture(verts, faces, face_mask, uvs, uv_faces, field_fn,
+                 cfg: RasterConfig, field_params=None):
+    """Bake `field_fn(field_params, xyz) -> rgb` (or `field_fn(xyz)`) into
+    a UV atlas: the mesh is rasterized in UV space (screen position = uv x
+    atlas size, z = 1), and each texel's world xyz is the UV triangle's
+    barycentric blend of its world verts.
+
+    uvs (Vt, 2) in [0, 1]; uv_faces (F, 3) into uvs, in the order of
+    `faces`. Returns (atlas rgb (H, W, 3), mask (H, W) float)."""
+    H, W = cfg.height, cfg.width
+    pts = torch.stack([uvs[:, 0] * W, uvs[:, 1] * H,
+                       torch.ones_like(uvs[:, 0])], -1)
+    rast = rasterize(pts, uv_faces, face_mask, cfg)
+    f_world = faces.long()[rast["tri_id"].clamp(min=0)]       # (H, W, 3)
+    u, v = rast["bary"][..., 0:1], rast["bary"][..., 1:2]
+    xyz = (gather_rows(verts, f_world[..., 0]) * (1 - u - v)
+           + gather_rows(verts, f_world[..., 1]) * u
+           + gather_rows(verts, f_world[..., 2]) * v)
+    rgb = field_fn(field_params, xyz) if field_params is not None \
+        else field_fn(xyz)
+    mask = (rast["tri_id"] >= 0).float()
+    # NaN * 0 guard
+    rgb = torch.where(mask[..., None] > 0, rgb,
+                      torch.zeros((), device=rgb.device, dtype=rgb.dtype))
+    return rgb, mask

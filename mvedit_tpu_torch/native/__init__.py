@@ -1,0 +1,85 @@
+"""Host-side mesh decimation (counterpart of `mvedit_tpu/native`).
+
+`decimate_qem` calls the quadric-error-metric edge collapse of
+`csrc/mesh_native.cpp`, built with g++ at first use into `_build/` and
+bound through ctypes. `native_available()` says whether the library built;
+the pipeline skips decimation without it, as the reference does.
+"""
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+__all__ = ["decimate_qem", "native_available"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "mesh_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+_LIB = os.path.join(_BUILD_DIR, "libmvedit_mesh_native.so")
+_lib = None
+_failed = False
+_lib_lock = threading.Lock()
+
+
+def _load():
+    """Build (if the library is missing or older than the source) and load
+    the library; None when it cannot be built or loaded."""
+    global _lib, _failed
+    with _lib_lock:
+        if _lib is not None or _failed:
+            return _lib
+        try:
+            if (not os.path.exists(_LIB)
+                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                os.makedirs(_BUILD_DIR, exist_ok=True)
+                tmp = f"{_LIB}.{os.getpid()}.tmp"
+                subprocess.run(["g++", "-O3", "-fPIC", "-shared",
+                                "-std=c++17", "-o", tmp, _SRC], check=True,
+                               capture_output=True, timeout=300)
+                os.replace(tmp, _LIB)
+            lib = ctypes.CDLL(_LIB)
+        except (OSError, subprocess.SubprocessError):
+            _failed = True
+            return None
+        lib.decimate_qem.restype = ctypes.c_int64
+        lib.decimate_qem.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)]
+        _lib = lib
+        return lib
+
+
+def native_available():
+    return _load() is not None
+
+
+def _ptr(arr, typ):
+    return arr.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def decimate_qem(verts, faces, target_faces):
+    """QEM simplification of (verts (V, 3), faces (F, 3)) to about
+    target_faces faces. Returns (verts', faces') float32 / int32. Raises
+    when the library is not available."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
+        raise ValueError("face index out of range")
+    if target_faces >= len(faces):
+        return verts.copy(), faces.copy()
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the mesh decimation library did not build "
+                           "(g++ needed)")
+    out_v = np.empty_like(verts)
+    out_f = np.empty_like(faces)
+    packed = lib.decimate_qem(
+        _ptr(verts, ctypes.c_float), len(verts),
+        _ptr(faces, ctypes.c_int32), len(faces),
+        ctypes.c_int64(int(target_faces)),
+        _ptr(out_v, ctypes.c_float), _ptr(out_f, ctypes.c_int32))
+    nf, nv = packed >> 32, packed & 0xFFFFFFFF
+    return out_v[:nv].copy(), out_f[:nf].copy()

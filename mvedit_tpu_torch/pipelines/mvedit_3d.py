@@ -1,30 +1,55 @@
-"""MVEdit 3D pipeline (counterpart of `mvedit_tpu/pipelines/mvedit_3d.py`;
-so far the config, the progress schedules and the DMTet mesh phase).
+"""MVEdit 3D pipeline: the denoise <-> reconstruct alternation, the
+product (counterpart of `mvedit_tpu/pipelines/mvedit_3d.py`).
 
-What is here is what `MVEdit3DPipeline.__call__` runs on every timestep
-after progress `nerf_switch_progress` (0.6): the switch to DMTet
-(`_init_mesh_phase`), the mesh fit (`_mesh_fit_fns`) with the mesh
-schedule (`_sched_weights(progress, "mesh")`), and the re-render of the
-views through the mesh branch of `_render_chunk`. The `__call__` loop, the
-NeRF phase and the bake come with later slices.
+    for t in [None] + timesteps:
+      camera schedule: prune to max_num_views(progress), gather the
+        denoise-side arrays down to the next view bucket
+      P1 denoise (2-pass: encoder once, decoder with the depth / extra
+        ControlNets; 1-pass: all ControlNets on the previous renders)
+      x0 -> VAE decode -> target views
+      3D fuse: progress <= 0.6 -> NeRF fit (render size 128 -> 256 -> 512);
+        after it -> DMTet fit
+      re-render the views [-> SRVGG enhancer when the render is < 512]
+      P2 denoise (2-pass), eps_3d from the VAE-encoded renders, blended
+        with eps_unet by 1 - sqrt(acp_t); DPM-Solver++ step of the latents
+        and of the reference rows
+    decimation + texture-only refinement (tet > 128), UV atlas, bake
 
 `fit_steps_per_program` chained TPU programs in the reference; here it
-keeps one role: the fit runs in chunks of that many steps and the frozen
-marching-tets topology is re-snapshotted at the start of each chunk, at
-the same steps as in the reference.
+keeps one role: the fits run in chunks of that many steps, and the frozen
+marching-tets topology (mesh fit) and the occupancy grid (NeRF fit) are
+refreshed at the start of each chunk, at the same steps as in the
+reference. Not ported, as TPU-only: device-mesh sharding, the executable
+evictions, `_mem_debug`, the fixed view chunks of the re-render (views
+render one after another here); nor the debug tile dumps and their
+`debug` options.
+
+Every random draw comes from a draw source (`GeneratorDraws`, one
+`torch.Generator`), so a caller can inject another one, such as the JAX
+package's draws in the parity tests.
 """
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Optional
 
 import numpy as np
 import torch
 
 from ..models import mesh_fit as MF
-from ..models.fields import FieldShading, INGPConfig, ingp_point_decode
-from ..models.mesh import RasterConfig, StructuredTetGrid, render_views
+from ..models import nerf_fit as NF
+from ..models.diffusion import schedulers as S
+from ..models.fields import (FieldColor, FieldShading, INGPConfig, ingp_init,
+                             ingp_point_decode)
+from ..models.mesh import (Mesh, RasterConfig, StructuredTetGrid,
+                           bake_texture, render_views)
+from ..models.volume_renderer import OccupancyGrid, RenderConfig
+from ..native import decimate_qem, native_available
+from ..ops.image import edge_dilation, resize_bilinear
+from ..ops.rotation import prune_cameras
+from ..utils.geometry import normalize_depth
+from ..utils.profiling import phase_timer
 
-__all__ = ["MVEdit3DConfig", "MVEdit3DPipeline", "default_max_num_views",
+__all__ = ["MVEdit3DConfig", "MVEdit3DPipeline", "GeneratorDraws",
+           "default_max_num_views",
            "default_lr_schedule", "default_render_size_p",
            "default_entropy_weight", "default_patch_rgb_weight",
            "default_patch_normal_weight", "default_normal_reg_weight",
@@ -81,7 +106,6 @@ class MVEdit3DConfig:
     keep_first_views: int = 0
     render_size: int = 512
     render_size_ramp: bool = True
-    latent_size: int = 64
     diffusion_steps: int = 24
     denoising_strength: float = 1.0
     guidance_scale: float = 7.0
@@ -95,7 +119,6 @@ class MVEdit3DConfig:
     tet_resolution: int = 64
     structured_tets: bool = True
     freeze_mesh_topology: bool = True
-    render_view_chunk: int = 2
     patch_size: int = 128
     patch_bs: int = 1
     diff_bs: int = 8
@@ -120,12 +143,9 @@ class MVEdit3DConfig:
     mesh_reduction: float = 1.0
     mesh_simplify_texture_steps: int = 24
     ingp: INGPConfig = field(default_factory=INGPConfig)
-    # the volume renderer's RenderConfig comes with the NeRF slice
-    render: Optional[object] = None
+    render: RenderConfig = field(default_factory=RenderConfig)
     mode: str = "2-pass"
     use_reference: bool = True
-    debug: int = 0
-    debug_dir: str = "/tmp/mvedit_debug"
 
     def view_buckets(self):
         b = [self.num_views]
@@ -151,8 +171,44 @@ def _ingp_color(params, xyz, ingp_cfg):
     return ingp_point_decode(params, xyz, ingp_cfg)[1]
 
 
+class GeneratorDraws:
+    """The pipeline's random draws, all from one `torch.Generator`: the
+    field init, the latent noise, and the draws of every fit chunk and of
+    the texture refinement (each fit's own `draw`)."""
+
+    def __init__(self, generator=None):
+        self.generator = generator
+
+    def field_init(self, cfg: INGPConfig, device):
+        return ingp_init(cfg, self.generator, device)
+
+    def latent_noise(self, shape, device):
+        """(init noise, reference noise), each of `shape` (one view's
+        latent: the noise is shared across the views)."""
+        return tuple(torch.randn(shape, generator=self.generator,
+                                 device=device) for _ in range(2))
+
+    def fit(self, run, targets):
+        """The per-chunk draws of a chunked fit (`_nerf_fit_fns` or
+        `_mesh_fit_fns`)."""
+        return run.draw(targets, self.generator)
+
+    def refine(self, refine, targets, n_steps):
+        return refine.draw(targets, n_steps, self.generator)
+
+
+def _take(x, ids):
+    return None if x is None else x[ids]
+
+
 class MVEdit3DPipeline:
-    """The mesh phase of the MVEdit 3D pipeline (see module doc)."""
+    """Orchestrates the phases from Python, one iteration per timestep.
+
+    `models` holds the modules: unet, controlnets (tile, depth[,
+    extra...]), vae, schedule; optionally lpips_params, enhance_fn (SRVGG
+    upsampler), segment_fn. The mesh-phase helpers also run with
+    models=None.
+    """
 
     def __init__(self, models, cfg: MVEdit3DConfig):
         self.m = models
@@ -160,6 +216,93 @@ class MVEdit3DPipeline:
         self._decode_fn = partial(_ingp_decode, ingp_cfg=cfg.ingp)
         self._color_fn = partial(_ingp_color, ingp_cfg=cfg.ingp)
         self._fit_cache = {}
+
+    # ---------------- phases --------------------------------------------
+
+    def _vae_decode(self):
+        return self._chunk_views(self.m.vae.decode)
+
+    def _vae_encode(self):
+        return self._chunk_views(self.m.vae.encode)
+
+    def _chunk_views(self, fn):
+        """fn over the view axis in chunks of `diff_bs` (the remainder
+        padded up to one chunk), in inference mode, as float32."""
+        from .denoise import chunk_view_batches
+        run = chunk_view_batches(fn, self.cfg.diff_bs)
+
+        def call(x):
+            with torch.inference_mode():
+                out = run(x)
+            return out.float().clone()
+        return call
+
+    def _denoise(self, num_views):
+        from .denoise import (DenoiseModels, make_chunked_noise_pred_1pass,
+                              make_chunked_noise_pred_2pass,
+                              make_noise_pred_1pass, make_noise_pred_2pass)
+        cfg = self.cfg
+        # diff_bs view chunking is exact in use_reference mode
+        chunked = cfg.use_reference and 0 < cfg.diff_bs < num_views
+        key = ("denoise", "chunked" if chunked else num_views, cfg.mode)
+        if key not in self._fit_cache:
+            dm = DenoiseModels(unet=self.m.unet,
+                               controlnets=tuple(self.m.controlnets),
+                               num_views=num_views,
+                               use_reference=cfg.use_reference)
+            if cfg.mode == "1-pass":
+                fns = (make_chunked_noise_pred_1pass(dm, cfg.diff_bs)
+                       if chunked else make_noise_pred_1pass(dm)), None
+            elif chunked:
+                fns = make_chunked_noise_pred_2pass(dm, cfg.diff_bs)
+            else:
+                fns = make_noise_pred_2pass(dm)
+            self._fit_cache[key] = fns
+        return self._fit_cache[key]
+
+    def _chunks(self, n_steps):
+        L = n_steps if self.cfg.fit_steps_per_program <= 0 \
+            else min(n_steps, self.cfg.fit_steps_per_program)
+        return [L] * (n_steps // L) + ([n_steps % L] if n_steps % L else [])
+
+    def _nerf_fit_fns(self, rs, n_steps):
+        """(fit, make_optimizer) for render size rs; `fit` runs n_steps in
+        chunks of `fit_steps_per_program`, the occupancy grid refreshed at
+        the first step of each."""
+        cfg = self.cfg
+        use_lpips = cfg.use_lpips and \
+            getattr(self.m, "lpips_params", None) is not None
+
+        def get(steps):
+            key = ("nerf", rs, steps)
+            if key not in self._fit_cache:
+                fit_cfg = NF.NerfFitConfig(
+                    render=cfg.render, patch_size=min(cfg.patch_size, rs),
+                    patch_bs=cfg.patch_bs, n_steps=steps,
+                    alpha_soften=cfg.alpha_soften, bg_width=cfg.entropy_d)
+                self._fit_cache[key] = (fit_cfg,) + NF.make_nerf_fit(
+                    self._decode_fn, fit_cfg, rs, use_lpips=use_lpips)
+            return self._fit_cache[key]
+
+        chunks = self._chunks(n_steps)
+
+        def run(params, opt, grid, tgt, sched=None, lpips_params=None,
+                draws=None, generator=None):
+            """draws: None, or a list with one `fit` draws dict per chunk."""
+            hists = []
+            for i, steps in enumerate(chunks):
+                params, opt, grid, out = get(steps)[1](
+                    params, opt, grid, tgt, sched=sched,
+                    lpips_params=lpips_params,
+                    draws=None if draws is None else draws[i],
+                    generator=generator)
+                hists.append(out["loss"])
+            return params, opt, grid, {"loss": torch.cat(hists)}
+        run.kind, run.chunks, run.render_size = "nerf", chunks, rs
+        run.fit_cfg = get(chunks[0])[0]
+        run.draw = lambda tgt, generator: [
+            get(s)[1].draw(tgt, s, generator) for s in chunks]
+        return run, get(chunks[0])[2]
 
     def _mesh_raster_cfg(self, rs):
         # DMTet soups are many small triangles: tight span, deep per-tile
@@ -186,37 +329,54 @@ class MVEdit3DPipeline:
                     patch_size=min(cfg.patch_size, cfg.render_size),
                     freeze_topology=(cfg.freeze_mesh_topology
                                      and cfg.structured_tets))
-                self._fit_cache[key] = MF.make_mesh_fit(
+                self._fit_cache[key] = (mcfg,) + MF.make_mesh_fit(
                     tet_grid, self._color_fn, mcfg)
             return self._fit_cache[key]
 
-        L = n_steps if cfg.fit_steps_per_program <= 0 \
-            else min(n_steps, cfg.fit_steps_per_program)
-        chunks = [L] * (n_steps // L) + ([n_steps % L] if n_steps % L else [])
-        _, make_opt, extract = get(L)
+        chunks = self._chunks(n_steps)
+        _, _, make_opt, extract = get(chunks[0])
 
-        def run(state, opt, tgt, sched=None, draws=None, generator=None):
+        def run(state, opt, tgt, sched=None, draws=None, generator=None,
+                lpips_params=None):
             """draws: None, or a list with one `fit` draws dict per chunk."""
             hists, out = [], None
             for i, steps in enumerate(chunks):
-                state, opt, out = get(steps)[0](
+                state, opt, out = get(steps)[1](
                     state, opt, tgt, sched=sched,
                     draws=None if draws is None else draws[i],
-                    generator=generator)
+                    generator=generator, lpips_params=lpips_params)
                 hists.append(out["loss"])
             return state, opt, {"loss": torch.cat(hists), "mt": out["mt"]}
-        run.chunks = chunks
-        # the draws of every chunk, from one generator
+        run.kind, run.chunks = "mesh", chunks
+        run.fit_cfg = get(chunks[0])[0]
+        run.face_cap = MF.mesh_caps(tet_grid.resolution)[1]
         run.draw = lambda tgt, generator: [
-            get(s)[0].draw(tgt, s, generator) for s in chunks]
+            get(s)[1].draw(tgt, s, generator) for s in chunks]
         return run, make_opt, extract
 
+    # ---------------- schedules -----------------------------------------
+
     def _sched_weights(self, progress, phase):
-        if phase != "mesh":
-            raise NotImplementedError("the NeRF phase is not ported yet")
         cfg = self.cfg
+        lr = default_lr_schedule(progress, cfg.start_lr, cfg.end_lr)
+        if phase == "nerf":
+            return {
+                "lr": lr,
+                "entropy": default_entropy_weight(
+                    progress, cfg.start_entropy_weight,
+                    cfg.end_entropy_weight),
+                "patch_rgb": default_patch_rgb_weight(
+                    progress, cfg.start_patch_rgb_weight,
+                    cfg.end_patch_rgb_weight),
+                "patch_normal": default_patch_normal_weight(
+                    progress, cfg.start_patch_normal_weight,
+                    cfg.end_patch_normal_weight),
+                "normal_reg": default_normal_reg_weight(
+                    progress, cfg.start_normal_reg_weight,
+                    cfg.end_normal_reg_weight),
+            }
         return {
-            "lr": default_lr_schedule(progress, cfg.start_lr, cfg.end_lr),
+            "lr": lr,
             "sdf_lr_mult": default_lr_multiplier(progress,
                                                  cfg.nerf_switch_progress),
             "normal_reg": cfg.mesh_normal_reg_weight,
@@ -227,6 +387,318 @@ class MVEdit3DPipeline:
                 progress, cfg.start_patch_normal_weight,
                 cfg.end_patch_normal_weight),
         }
+
+    def _resize_targets(self, tgt, rs):
+        """The supervision targets at render size rs (bilinear with the
+        reference's antialiasing when shrinking)."""
+        full = self.cfg.render_size
+        if rs == full:
+            return tgt
+        out = dict(tgt)
+        for k in ("images", "masks", "normals"):
+            if k in tgt:
+                out[k] = resize_bilinear(tgt[k], (rs, rs))
+        if "depths" in tgt:
+            out["depths"] = resize_bilinear(tgt["depths"][..., None],
+                                            (rs, rs))[..., 0]
+        out["intrinsics"] = tgt["intrinsics"] * (rs / full)
+        return out
+
+    # ---------------- main ----------------------------------------------
+
+    def __call__(self, targets, prompt_embeds, negative_embeds,
+                 generator=None, draws=None, init_latents=None,
+                 progress_callback=None, init_field_params=None,
+                 extra_control_images=None):
+        """Run the whole loop.
+
+        targets: tensors on one device: images (N, H, W, 3), masks (N, H,
+            W, 1), poses (N, 3, 4), intrinsics (N, 4), cam_weights (N,),
+            cam_lights (N, 3) [+ normals, depths, normal_weights];
+            N == cfg.num_views.
+        prompt_embeds / negative_embeds: (N, L, C) per-view text embeddings.
+        generator / draws: the random draws come from `draws` (an object
+            with `GeneratorDraws`' methods), by default from `generator`.
+        extra_control_images: (N, H, W, 3) hints of the ControlNets past
+            tile and depth (default: the initial images).
+        Returns {"mesh": Mesh or None, "nerf_params", "mesh_state",
+        "renders"}.
+        """
+        cfg, m = self.cfg, self.m
+        sch = m.schedule
+        draws = draws if draws is not None else GeneratorDraws(generator)
+        dev = targets["images"].device
+        vae_dec, vae_enc = self._vae_decode(), self._vae_encode()
+        lpips_params = getattr(m, "lpips_params", None) \
+            if cfg.use_lpips else None
+
+        # --- per-view state (the denoise side is gathered at buckets)
+        tgt = dict(targets)
+        n_extra_nets = max(len(m.controlnets) - 2, 0)
+        if extra_control_images is None and n_extra_nets:
+            extra_control_images = [tgt["images"]] * n_extra_nets
+        extra_ctrl = list(extra_control_images or [])
+        init_images, init_masks = tgt["images"], tgt["masks"]
+        pos_e, neg_e = prompt_embeds, negative_embeds
+
+        # --- the NeRF state
+        nerf_params = draws.field_init(cfg.ingp, dev) \
+            if init_field_params is None else init_field_params
+        grid = OccupancyGrid.create(cfg.render.grid_size, device=dev)
+        _, make_nerf_opt = self._nerf_fit_fns(cfg.render_sizes()[0],
+                                              cfg.n_inverse_steps)
+        nerf_opt = make_nerf_opt(nerf_params)
+
+        # --- the diffusion state
+        timesteps = S.make_timesteps(cfg.diffusion_steps,
+                                     sch.num_train_timesteps, "trailing")
+        timesteps = timesteps[int(len(timesteps)
+                                  * (1 - cfg.denoising_strength)):]
+        lat0 = vae_enc(tgt["images"] * 2.0 - 1.0) if init_latents is None \
+            else init_latents
+        # noise shared across the views (randn_like(latents[0]).expand)
+        noise, ref_noise = draws.latent_noise(lat0.shape[1:], dev)
+        t0 = int(timesteps[0])
+        latents = S.add_noise(sch, lat0, noise.expand_as(lat0), t0)
+        solver_state = S.SolverState.init(latents)
+        if cfg.use_reference:
+            # fixed clean reference latents and their on-schedule noisy
+            # counterparts, denoised in lockstep
+            ref_latents = lat0
+            ref_noisy = S.add_noise(sch, ref_latents,
+                                    ref_noise.expand_as(lat0), t0)
+            ref_solver_state = S.SolverState.init(latents)
+        else:
+            ref_latents = ref_noisy = ref_solver_state = None
+        del lat0, noise, ref_noise
+
+        mesh_state = mesh_opt = last_mt = tet_grid = None
+        ctrl_images = ctrl_depths = renders = None
+        keep_n = max(cfg.keep_first_views, 0)
+        buckets = cfg.view_buckets()
+        cur_n = cfg.num_views                # the denoise buffer's size
+        alive = (tgt["cam_weights"] > 0).cpu().numpy()
+        # the targets stay full size (pruned views keep weight 0 and are
+        # never sampled by the fits); `bsel` maps bucket rows to views
+        bsel = np.arange(cur_n)
+        one_pass = p1 = p2 = None
+        steps = [None] + list(timesteps)
+        for i, t in enumerate(steps):
+            pt = phase_timer()
+            if pt is not None:
+                pt.mark()
+            progress = i / max(len(steps) - 1, 1)
+            in_mesh_phase = progress > cfg.nerf_switch_progress
+            rs = default_render_size_p(progress, cfg.render_size) \
+                if (cfg.render_size_ramp and not in_mesh_phase) \
+                else cfg.render_size
+
+            # ---- camera schedule: prune + bucket gather
+            if i > 0:
+                target_n = max(int(round(default_max_num_views(
+                    progress, cfg.nerf_switch_progress, cfg.num_views,
+                    cfg.mid_num_views, cfg.min_num_views))), max(keep_n, 1))
+                alive_ids = np.flatnonzero(alive)
+                if target_n < len(alive_ids):
+                    poses_np = tgt["poses"].cpu().numpy()[bsel[alive_ids]]
+                    bonus = None
+                    if ctrl_images is not None:
+                        diff = ((ctrl_images - init_images) ** 2).mean(
+                            (1, 2, 3))
+                        mask_mean = init_masks.mean((1, 2, 3))
+                        bonus = (diff / (mask_mean + 0.1)).cpu().numpy()
+                        # NaN renders (an undertrained field) must not
+                        # poison the min-score comparisons
+                        bonus = np.nan_to_num(bonus[alive_ids], nan=0.0,
+                                              posinf=0.0, neginf=0.0)
+                        bonus = bonus[None, :] + bonus[:, None]
+                    kept_local = prune_cameras(
+                        poses_np, list(range(min(keep_n, len(alive_ids)))),
+                        target_n, pixel_dist_bonus=bonus)
+                    kept = set(alive_ids[kept_local].tolist())
+                    new_alive = np.array([j in kept for j in range(cur_n)])
+                    if not np.array_equal(new_alive, alive):
+                        # zero the pruned views' weights in the full buffer
+                        dead = np.setdiff1d(np.unique(bsel[~new_alive]),
+                                            np.unique(bsel[new_alive]))
+                        alive = new_alive
+                        if len(dead):
+                            cw = tgt["cam_weights"].clone()
+                            cw[torch.as_tensor(dead, device=dev)] = 0.0
+                            tgt["cam_weights"] = cw
+                # gather the denoise-side arrays down to the next bucket
+                n_alive = int(alive.sum())
+                for b in buckets:
+                    if b < cur_n and n_alive <= b:
+                        ids = np.flatnonzero(alive)[:b]
+                        if len(ids) < b:    # pad with alive duplicates
+                            ids = np.concatenate(
+                                [ids, np.repeat(ids[-1:], b - len(ids))])
+                        it = torch.as_tensor(ids, device=dev)
+                        init_images, init_masks = init_images[it], \
+                            init_masks[it]
+                        extra_ctrl = [e[it] for e in extra_ctrl]
+                        pos_e, neg_e = pos_e[it], neg_e[it]
+                        latents = latents[it]
+                        solver_state = solver_state._replace(
+                            prev_x0=solver_state.prev_x0[it])
+                        if ref_noisy is not None:
+                            ref_latents, ref_noisy = ref_latents[it], \
+                                ref_noisy[it]
+                            ref_solver_state = ref_solver_state._replace(
+                                prev_x0=ref_solver_state.prev_x0[it])
+                        ctrl_images = _take(ctrl_images, it)
+                        ctrl_depths = _take(ctrl_depths, it)
+                        one_pass = p1 = p2 = None
+                        cur_n = b
+                        alive, bsel = alive[ids], bsel[ids]
+                        break
+
+            N = cur_n
+            if p1 is None and one_pass is None:
+                if cfg.mode == "1-pass":
+                    one_pass, _ = self._denoise(N)
+                else:
+                    p1, p2 = self._denoise(N)
+
+            if t is not None:
+                # ---- P1 denoise + x0 decode
+                t_vec = torch.full((2 * N,), int(t), dtype=torch.int32,
+                                   device=dev)
+                cfg_lat = torch.cat([latents, latents], 0)
+                embeds = torch.cat([neg_e, pos_e], 0)
+                extras2 = tuple(torch.cat([e, e], 0) for e in extra_ctrl)
+                if cfg.mode == "1-pass":
+                    # all nets on the previous step's renders
+                    conds = [torch.cat([ctrl_images, ctrl_images], 0),
+                             torch.cat([ctrl_depths, ctrl_depths], 0)] \
+                        + list(extras2)
+                    scales = [cfg.tile_weight, cfg.depth_weight] + \
+                        [cfg.extra_control_scale] * len(extras2)
+                    eps = one_pass(cfg_lat, t_vec, embeds, conds, scales,
+                                   cfg.guidance_scale, ref_noisy=ref_noisy)
+                else:
+                    eps, enc_state, p1_res = p1(
+                        cfg_lat, t_vec, embeds, None, cfg.depth_weight,
+                        cfg.guidance_scale, extra_images=extras2,
+                        extra_scales=(cfg.extra_control_scale,)
+                        * len(extras2), ref_noisy=ref_noisy)
+                eps = eps.float()
+                sa, sn = sch.sqrt_acp(int(t))
+                dec = ((vae_dec((latents - sn * eps) / sa) + 1) / 2).clamp(
+                    0.0, 1.0)
+                # the bucket's decoded views into the full target buffer
+                bj = torch.as_tensor(bsel, device=dev)
+                images = tgt["images"].clone()
+                images[bj] = dec
+                tgt["images"] = images
+                if getattr(m, "segment_fn", None) is not None:
+                    masks = tgt["masks"].clone()
+                    masks[bj] = m.segment_fn(dec)
+                    tgt["masks"] = masks
+                if pt is not None:
+                    pt.tick("denoise_p1+vae_dec", tgt["images"],
+                            sig=(len(bsel), in_mesh_phase))
+
+            # ---- 3D fuse
+            if not in_mesh_phase:
+                n_steps = cfg.init_inverse_steps if t is None \
+                    else cfg.n_inverse_steps
+                fit, _ = self._nerf_fit_fns(rs, n_steps)
+                tgt_rs = self._resize_targets(tgt, rs)
+                nerf_params, nerf_opt, grid, _ = fit(
+                    nerf_params, nerf_opt, grid, tgt_rs,
+                    sched=self._sched_weights(progress, "nerf"),
+                    lpips_params=lpips_params, draws=draws.fit(fit, tgt_rs))
+                if pt is not None:
+                    pt.tick("nerf_fit", nerf_params, sig=(rs, n_steps))
+            else:
+                first_mesh_step = mesh_state is None
+                if first_mesh_step:
+                    # the NeRF phase's Adam moments go before the mesh
+                    # phase is built
+                    del nerf_opt
+                    tet_grid, mesh_state, mesh_opt = self._init_mesh_phase(
+                        nerf_params, device=dev)
+                # the first DMTet fit runs tet_init_inverse_steps
+                n_steps = cfg.tet_init_inverse_steps if first_mesh_step \
+                    else cfg.n_inverse_steps
+                mfit, _, _ = self._mesh_fit_fns(tet_grid, n_steps)
+                mesh_state, mesh_opt, fit_out = mfit(
+                    mesh_state, mesh_opt, tgt,
+                    sched=self._sched_weights(progress, "mesh"),
+                    draws=draws.fit(mfit, tgt), lpips_params=lpips_params)
+                last_mt = fit_out["mt"]
+                nerf_params = mesh_state["field"]
+                if pt is not None:
+                    pt.tick("mesh_fit", mesh_state["sdf"], sig=(n_steps,))
+
+            # ---- re-render the bucket's views -> ControlNet inputs, eps_3d
+            bj = torch.as_tensor(bsel, device=dev)
+            renders = self._render_all(nerf_params, mesh_state, last_mt,
+                                       grid, {"poses": tgt["poses"][bj],
+                                              "intrinsics":
+                                                  tgt["intrinsics"][bj]}, rs)
+            ctrl_depths = normalize_depth(renders["depth"], renders["alpha"])[
+                ..., None].expand(-1, -1, -1, 3)
+            ctrl_rgb = renders["rgb"]
+            if rs != cfg.render_size:
+                # upsample to the diffusion size: the SRVGG enhancer when
+                # present, else bilinear
+                full = (cfg.render_size, cfg.render_size)
+                enhance = getattr(m, "enhance_fn", None)
+                ctrl_rgb = enhance(ctrl_rgb, cfg.render_size) \
+                    if enhance is not None \
+                    else resize_bilinear(ctrl_rgb, full)
+                ctrl_depths = resize_bilinear(ctrl_depths, full)
+            ctrl_images = ctrl_rgb.clamp(0.0, 1.0)
+            if pt is not None:
+                pt.tick("render_all", ctrl_images,
+                        sig=(mesh_state is None, rs, len(bsel)))
+
+            if t is not None:
+                lat_3d = vae_enc(ctrl_images * 2 - 1)
+                eps_3d = (latents - sa * lat_3d) / sn
+                if cfg.mode == "1-pass":
+                    eps_unet = eps
+                else:
+                    eps_unet = p2(
+                        cfg_lat, enc_state, p1_res, t_vec, embeds,
+                        torch.cat([ctrl_images, ctrl_images], 0),
+                        torch.cat([ctrl_depths, ctrl_depths], 0),
+                        cfg.tile_weight, cfg.depth_weight,
+                        cfg.guidance_scale, ref_noisy=ref_noisy).float()
+                bw = (1.0 - sa) if cfg.blend_mode == "dynamic" else 0.5
+                eps_final = bw * eps_3d + (1 - bw) * eps_unet
+                t_prev = int(steps[i + 1]) if i + 1 < len(steps) else -1
+                latents, solver_state = S.dpmsolver_step(
+                    sch, latents, eps_final, int(t), t_prev, solver_state)
+                if ref_noisy is not None:
+                    # the reference rows stay on schedule: their eps is the
+                    # residual noise of the clean reference latents
+                    ref_eps = (ref_noisy - sa * ref_latents) / sn
+                    ref_noisy, ref_solver_state = S.dpmsolver_step(
+                        sch, ref_noisy, ref_eps, int(t), t_prev,
+                        ref_solver_state)
+                if pt is not None:
+                    pt.tick("denoise_p2+vae_enc+solver", latents,
+                            sig=(len(bsel), in_mesh_phase))
+            if progress_callback:
+                progress_callback(i, len(steps))
+
+        # ---- decimate + texture-only refinement + bake
+        pt = phase_timer()
+        if pt is not None:
+            pt.mark()
+        out_mesh = self._extract_and_bake(mesh_state, last_mt, tgt, draws,
+                                          lpips_params)
+        if pt is not None:
+            pt.tick("bake", None if out_mesh is None
+                    else torch.as_tensor(out_mesh.albedo, device=dev))
+        return {"mesh": out_mesh, "nerf_params": nerf_params,
+                "mesh_state": mesh_state, "renders": renders}
+
+    # ---------------- helpers -------------------------------------------
 
     def _init_mesh_phase(self, nerf_params, device=None):
         """The switch to DMTet (reference `__call__`, mvedit_3d.py:847-862):
@@ -246,18 +718,31 @@ class MVEdit3DPipeline:
         opt = self._mesh_fit_fns(tet_grid, cfg.n_inverse_steps)[1](state)
         return tet_grid, state, opt
 
+    def _render_all(self, nerf_params, mesh_state, last_mt, grid, tgt, rs):
+        """Render the bucket's views (poses, intrinsics at the full render
+        size) at rs, one view after another."""
+        intr = tgt["intrinsics"] * (rs / self.cfg.render_size)
+        return self._render_chunk(nerf_params, mesh_state, last_mt, grid,
+                                  tgt["poses"], intr, rs)
+
     @torch.no_grad()
     def _render_chunk(self, nerf_params, mesh_state, last_mt, grid, poses,
                       intr, rs):
-        """Render views of the current 3D state: the mesh branch (the NeRF
-        branch comes with its slice). Returns rgb (N, rs, rs, 3), depth
-        (N, rs, rs), alpha (N, rs, rs, 1)."""
+        """Render views of the current 3D state: the volume render of the
+        field before the switch, the mesh with the albedo field after it.
+        Returns rgb (N, rs, rs, 3), depth (N, rs, rs), alpha (N, rs, rs,
+        1)."""
+        cfg = self.cfg
         if mesh_state is None:
-            raise NotImplementedError("the NeRF renderer is not ported yet")
+            render = NF.make_multiview_renderer(
+                self._decode_fn, rs, rs, cfg.render, chunk=rs * 128)
+            out = render(nerf_params, poses, intr, grid)
+            return {"rgb": out["rgb"], "depth": out["depth"],
+                    "alpha": out["alpha"][..., None]}
         mt = last_mt
         out = render_views(mt["verts"], mt["faces"], mt["face_mask"],
                            poses, intr, self._mesh_raster_cfg(rs),
-                           shading_fun=FieldShading(self.cfg.ingp),
+                           shading_fun=FieldShading(cfg.ingp),
                            shading_params=mesh_state["field"])
         return {"rgb": out["rgb"], "depth": out["depth"],
                 "alpha": out["alpha"]}
@@ -276,3 +761,60 @@ class MVEdit3DPipeline:
         remap[used] = np.arange(len(used))
         return (verts[used].astype(np.float32),
                 remap[faces].astype(np.int32))
+
+    def _extract_and_bake(self, mesh_state, last_mt, tgt, draws,
+                          lpips_params=None, atlas_size=1024):
+        """The final mesh: decimation + texture-only refinement of the
+        albedo field when `mesh_reduction` < 1 (the native QEM library;
+        skipped, as in the reference, when it is missing), the UV atlas
+        (xatlas, or the per-triangle grid atlas) and the bake of the field
+        into it. Returns a `Mesh` with `albedo`, or None."""
+        cfg = self.cfg
+        if mesh_state is None:
+            return None
+        verts, faces = self._compact_mesh(last_mt)
+        if verts is None:
+            # a degenerate extraction (e.g. an empty density field)
+            return None
+        field = mesh_state["field"]
+        dev = mesh_state["sdf"].device
+        if cfg.mesh_reduction < 1.0 and len(faces) > 64:
+            if native_available():
+                target = max(int(round(len(faces) * cfg.mesh_reduction)), 16)
+                verts_d, faces_d = decimate_qem(verts, faces, target)
+                if len(faces_d) >= 16:
+                    verts, faces = (verts_d.astype(np.float32),
+                                    faces_d.astype(np.int32))
+                    mcfg = MF.MeshFitConfig(
+                        raster=self._mesh_raster_cfg(cfg.render_size),
+                        patch_size=min(cfg.patch_size, cfg.render_size))
+                    refine, make_opt = MF.make_texture_refine(
+                        self._color_fn, mcfg,
+                        n_steps=cfg.mesh_simplify_texture_steps)
+                    sw = {**MF.default_mesh_schedule_weights(mcfg),
+                          "lr": cfg.end_lr,
+                          "patch_rgb": cfg.end_patch_rgb_weight}
+                    field, _, _ = refine(
+                        field, make_opt(field), torch.as_tensor(
+                            verts, device=dev),
+                        torch.as_tensor(faces, device=dev).long(), tgt,
+                        sched=sw, lpips_params=lpips_params,
+                        draws=draws.refine(refine, tgt,
+                                           cfg.mesh_simplify_texture_steps))
+        mesh = Mesh(v=verts, f=faces)
+        mesh.auto_normal()
+        mesh.auto_uv()
+        acfg = RasterConfig(height=atlas_size, width=atlas_size, tile=16,
+                            k_per_tile=64, k_big=32)
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+        f = t(mesh.f, torch.int64)
+        rgb, mask = bake_texture(
+            t(mesh.v), f, torch.ones(f.shape[0], dtype=torch.bool,
+                                     device=dev),
+            t(mesh.vt), t(mesh.ft, torch.int64), FieldColor(cfg.ingp), acfg,
+            field_params=field)
+        rgb = edge_dilation(rgb, mask, n_iters=16)
+        mesh.albedo = rgb.clamp(0, 1).cpu().numpy()
+        return mesh

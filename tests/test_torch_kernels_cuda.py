@@ -13,9 +13,14 @@ Tolerances:
   inputs): both round P and the output to bf16 (eps 2^-8) at other points
   and sum in another order. The bounds fail a kernel that scales by
   1/sqrt(padded D) or leaves ragged keys unmasked.
-- raster selection: exact. The kernel evaluates every coefficient and
-  affine test op by op in the plain version's order with IEEE rounding
-  and no FMA contraction, so winners and keys are bit-equal.
+- raster selection: exact, at the render configs and at the UV bake's
+  (1024^2 grid atlas, tile 16, span 4, K 64 + 32). The kernel evaluates
+  every coefficient and affine test op by op in the plain version's order
+  with IEEE rounding and no FMA contraction, so winners and keys are
+  bit-equal.
+- LPIPS in bf16 (the runner's cast at full size) against f32 on the same
+  seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
+  f32 distance.
 Dispatch: a CUDA tensor launches the kernel (the launch counters move), a
 CPU tensor takes the plain version.
 """
@@ -121,6 +126,53 @@ def test_raster_select_matches_plain(cuda, size, span, k):
                                  cfg.tiles_x)
     assert bool((kp < 1e38).any()) and bool((bp >= k).any())
     assert torch.equal(bk, bp) and torch.equal(kk, kp)
+
+
+def test_raster_select_bake_config_matches_plain(cuda):
+    """The UV bake's config: a 1024^2 per-triangle grid atlas of 60k faces
+    (cells ~4 texels), z = 1, tile 16, span 4, K 64 + 32."""
+    import numpy as np
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import Mesh, RasterConfig
+    from mvedit_tpu_torch.models.mesh.rasterize import candidates
+    n = 60000
+    m = Mesh(v=np.zeros((3 * n, 3), np.float32),
+             f=np.arange(3 * n, dtype=np.int32).reshape(n, 3))
+    m.auto_uv()
+    cfg = RasterConfig(height=1024, width=1024, tile=16, span=4,
+                       k_per_tile=64, k_big=32)
+    uv = torch.as_tensor(m.vt, device=cuda)
+    pts = torch.stack([uv[:, 0] * 1024, uv[:, 1] * 1024,
+                       torch.ones_like(uv[:, 0])], -1)
+    faces = torch.as_tensor(m.ft, device=cuda).long()
+    fv = torch.ones(n, dtype=torch.bool, device=cuda)
+    cand, cval = candidates(pts, faces, fv, cfg)
+    before = RS.raster_select.launches
+    bk, kk = RS.raster_select(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
+    torch.cuda.synchronize()
+    assert RS.raster_select.launches == before + 1
+    bp, kp = RS.select_reference(pts, faces, cand, cval, cfg.tile,
+                                 cfg.tiles_x)
+    assert float((kp < 1e38).float().mean()) > 0.2
+    assert torch.equal(bk, bp) and torch.equal(kk, kp)
+
+
+LPIPS_BF16_RTOL = 5e-2
+
+
+def test_lpips_bf16_against_f32(cuda):
+    from mvedit_tpu_torch.models.losses import lpips_apply, lpips_init
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p32 = lpips_init(g, cuda)
+    p16 = {"convs": [{k: v.bfloat16() for k, v in c.items()}
+                     for c in p32["convs"]],
+           "lins": [v.bfloat16() for v in p32["lins"]]}
+    pred, tgt = (torch.rand((4, 128, 128, 3), generator=g, device=cuda)
+                 for _ in range(2))
+    w = torch.tensor([1.0, 0.5, 2.0, 1.0], device=cuda)
+    d32 = float(lpips_apply(p32, pred, tgt, weight=w))
+    d16 = float(lpips_apply(p16, pred, tgt, weight=w))
+    assert d32 > 0 and abs(d16 - d32) <= LPIPS_BF16_RTOL * d32
 
 
 def test_rasterize_launches_kernel_and_cpu_takes_plain(cuda):

@@ -320,3 +320,83 @@ def test_eight_step_frozen_fit_matches_jax():
     # a vertex between two nearly equal sdf values slides along its edge
     # with the last bits of sdf: a few of them move by up to ~0.03
     assert _rel(out["mt"]["verts"].numpy(), out_j["mt"]["verts"]) <= 5e-3
+
+
+# ---- tet 256 and the LPIPS branch ------------------------------------------
+
+@pytest.mark.parametrize("n", [2 ** 24 + 1, 257 ** 3])
+def test_percentiles_take_any_size(n):
+    """`torch.quantile` refuses more than 2^24 elements; the port's
+    percentile takes the 257^3 verts of a tet-256 grid and agrees with
+    `np.percentile` (linear interpolation) to 1e-6 relative."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        n).astype(np.float32) ** 2)
+    out = TMF.percentiles(x, (70.0, 95.0))
+    ref = np.percentile(x.numpy(), [70.0, 95.0])
+    np.testing.assert_allclose([float(o) for o in out], ref, rtol=1e-6)
+
+
+def test_init_sdf_at_tet_256_matches_jax():
+    """The switch to DMTet at tet 256 (257^3 = 16,974,593 verts) on an
+    analytic density with a surface near radius 0.55: the same sdf as JAX's
+    `jnp.percentile` path, within 1e-6."""
+    def dens_j(x):
+        r = jnp.sqrt(jnp.sum(x * x, -1))
+        return 12.0 * jnp.exp(-(r / 0.45) ** 4) + 0.5 * jnp.sin(4 * x[:, 0])
+
+    def dens_t(x):
+        r = torch.sqrt((x * x).sum(-1))
+        return 12.0 * torch.exp(-(r / 0.45) ** 4) + 0.5 * torch.sin(
+            4 * x[:, 0])
+    ref = np.asarray(JMF.init_sdf_from_density(dens_j, JGrid(256)))
+    out = TMF.init_sdf_from_density(dens_t, TGrid(256)).numpy()
+    assert out.shape == (257 ** 3,) and 0.01 < (ref > 0).mean() < 0.5
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+def test_one_fit_step_with_lpips_matches_jax():
+    """One mesh-fit step with the patch LPIPS on (VGG16 at its published
+    widths, 32^2 windows of the 64^2 renders, their origins from JAX's
+    fold_in(k2, 7)): the loss and every gradient within 1e-4 relative,
+    the LPIPS term's share of the loss checked non-zero."""
+    from mvedit_tpu_torch.models import losses as TLo
+    from torch_jax_draws import mesh_fit_draws
+    jf, tf_ = _field_cfgs("float32")
+    kw = dict(n_steps=1, reg_face_samples=N_REG, freeze_topology=True,
+              normal_reg_weight=5.0, patch_size=32)
+    rc = dict(height=RS, width=RS, span=2, k_per_tile=256)
+    jcfg = JMF.MeshFitConfig(raster=JRC(**rc), **kw)
+    tcfg = TMF.MeshFitConfig(raster=TRC(**rc), **kw)
+    targets, state = _targets(), _state(jf)
+    key = jax.random.PRNGKey(13)
+    lp = jax.tree_util.tree_map(np.asarray,
+                                JL.lpips_init(jax.random.PRNGKey(1)))
+    sw = {**JMF.default_mesh_schedule_weights(jcfg), "patch_rgb": 1.2}
+    jgrid = JGrid(G)
+    fit, _, _ = JMF.make_mesh_fit(jgrid, JFieldColor(jf), jcfg)
+    inner = inspect.getclosurevars(fit).nonlocals["_fit"].__wrapped__
+    nl = inspect.getclosurevars(inner).nonlocals
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+    js = jax.tree_util.tree_map(jnp.asarray, state)
+    k1, k2 = jax.random.split(jax.random.split(key, 1)[0])
+    batch = nl["sample_batch"](k1, jt)
+    topo = _jax_topology(jgrid, js["sdf"])
+    sw_j = {k: jnp.float32(v) for k, v in sw.items()}
+    (loss_j, _), grads_j = jax.value_and_grad(nl["loss_fn"], has_aux=True)(
+        js, batch, k2, jgrid.arrays(), sw_j, lp, topo=topo)
+    loss_off = float(nl["loss_fn"](js, batch, k2, jgrid.arrays(), sw_j,
+                                   None, topo=topo)[0])
+    assert float(loss_j) - loss_off > 1e-3
+
+    fit_t, make_opt, _ = TMF.make_mesh_fit(TGrid(G), TF.FieldColor(tf_),
+                                           tcfg)
+    ts = _torch_state(state)
+    ts, _, out = fit_t(ts, make_opt(ts), {k: _t(v) for k, v in
+                                          targets.items()},
+                       sched=sw, lpips_params=TLo.lpips_params_from_flax(lp),
+                       draws=mesh_fit_draws(key, 1, targets["cam_weights"],
+                                            tcfg, 6144, lpips=True))
+    np.testing.assert_allclose(float(out["loss"][0]), float(loss_j),
+                               rtol=1e-4)
+    for i, (p, gj) in enumerate(zip(_leaves(ts), _jax_leaves(grads_j))):
+        assert _rel(p.grad.numpy(), gj) <= 1e-4, (i, _rel(p.grad.numpy(), gj))
