@@ -21,7 +21,12 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
    fit's, `load_init_mesh`'s, the render-size ramp's and the UV bake's
    configs (ids must match at all but 1 pixel in 1e5, keys within 1e-6
    relative); the JAX package's own flash kernel API
-   (`ops/flash_attention.py`); LPIPS in bf16 against f32 (within 5e-2);
+   (`ops/flash_attention.py`); LPIPS in bf16 against f32 (within 5e-2).
+   Beside each time: the bound computed from the call's inputs (bytes at
+   3.35 TB/s or operations at 989 bf16 / 67 f32 TFLOP/s), for attention
+   also the exp floor (3.9e12 exponentials/s) and one
+   `scaled_dot_product_attention` call as the library yardstick (timed
+   here only; the port never calls it);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
@@ -49,7 +54,9 @@ Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7): a kernel of a path with
-no launch there fails the run. Without a CUDA device the script exits
+no launch there fails the run, and so does an attention input that the
+flash wrapper had to stage (copy) for the kernel. Without a CUDA device the
+script exits
 non-zero and prints no result.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
@@ -99,13 +106,14 @@ KERNEL_CASES = [
     ((6, 8192, 8, 40), 2.0),
     ((6, 2048, 8, 80), 2.0),
     ((2, 200, 8, 40), 2.0),
+    ((8, 4096, 8, 40), 4.0),    # a very peaked softmax at a path shape
     # run_3d_to_3d (1-pass, reference pairs, diff_bs 8 view chunks)
     ((8, 8192, 8, 40), 1.0),    # reference pairs, level 1
     ((8, 4096, 8, 40), 1.0),    # uncond views, level 1
     ((16, 4096, 8, 40), 1.0),   # ControlNets on the CFG chunk, level 1
     ((8, 2048, 8, 80), 1.0),    # reference pairs, level 2
 ]
-HOT_SHAPE = (6, 8192, 8, 40)   # the shape whose times go into the JSON line
+HOT_SHAPE = (8, 8192, 8, 40)   # the shape whose times go into the JSON line
 # raster selection: (case, size, span, k_per_tile, k_big, mesh), the
 # configs the path gives the kernel: the mesh fit and re-render
 # (`_mesh_raster_cfg`), `load_init_mesh` (the default RasterConfig), the
@@ -140,6 +148,13 @@ REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
 LPIPS_BF16_RTOL = 5e-2       # bf16 LPIPS against f32, relative
 DEV = "cuda"
 TIMED_RUNS = 10
+# an H100 SXM's peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor
+# cores, f32 outside them, HBM3; and the special-function units' exp2
+# (16 per clock per SM x 132 SMs x ~1.83 GHz), the exp floor of attention
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_EXP = 3.9e12
 R = torch.profiler.record_function   # named ranges, read by --profile
 
 
@@ -180,7 +195,7 @@ def phase_build():
         with open(mod.BUILD_LOG) as f:
             for line in f:
                 if "registers" in line or "spill" in line \
-                        or "Compiling" in line:
+                        or "Compiling" in line or "C7512" in line:
                     log(f"[build]   {line.strip()}")
 
 
@@ -198,6 +213,75 @@ def plain_sliced(q, k, v, budget=4 << 30):
                 q[b:b + 1, :, h:h + hc], k[b:b + 1, :, h:h + hc],
                 v[b:b + 1, :, h:h + hc])
     return out
+
+
+def flash_bound(B, Lq, Lk, H, D):
+    """Least time of one attention call on the card: the larger of its
+    bf16 tensor-core FLOPs at the real D (4 B H Lq Lk D) and its bytes
+    (q, k, v read once, o written once); and, beside it, the exp floor
+    (B H Lq Lk exponentials on the special-function units)."""
+    ops_ms = 4.0 * B * H * Lq * Lk * D / PEAK_BF16 * 1e3
+    bytes_ms = 2.0 * B * H * D * (2 * Lq + 2 * Lk) / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                exp_floor_ms=B * H * Lq * Lk / PEAK_EXP * 1e3)
+
+
+def library_attention(q, k, v, scale=None):
+    """Time one `scaled_dot_product_attention` call on the (B, H, L, D)
+    views of (B, L, H, D) inputs: a yardstick for the flash kernel, used
+    nowhere in the port. Returns (ms, the backend PyTorch chose)."""
+    from torch.nn.attention import SDPBackend
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    names = {b.value: n for n, b in SDPBackend.__members__.items()}
+    try:
+        backend = names.get(int(torch._fused_sdp_choice(qt, kt, vt,
+                                                        scale=scale)), "?")
+    except (AttributeError, RuntimeError):
+        backend = "unknown"
+    ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          scale=scale))
+    return ms, backend
+
+
+def raster_bound(pts, faces, cand, cval, tile, tiles_x):
+    """Least time of one raster selection on the card, counted from this
+    call's data: the coefficient sets of the valid candidates (48 f32
+    flops each) and, per pixel and valid candidate, the tests it needs
+    (4 flops for edge 0, 4 more for each further edge while the earlier
+    ones pass, 4 for the key of a covered pixel) at the f32 peak; against
+    the bytes of pts, faces, the lists and the two outputs."""
+    from mvedit_tpu_torch.kernels.raster_select import prepare_coeffs
+    T, K = cand.shape
+    P = tile * tile
+    t = torch.arange(T, device=cand.device)
+    py, px = torch.meshgrid(torch.arange(tile, device=cand.device),
+                            torch.arange(tile, device=cand.device),
+                            indexing="ij")
+    flops = 48.0 * float(cval.sum())
+    step = max(1, (1 << 27) // (P * K))
+    for t0 in range(0, T, step):
+        co = prepare_coeffs(pts, faces, cand[t0:t0 + step],
+                            cval[t0:t0 + step])          # (t, K, 12)
+        tt = t[t0:t0 + step]
+        qx = ((tt % tiles_x) * tile)[:, None] + px.reshape(-1) + 0.5
+        qy = ((tt // tiles_x) * tile)[:, None] + py.reshape(-1) + 0.5
+        qx, qy = qx.float()[:, :, None], qy.float()[:, :, None]   # (t, P, 1)
+        live = cval[t0:t0 + step, None, :].expand(-1, P, -1)
+        flops += 4.0 * float(live.sum())
+        for e in range(3):
+            c = co[:, None, :, 3 * e:3 * e + 3]
+            live = live & (c[..., 0] * qx + c[..., 1] * qy + c[..., 2] >= 0)
+            flops += 4.0 * float(live.sum())
+        del co, live
+    nbytes = (pts.numel() * 4 + faces.numel() * 4 + cand.numel() * 4
+              + cval.numel() + T * P * 8)
+    ops_ms = flops / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                flops=flops)
 
 
 def median_ms(fn, runs=TIMED_RUNS):
@@ -237,10 +321,16 @@ def phase_kernel():
         if qk == 1.0:
             ms = median_ms(lambda: flash_attention(q, k, v))
             plain_ms = median_ms(lambda: plain_sliced(q, k, v))
+            lib_ms, backend = library_attention(q, k, v)
+            bd = flash_bound(B, L, L, H, D)
             flops = 4.0 * B * H * L * L * D
             line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-                     f"at the real D) plain {plain_ms:.3f} ms")
-            rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms))
+                     f"at the real D) bound {bd['bound_ms']:.3f} ms "
+                     f"({bd['bound_by']}) exp floor {bd['exp_floor_ms']:.3f} "
+                     f"ms library {lib_ms:.3f} ms (sdpa, {backend}) plain "
+                     f"{plain_ms:.3f} ms")
+            rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, **bd))
         log(f"{line} {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             failed.append((shape, qk))
@@ -512,15 +602,17 @@ def phase_raster_kernel():
         big = int(((bp >= k) & (tp >= 0)).sum())
         ms = median_ms(lambda: raster_select(*args))
         plain_ms = median_ms(lambda: select_reference(*args))
+        bd = raster_bound(*args)
         ok = (mism <= MAX_ID_MISMATCH * npx and rel <= KEY_RTOL
               and hits > 0.01 * npx and big > 0)
         log(f"[raster] {name}: {size}^2, span {span}, K {cand.shape[1]}, "
             f"{int(fmask.sum())} faces; {hits} of {npx} pixels hit, {big} "
             f"won from the big list; mismatched ids {mism}, max key rel err "
-            f"{rel:.2e}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{rel:.2e}; kernel {ms:.3f} ms bound {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_by']}: {bd['flops']:.3e} f32 flops) library none "
+            f"plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
         rows.append(dict(case=name, ms=ms, plain_ms=plain_ms,
-                         mismatched=mism, key_err=err))
+                         mismatched=mism, key_err=err, **bd))
         if not ok:
             failed.append(name)
     del soups
@@ -554,11 +646,20 @@ def phase_flash_fwd():
         r = agreement(out, ref)
         ms = median_ms(lambda: OF.flash_fwd(q, k, v, s))
         plain_ms = median_ms(lambda: plain(q, k, v, s))
+        # (BH, L, D) as (1, L, BH, D) for the library call's (B, H, L, D)
+        lib_ms, backend = library_attention(
+            *(t.transpose(0, 1)[None] for t in (q, k, v)), scale=s)
+        BH, L, D = shape
+        bd = flash_bound(1, L, L, BH, D)
         log(f"[flash_fwd] {shape} sm_scale {s:.4g}: max|d| "
             f"{r['max_abs']:.3e} = {r['max_rel']:.2e} of max|ref|; mean|d| "
             f"{r['mean_abs']:.3e} = {r['mean_rel']:.2e} of mean|ref|; kernel "
-            f"{ms:.3f} ms plain {plain_ms:.3f} ms {'ok' if r['ok'] else 'FAIL'}")
-        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms))
+            f"{ms:.3f} ms bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}) "
+            f"exp floor {bd['exp_floor_ms']:.3f} ms library {lib_ms:.3f} ms "
+            f"(sdpa, {backend}) plain {plain_ms:.3f} ms "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **bd))
         worst = max(worst, r["max_abs"])
         if not r["ok"]:
             failed.append(shape)
@@ -793,7 +894,8 @@ def phase_request(runner, tmp):
     raster kernel's launches per part and the flash kernel's, summed over
     both requests, and what the tet-256 phase reuses."""
     import mvedit_tpu_torch.models.diffusion.attention as TA
-    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
     from mvedit_tpu_torch.models.mesh import Mesh
     from mvedit_tpu_torch.utils import profiling as PR
     knot = torus_knot()
@@ -817,6 +919,7 @@ def phase_request(runner, tmp):
         PR.set_phase_timer(pt)
         TA.flash_attention = recording
         flash_attention.launches = 0
+        staged = launch.staged
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -854,7 +957,8 @@ def phase_request(runner, tmp):
                 f"{pt.counts[name]} ticks: " + ", ".join(
                     f"{d:.3f} {sg}" for d, sg in zip(pt.durations[name],
                                                      pt.sigs[name])))
-        log(f"[launches] {run} request: flash_attention {fa}; raster_select "
+        log(f"[launches] {run} request: flash_attention {fa} (staged "
+            f"copies {launch.staged - staged}); raster_select "
             + ", ".join(f"{v} in {k}" for k, v in parts.parts.items()))
         if not ok:
             raise AssertionError("the run_3d_to_3d request failed its checks")
@@ -1145,7 +1249,8 @@ def main():
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
     from mvedit_tpu_torch.kernels import raster_select as RS
-    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
     from mvedit_tpu_torch.ops.flash_attention import flash_fwd
     todo = [args.kernel] if args.kernel else ["flash_attention",
                                               "raster_select", "flash_fwd"]
@@ -1164,7 +1269,7 @@ def main():
     runner = Adapter3DRunner(seed=SEED, device=DEV)
     phase_unet_route(runner)
     # the denoise path: every launch from here to its end is the path's
-    flash_attention.launches = flash_fwd.launches = 0
+    flash_attention.launches = flash_fwd.launches = launch.staged = 0
     phase_text_to_img(runner)
     t2i_launches = flash_attention.launches
     phase_denoise(runner)
@@ -1184,23 +1289,33 @@ def main():
     # outside its file calls it there): its count over both paths is 0
     fwd_launches = flash_fwd.launches
     log(f"[launches] flash_fwd: {fwd_launches} over both paths (on no path)")
+    # every attention input on the paths is aligned bf16 (B, L, H, D) that
+    # the kernel's tensor maps read as it is: no staged copy
+    log(f"[launches] flash_attention staged copies over the paths: "
+        f"{launch.staged}")
+    if launch.staged:
+        raise AssertionError("the wrapper staged path inputs for the kernel")
     if args.profile:
         phase_profile(runner, args.profile, mesh_ctx)
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
     rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
-    log(f"[kernels] ms / plain_ms below at {HOT_SHAPE} (flash_attention), "
-        f"the {RASTER_HOT} config (raster_select), {FWD_HOT} (flash_fwd); "
-        f"errors over all checked cases (raster_select: max |key| error "
-        f"where the winners agree, and the mismatched ids)")
+    log(f"[kernels] times and bounds below at {HOT_SHAPE} "
+        f"(flash_attention), the {RASTER_HOT} config (raster_select), "
+        f"{FWD_HOT} (flash_fwd); library_ms is one scaled_dot_product_"
+        f"attention call (none computes raster_select); errors over all "
+        f"checked cases (raster_select: max |key| error where the winners "
+        f"agree, and the mismatched ids)")
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash, "max_abs_err": worst,
-         "ms": hot["ms"],
-         "plain_ms": hot["plain_ms"]},
+         "ms": hot["ms"], "plain_ms": hot["plain_ms"],
+         "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
+         "library_ms": hot["library_ms"],
+         "exp_floor_ms": hot["exp_floor_ms"]},
         {"name": "raster_select", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
@@ -1208,12 +1323,17 @@ def main():
          + sum(req_launches.values()),
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
-         "ms": rhot["ms"], "plain_ms": rhot["plain_ms"]},
+         "ms": rhot["ms"], "plain_ms": rhot["plain_ms"],
+         "bound_ms": rhot["bound_ms"], "bound_by": rhot["bound_by"],
+         "library_ms": None},
         {"name": "flash_fwd", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/ops/flash_attention.py:73",
          "launches": fwd_launches, "max_abs_err": fwd_worst,
-         "ms": fhot["ms"], "plain_ms": fhot["plain_ms"]}]}))
+         "ms": fhot["ms"], "plain_ms": fhot["plain_ms"],
+         "bound_ms": fhot["bound_ms"], "bound_by": fhot["bound_by"],
+         "library_ms": fhot["library_ms"],
+         "exp_floor_ms": fhot["exp_floor_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

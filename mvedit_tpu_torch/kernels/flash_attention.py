@@ -6,11 +6,19 @@ PyTorch version.
 (B, Lk, H, D) -> (B, Lq, H, D), non-causal, scale 1/sqrt(D), computed in
 bf16 with f32 softmax statistics and returned in the input dtype.
 
-- CUDA tensors launch `csrc/flash_attention.cu` (sm_90a), built with nvcc
-  at first use into `_build/` and bound through ctypes. A build or launch
-  failure raises; nothing falls back.
+- CUDA tensors launch `csrc/flash_attention.cu` (sm_90a: TMA, wgmma, warp
+  specialisation), built with nvcc at first use into `_build/` and bound
+  through ctypes. A build or launch failure raises; nothing falls back.
 - CPU tensors take `attention_reference`, the plain version, in their own
   dtype (the JAX package likewise runs its plain attention on the CPU).
+
+The kernel reads bf16 (B, L, H, D) through TMA tensor maps, which need
+D % 8 == 0, 16-byte aligned bases and strides that are multiples of 8
+elements. `plan(q, k, v, scale)` says, on the host alone (CPU and `meta`
+tensors too), whether inputs go to the kernel as they are ("direct") or
+through an aligned bf16 copy with D padded to a multiple of 8 ("staged"),
+and raises for what the kernel cannot take. `launch.staged` counts the
+launches that needed the copy; the UNet's attention needs none.
 
 `flash_attention.launches` counts kernel launches, so a run can show that
 its attention went through the kernel. `launch(q, k, v, scale)` is the
@@ -26,8 +34,8 @@ import threading
 
 import torch
 
-__all__ = ["flash_attention", "launch", "attention_reference", "agreement",
-           "build", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "launch", "plan", "attention_reference",
+           "agreement", "build", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 # Kernel against the plain version from the same bf16 inputs, relative to
@@ -108,7 +116,7 @@ def build():
         fn = lib.mvedit_flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -131,51 +139,92 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v):
     """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D), see module doc."""
-    _check(q, k, v)
     if q.device.type == "cpu":
+        _check(q, k, v)
         return attention_reference(q, k, v)
     out = launch(q, k, v, q.shape[-1] ** -0.5)
     flash_attention.launches += 1
     return out
 
 
-def launch(q, k, v, scale):
-    """Launch the kernel on CUDA tensors (B, Lq, H, D) x (B, Lk, H, D) with
-    softmax scale `scale`; returns (B, Lq, H, D) in q's dtype. Counts
-    nothing: each public wrapper keeps its own launch count."""
+def _direct(t):
+    """True when the kernel's tensor maps can read bf16 `t` as it is."""
+    D = t.shape[-1]
+    if t.dtype != torch.bfloat16 or D % 8 or t.stride(3) != 1 \
+            or t.data_ptr() % 16:
+        return False
+    # a stride of a size-1 dimension is never followed
+    return all(n == 1 or (s > 0 and s % 8 == 0)
+               for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def plan(q, k, v, scale):
+    """"direct" or "staged" for `launch(q, k, v, scale)`, decided from
+    shapes, dtypes, strides and addresses alone; raises ValueError or
+    TypeError for inputs the kernel does not take."""
     _check(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"unsupported dtype {q.dtype}")
     B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"grid too large: B {B}, H {H}")
+    # a negative scale is folded into a negated copy of k, so that the
+    # kernel's running max is taken over scores that rise with the logits
+    ok = scale >= 0 and all(_direct(t) for t in (q, k, v))
+    return "direct" if ok else "staged"
+
+
+def _stage(t, Dp, sign=1.0):
+    """Aligned, contiguous bf16 copy of `t` with D zero-padded to Dp."""
+    out = torch.zeros(t.shape[:3] + (Dp,), dtype=torch.bfloat16,
+                      device=t.device)
+    out[..., :t.shape[-1]] = t * sign if sign != 1.0 else t
+    return out
+
+
+def _strides(t):
+    """(batch, sequence, head) strides, with those of size-1 dimensions
+    replaced by contiguous ones (TMA wants multiples of 16 bytes)."""
+    B, L, H, D = t.shape
+    dense = (L * H * D, H * D, D)
+    return tuple(d if n == 1 else s
+                 for n, s, d in zip(t.shape[:3], t.stride()[:3], dense))
+
+
+def launch(q, k, v, scale):
+    """Launch the kernel on CUDA tensors (B, Lq, H, D) x (B, Lk, H, D) with
+    softmax scale `scale`; returns (B, Lq, H, D) in q's dtype. Counts
+    nothing but staged copies: each public wrapper keeps its own launch
+    count."""
+    how = plan(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
     dt = q.dtype
-    # the TPU kernel runs in bf16 and casts back (attention.py:139-144)
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
-    vec = int(D % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-        for t in (q, k, v)))
-    out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
+    Dp = -(-D // 8) * 8
+    if how == "staged":
+        # the TPU kernel runs in bf16 and casts back (attention.py:139-144)
+        q, v = _stage(q, Dp), _stage(v, Dp)
+        k = _stage(k, Dp, -1.0 if scale < 0 else 1.0)
+        scale = abs(scale)
+        launch.staged += 1
+    out = torch.empty((B, Lq, H, Dp), dtype=torch.bfloat16, device=q.device)
     lib = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mvedit_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Lq, Lk, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            float(scale), vec, stream)
+            B, H, Lq, Lk, Dp, *_strides(q), *_strides(k), *_strides(v),
+            *out.stride()[:3], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    if Dp != D:
+        out = out[..., :D].contiguous()
     return out.to(dt)
 
 
+launch.staged = 0
 flash_attention.launches = 0

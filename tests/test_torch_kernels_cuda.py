@@ -78,6 +78,51 @@ def test_flash_attention_strided(cuda, dtype):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("qk", [1.0, 4.0])
+@pytest.mark.parametrize("Lq,Lk,D", [(4096, 1152, 40), (1000, 1000, 40),
+                                     (512, 384, 8), (512, 384, 24),
+                                     (512, 384, 40), (512, 384, 64),
+                                     (512, 384, 80), (512, 384, 128)])
+def test_flash_attention_lengths_and_head_dims(cuda, Lq, Lk, D, qk):
+    """Lq != Lk, a ragged last tile on both axes (1000 x 1000), every head
+    dim instantiation, and q, k scaled by 4 (a very peaked softmax): one
+    launch per call, no staged copy, agreement with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk + D)
+    q = torch.randn((2, Lq, 4, D), generator=g, device=cuda,
+                    dtype=torch.bfloat16) * qk
+    k = torch.randn((2, Lk, 4, D), generator=g, device=cuda,
+                    dtype=torch.bfloat16) * qk
+    v = torch.randn((2, Lk, 4, D), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    before, staged = FA.flash_attention.launches, FA.launch.staged
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert FA.launch.staged == staged
+    assert out.shape == q.shape and out.dtype == q.dtype
+    r = FA.agreement(out, FA.attention_reference(q, k, v))
+    assert r["ok"], r
+
+
+def test_flash_attention_staged_offset_view(cuda):
+    """A view at storage offset 1 (a base 2 bytes off 16-byte alignment)
+    takes the wrapper's aligned copy, counted, and still agrees."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shape = (2, 640, 4, 40)
+    n = 2 * 640 * 4 * 40
+    q, k, v = (torch.randn(n + 1, generator=g, device=cuda,
+                           dtype=torch.bfloat16)[1:].view(shape)
+               for _ in range(3))
+    assert FA.plan(q, k, v, 40 ** -0.5) == "staged"
+    before, staged = FA.flash_attention.launches, FA.launch.staged
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert FA.launch.staged == staged + 1
+    r = FA.agreement(out, FA.attention_reference(q, k, v))
+    assert r["ok"], r
+
+
 def test_flash_attention_rejects(cuda):
     q = torch.zeros((1, 128, 2, 136), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -197,7 +242,8 @@ def test_rasterize_launches_kernel_and_cpu_takes_plain(cuda):
 
 @pytest.mark.parametrize("shape,scale", [((8, 1024, 40), 0.1),
                                          ((4, 2048, 64), None),
-                                         ((2, 256, 128), 0.05)])
+                                         ((2, 256, 128), 0.05),
+                                         ((2, 256, 40), -0.1)])
 def test_flash_fwd_matches_plain(cuda, shape, scale):
     from mvedit_tpu_torch.ops import flash_attention as OF
     g = torch.Generator(device=cuda).manual_seed(2)
