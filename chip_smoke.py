@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only --kernel raster_select
                                              # phases 1-3, one kernel's check
     python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
+    python3 chip_smoke.py --ab A.cu B.cu     # flash sources timed in turns
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
@@ -23,10 +24,10 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
    relative); the JAX package's own flash kernel API
    (`ops/flash_attention.py`); LPIPS in bf16 against f32 (within 5e-2).
    Beside each time: the bound computed from the call's inputs (bytes at
-   3.35 TB/s or operations at 989 bf16 / 67 f32 TFLOP/s), for attention
-   also the exp floor (3.9e12 exponentials/s) and one
-   `scaled_dot_product_attention` call as the library yardstick (timed
-   here only; the port never calls it);
+   3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s and, for
+   attention, 3.9e12 exponentials/s, the exp floor) and, for attention,
+   one `scaled_dot_product_attention` call as the library yardstick
+   (timed here only; the port never calls it);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
@@ -58,6 +59,10 @@ no launch there fails the run, and so does an attention input that the
 flash wrapper had to stage (copy) for the kernel. Without a CUDA device the
 script exits
 non-zero and prints no result.
+
+`--ab SRC...` does phase 1 and then only `phase_ab`: edited copies of the
+flash source built side by side, checked, and timed in turns at the
+request's shapes.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
@@ -107,13 +112,21 @@ KERNEL_CASES = [
     ((6, 2048, 8, 80), 2.0),
     ((2, 200, 8, 40), 2.0),
     ((8, 4096, 8, 40), 4.0),    # a very peaked softmax at a path shape
-    # run_3d_to_3d (1-pass, reference pairs, diff_bs 8 view chunks)
-    ((8, 8192, 8, 40), 1.0),    # reference pairs, level 1
-    ((8, 4096, 8, 40), 1.0),    # uncond views, level 1
-    ((16, 4096, 8, 40), 1.0),   # ControlNets on the CFG chunk, level 1
-    ((8, 2048, 8, 80), 1.0),    # reference pairs, level 2
 ]
-HOT_SHAPE = (8, 8192, 8, 40)   # the shape whose times go into the JSON line
+# run_3d_to_3d's calls (1-pass, reference pairs, diff_bs 8 view chunks)
+REQUEST_SHAPES = [(8, 8192, 8, 40),    # reference pairs, level 1
+                  (8, 4096, 8, 40),    # uncond views, level 1
+                  (16, 4096, 8, 40),   # ControlNets on the CFG chunk, level 1
+                  (8, 2048, 8, 80)]    # reference pairs, level 2
+KERNEL_CASES += [(shape, 1.0) for shape in REQUEST_SHAPES]
+# the shape whose times go into the JSON line: the request's hottest
+HOT_SHAPE = (8, 8192, 8, 40)
+# --ab: small ragged cases ((B, Lq, H, D), Lk) checked before the timing,
+# and launches per CUDA-event pair when timing
+AB_CASES = [((2, 1000, 2, 40), 1000), ((1, 4096, 2, 40), 1152),
+            ((1, 512, 2, 80), 512), ((1, 512, 2, 128), 512),
+            ((1, 384, 2, 8), 384)]
+AB_BATCH = 20
 # raster selection: (case, size, span, k_per_tile, k_big, mesh), the
 # configs the path gives the kernel: the mesh fit and re-render
 # (`_mesh_raster_cfg`), `load_init_mesh` (the default RasterConfig), the
@@ -216,18 +229,30 @@ def plain_sliced(q, k, v, budget=4 << 30):
 
 
 def flash_bound(B, Lq, Lk, H, D):
-    """Least time of one attention call on the card: the larger of its
-    bf16 tensor-core FLOPs at the real D (4 B H Lq Lk D) and its bytes
-    (q, k, v read once, o written once); and, beside it, the exp floor
-    (B H Lq Lk exponentials on the special-function units)."""
-    ops_ms = 4.0 * B * H * Lq * Lk * D / PEAK_BF16 * 1e3
+    """Least time of one attention call on the card: the largest of its
+    two kinds of operations, each at its own peak (bf16 tensor-core FLOPs
+    at the real D, 4 B H Lq Lk D; the exp floor, B H Lq Lk exponentials
+    on the special-function units), and its bytes (q, k, v read once, o
+    written once). `op` names the operation that sets the bound."""
+    mma_ms = 4.0 * B * H * Lq * Lk * D / PEAK_BF16 * 1e3
+    exp_ms = B * H * Lq * Lk / PEAK_EXP * 1e3
     bytes_ms = 2.0 * B * H * D * (2 * Lq + 2 * Lk) / PEAK_BYTES * 1e3
+    ops_ms = max(mma_ms, exp_ms)
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                exp_floor_ms=B * H * Lq * Lk / PEAK_EXP * 1e3)
+                op="exp" if exp_ms > mma_ms else "bf16 mma",
+                mma_ms=mma_ms, exp_floor_ms=exp_ms)
 
 
-def library_attention(q, k, v, scale=None):
+def flash_bound_text(bd):
+    by = bd["bound_by"]
+    if by == "operations":
+        by += f": {bd['op']}"
+    return (f"bound {bd['bound_ms']:.3f} ms ({by}; tensor cores "
+            f"{bd['mma_ms']:.3f} ms, exp floor {bd['exp_floor_ms']:.3f} ms)")
+
+
+def library_attention(q, k, v, scale=None, batch=1):
     """Time one `scaled_dot_product_attention` call on the (B, H, L, D)
     views of (B, L, H, D) inputs: a yardstick for the flash kernel, used
     nowhere in the port. Returns (ms, the backend PyTorch chose)."""
@@ -241,7 +266,8 @@ def library_attention(q, k, v, scale=None):
     except (AttributeError, RuntimeError):
         backend = "unknown"
     ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          scale=scale))
+                                                          scale=scale),
+                   batch=batch)
     return ms, backend
 
 
@@ -284,17 +310,20 @@ def raster_bound(pts, faces, cand, cval, tile, tiles_x):
                 flops=flops)
 
 
-def median_ms(fn, runs=TIMED_RUNS):
+def median_ms(fn, runs=TIMED_RUNS, batch=1):
+    """Median over `runs` CUDA-event pairs, each around `batch` calls of
+    `fn` back to back, per call."""
     fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -325,9 +354,8 @@ def phase_kernel():
             bd = flash_bound(B, L, L, H, D)
             flops = 4.0 * B * H * L * L * D
             line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-                     f"at the real D) bound {bd['bound_ms']:.3f} ms "
-                     f"({bd['bound_by']}) exp floor {bd['exp_floor_ms']:.3f} "
-                     f"ms library {lib_ms:.3f} ms (sdpa, {backend}) plain "
+                     f"at the real D) {flash_bound_text(bd)} library "
+                     f"{lib_ms:.3f} ms (sdpa, {backend}) plain "
                      f"{plain_ms:.3f} ms")
             rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, **bd))
@@ -654,8 +682,7 @@ def phase_flash_fwd():
         log(f"[flash_fwd] {shape} sm_scale {s:.4g}: max|d| "
             f"{r['max_abs']:.3e} = {r['max_rel']:.2e} of max|ref|; mean|d| "
             f"{r['mean_abs']:.3e} = {r['mean_rel']:.2e} of mean|ref|; kernel "
-            f"{ms:.3f} ms bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}) "
-            f"exp floor {bd['exp_floor_ms']:.3f} ms library {lib_ms:.3f} ms "
+            f"{ms:.3f} ms {flash_bound_text(bd)} library {lib_ms:.3f} ms "
             f"(sdpa, {backend}) plain {plain_ms:.3f} ms "
             f"{'ok' if r['ok'] else 'FAIL'}")
         rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
@@ -669,6 +696,80 @@ def phase_flash_fwd():
         raise AssertionError(f"flash_fwd disagrees with its plain version "
                              f"at {failed}")
     return rows, worst
+
+
+def phase_ab(sources):
+    """`--ab`: builds each flash source (an edited copy of
+    `csrc/flash_attention.cu`, same C entry) with nvcc, all together;
+    holds each kernel against the plain version at AB_CASES and at the
+    request's shapes (first batch entry); then times them at the request's
+    shapes in turns (A, B, ..., B, A), AB_BATCH launches per CUDA-event
+    pair, beside the library call, with nvidia-smi's SM clock and power
+    sampled over the timed loops."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mvedit_tpu_torch.kernels import flash_attention as FA
+    out = os.path.join(os.path.dirname(FA.BUILD_LOG), "ab")
+    libs = [os.path.join(out, f"libflash_ab{i}.so")
+            for i in range(len(sources))]
+    nvlogs = [f"{lib}.nvcc.log" for lib in libs]
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(FA.compile_source, sources, libs, nvlogs))
+    for src, nvlog in zip(sources, nvlogs):
+        with open(nvlog) as f:
+            report = f.read()
+        spills = re.findall(r"(\d+) bytes spill stores", report)
+        log(f"[ab] {src}: spill stores per instantiation {spills}; "
+            f"serialised wgmma: {'C7512' in report}")
+    libs = [FA.load_library(lib) for lib in libs]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV,
+                           dtype=torch.bfloat16)
+    checks = AB_CASES + [((1,) + s[1:], s[1]) for s in REQUEST_SHAPES]
+    failed = []
+    for (B, L, H, D), Lk in checks:
+        q, k, v = randn(B, L, H, D), randn(B, Lk, H, D), randn(B, Lk, H, D)
+        ref = plain_sliced(q, k, v)
+        for src, lib in zip(sources, libs):
+            if not FA.agreement(FA.launch(q, k, v, D ** -0.5, lib),
+                                ref)["ok"]:
+                failed.append((src, (B, L, H, D), Lk))
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        for shape in REQUEST_SHAPES:
+            B, L, H, D = shape
+            q, k, v = (randn(*shape) for _ in range(3))
+            s = D ** -0.5
+            times = [[] for _ in sources]
+            turns = list(range(len(sources)))
+            for i in turns + turns[::-1]:
+                times[i].append(median_ms(
+                    lambda: FA.launch(q, k, v, s, libs[i]), batch=AB_BATCH))
+            lib_ms, backend = library_attention(q, k, v, batch=AB_BATCH)
+            pairs = "; ".join(f"{src} {a:.4f} / {b:.4f} ms"
+                              for src, (a, b) in zip(sources, times))
+            log(f"[ab] {shape}: {pairs}; library {lib_ms:.4f} ms (sdpa, "
+                f"{backend}); {flash_bound_text(flash_bound(B, L, L, H, D))}")
+    finally:
+        sampler.terminate()
+        samples = [r.split(",") for r in sampler.communicate()[0].split("\n")
+                   if "," in r]
+    if samples:
+        clocks = sorted(float(c) for c, _ in samples)
+        power = [float(p) for _, p in samples]
+        log(f"[ab] SM clock over the timed loops {clocks[0]:.0f}-"
+            f"{clocks[-1]:.0f} MHz (median {clocks[len(clocks) // 2]:.0f}), "
+            f"power {min(power):.1f}-{max(power):.1f} W, {len(samples)} "
+            f"samples")
+    if failed:
+        raise AssertionError(f"disagreements with the plain version: "
+                             f"{failed}")
+    log("[ab] every source agrees with the plain version")
 
 
 def phase_mesh(runner):
@@ -1238,6 +1339,10 @@ def main():
     ap.add_argument("--kernel", choices=("flash_attention", "raster_select",
                                          "flash_fwd"),
                     help="with --kernels-only: check this kernel only")
+    ap.add_argument("--ab", nargs="+", metavar="SRC",
+                    help="only build these flash-attention sources (edited "
+                         "copies of csrc/flash_attention.cu), check them and "
+                         "time them against each other in turns")
     ap.add_argument("--profile", metavar="OUT_DIR",
                     help="after the run, profile a warm text-to-image "
                          "request, denoise timesteps, mesh and NeRF fit "
@@ -1246,6 +1351,9 @@ def main():
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
     smi = phase_device()
+    if args.ab:
+        phase_ab(args.ab)
+        return
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
     from mvedit_tpu_torch.kernels import raster_select as RS
@@ -1314,8 +1422,7 @@ def main():
          "launches": launches + req_flash, "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
-         "library_ms": hot["library_ms"],
-         "exp_floor_ms": hot["exp_floor_ms"]},
+         "library_ms": hot["library_ms"]},
         {"name": "raster_select", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
@@ -1332,8 +1439,7 @@ def main():
          "launches": fwd_launches, "max_abs_err": fwd_worst,
          "ms": fhot["ms"], "plain_ms": fhot["plain_ms"],
          "bound_ms": fhot["bound_ms"], "bound_by": fhot["bound_by"],
-         "library_ms": fhot["library_ms"],
-         "exp_floor_ms": fhot["exp_floor_ms"]}]}))
+         "library_ms": fhot["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,7 +35,8 @@ import threading
 import torch
 
 __all__ = ["flash_attention", "launch", "plan", "attention_reference",
-           "agreement", "build", "MAX_HEAD_DIM"]
+           "agreement", "build", "compile_source", "load_library",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 # Kernel against the plain version from the same bf16 inputs, relative to
@@ -85,41 +86,50 @@ def agreement(out, ref):
     return r
 
 
+def compile_source(src, lib, log):
+    """nvcc `src` for sm_90a into the shared library `lib`, and ptxas'
+    report (registers, shared memory, spills per instantiation) into
+    `log`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError(f"no CUDA toolkit found to build {src}")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
+           "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas=-v", "-o", tmp, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    with open(log, "w") as f:
+        f.write(res.stdout + res.stderr)
+    os.replace(tmp, lib)
+
+
+def load_library(lib):
+    """Load a library built by `compile_source` and bind its C entry."""
+    lib = ctypes.CDLL(lib)
+    fn = lib.mvedit_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def build():
     """Compile the kernel (if its library is missing or older than the
     source) and load it. Returns the ctypes library."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            from torch.utils.cpp_extension import CUDA_HOME
-            if CUDA_HOME is None:
-                raise RuntimeError("no CUDA toolkit found to build "
-                                   "flash_attention.cu")
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-                   "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas=-v", "-o", tmp, _SRC]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            # ptxas' registers / shared memory / spills per instantiation
-            with open(BUILD_LOG, "w") as f:
-                f.write(res.stdout + res.stderr)
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
-        fn = lib.mvedit_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            if (not os.path.exists(_LIB)
+                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                compile_source(_SRC, _LIB, BUILD_LOG)
+            _lib = load_library(_LIB)
+        return _lib
 
 
 def _check(q, k, v):
@@ -193,11 +203,12 @@ def _strides(t):
                  for n, s, d in zip(t.shape[:3], t.stride()[:3], dense))
 
 
-def launch(q, k, v, scale):
+def launch(q, k, v, scale, lib=None):
     """Launch the kernel on CUDA tensors (B, Lq, H, D) x (B, Lk, H, D) with
     softmax scale `scale`; returns (B, Lq, H, D) in q's dtype. Counts
     nothing but staged copies: each public wrapper keeps its own launch
-    count."""
+    count. `lib` is a library of `load_library` to launch instead of the
+    built one (an edited source, timed against it)."""
     how = plan(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -212,7 +223,7 @@ def launch(q, k, v, scale):
         scale = abs(scale)
         launch.staged += 1
     out = torch.empty((B, Lq, H, Dp), dtype=torch.bfloat16, device=q.device)
-    lib = build()
+    lib = build() if lib is None else lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mvedit_flash_attention_fwd(
