@@ -6,7 +6,7 @@
     python3 chip_smoke.py --kernels-only --kernel raster_select
                                              # phases 1-3, one kernel's check
     python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
-    python3 chip_smoke.py --ab A.cu B.cu     # flash sources timed in turns
+    python3 chip_smoke.py --ab A.cu B.cu     # kernel sources timed in turns
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
@@ -20,14 +20,18 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
 3. kernels against their plain versions, timed with CUDA events:
    flash attention (bf16) at every path shape; the raster selection at the
    fit's, `load_init_mesh`'s, the render-size ramp's and the UV bake's
-   configs (ids must match at all but 1 pixel in 1e5, keys within 1e-6
-   relative); the JAX package's own flash kernel API
-   (`ops/flash_attention.py`); LPIPS in bf16 against f32 (within 5e-2).
-   Beside each time: the bound computed from the call's inputs (bytes at
-   3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s and, for
-   attention, 3.9e12 exponentials/s, the exp floor) and, for attention,
-   one `scaled_dot_product_attention` call as the library yardstick
-   (timed here only; the port never calls it);
+   configs, timed as single launches, in batches of 20 launched from the
+   host and in batches of 20 replayed from a CUDA graph (the device's
+   time alone), with its live
+   candidates per tile and pixel tests per pixel, then at the GPU tests'
+   edge cases (`tests/torch_raster_cases.py`; winners, face ids and key
+   bits must equal the plain version's); the JAX package's own flash
+   kernel API (`ops/flash_attention.py`); LPIPS in bf16 against f32
+   (within 5e-2). Beside each time: the bound computed from the call's
+   inputs (bytes at 3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s
+   and, for attention, 3.9e12 exponentials/s, the exp floor) and, for
+   attention, one `scaled_dot_product_attention` call as the library
+   yardstick (timed here only; the port never calls it);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
@@ -55,14 +59,15 @@ Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7): a kernel of a path with
-no launch there fails the run, and so does an attention input that the
-flash wrapper had to stage (copy) for the kernel. Without a CUDA device the
-script exits
-non-zero and prints no result.
+no launch there fails the run, and so does an input that the flash or the
+raster wrapper had to stage (copy) for its kernel. Without a CUDA device
+the script exits non-zero and prints no result.
 
-`--ab SRC...` does phase 1 and then only `phase_ab`: edited copies of the
-flash source built side by side, checked, and timed in turns at the
-request's shapes.
+`--ab SRC...` does phase 1 and then only the A/B: edited copies of the
+flash source (`phase_ab_flash`, timed at the request's shapes) or of the
+raster source (`phase_ab_raster`, at RASTER_CASES; a directory stands for
+another checkout's raster wrapper, such as an earlier commit's), built
+side by side, checked against the plain version, and timed in turns.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
@@ -138,8 +143,6 @@ RASTER_CASES = [("fit", 512, 2, 1024, 64, "dmtet"),
                 ("ramp_128", 128, 2, 256, 64, "dmtet"),
                 ("bake", 1024, 4, 64, 32, "atlas")]
 RASTER_HOT = "fit"
-MAX_ID_MISMATCH = 1e-5       # share of the pixels whose winner may differ
-KEY_RTOL = 1e-6              # keys where the winners agree
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
 FWD_HOT = (48, 8192, 40)
@@ -277,8 +280,13 @@ def raster_bound(pts, faces, cand, cval, tile, tiles_x):
     flops each) and, per pixel and valid candidate, the tests it needs
     (4 flops for edge 0, 4 more for each further edge while the earlier
     ones pass, 4 for the key of a covered pixel) at the f32 peak; against
-    the bytes of pts, faces, the lists and the two outputs."""
-    from mvedit_tpu_torch.kernels.raster_select import prepare_coeffs
+    the bytes it must move: the masks, the ids of the valid slots, the
+    faces and vertices they reach, once each, and the three outputs.
+    Beside the bound, the kernel's own work from the same coefficients
+    (`block_masks`, its reject): the live candidates per tile (mean, max)
+    and the pixel tests per pixel its warps run."""
+    from mvedit_tpu_torch.kernels.raster_select import (block_masks,
+                                                        prepare_coeffs)
     T, K = cand.shape
     P = tile * tile
     t = torch.arange(T, device=cand.device)
@@ -286,41 +294,61 @@ def raster_bound(pts, faces, cand, cval, tile, tiles_x):
                             torch.arange(tile, device=cand.device),
                             indexing="ij")
     flops = 48.0 * float(cval.sum())
+    live, tests = [], 0.0
     step = max(1, (1 << 27) // (P * K))
     for t0 in range(0, T, step):
         co = prepare_coeffs(pts, faces, cand[t0:t0 + step],
                             cval[t0:t0 + step])          # (t, K, 12)
         tt = t[t0:t0 + step]
+        keep = block_masks(co, tiles_x, tt)               # (t, K, 8)
+        live.append(keep.any(-1).sum(-1))
+        tests += 32.0 * float(keep.sum())
         qx = ((tt % tiles_x) * tile)[:, None] + px.reshape(-1) + 0.5
         qy = ((tt // tiles_x) * tile)[:, None] + py.reshape(-1) + 0.5
         qx, qy = qx.float()[:, :, None], qy.float()[:, :, None]   # (t, P, 1)
-        live = cval[t0:t0 + step, None, :].expand(-1, P, -1)
-        flops += 4.0 * float(live.sum())
+        on = cval[t0:t0 + step, None, :].expand(-1, P, -1)
+        flops += 4.0 * float(on.sum())
         for e in range(3):
             c = co[:, None, :, 3 * e:3 * e + 3]
-            live = live & (c[..., 0] * qx + c[..., 1] * qy + c[..., 2] >= 0)
-            flops += 4.0 * float(live.sum())
-        del co, live
-    nbytes = (pts.numel() * 4 + faces.numel() * 4 + cand.numel() * 4
-              + cval.numel() + T * P * 8)
+            on = on & (c[..., 0] * qx + c[..., 1] * qy + c[..., 2] >= 0)
+            flops += 4.0 * float(on.sum())
+        del co, on, keep
+    live = torch.cat(live).float()
+    ids = torch.unique(cand[cval])
+    nbytes = (cval.numel() + 8 * float(cval.sum()) + 24 * ids.numel()
+              + 12 * torch.unique(faces[ids]).numel() + T * P * 16)
     ops_ms = flops / PEAK_F32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                flops=flops)
+                flops=flops, live_mean=float(live.mean()),
+                live_max=int(live.max()), tests_per_px=tests / (T * P))
 
 
-def median_ms(fn, runs=TIMED_RUNS, batch=1):
+def median_ms(fn, runs=TIMED_RUNS, batch=1, graph=False):
     """Median over `runs` CUDA-event pairs, each around `batch` calls of
-    `fn` back to back, per call."""
+    `fn` back to back, per call. With `graph`, the `batch` calls are
+    captured once in a CUDA graph and the pairs time its replays: the
+    device's time alone, where a short kernel would otherwise wait on the
+    host's launches."""
     fn()
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(batch):
+                fn()
+        run, batch = g.replay, batch
+    else:
+        def run():
+            for _ in range(batch):
+                fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(batch):
-            fn()
+        run()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / batch)
@@ -586,16 +614,70 @@ def _raster_soup(kind):
             torch.cat([fmask, torch.ones(12, dtype=torch.bool, device=DEV)]))
 
 
+def _raster_inputs(verts, faces, fmask, cfg, kind):
+    """The selection's inputs at `cfg` as the path builds them: pts, the
+    bin lists and the big list apart (`rasterize`), and the joined list
+    that `select_reference` takes."""
+    from mvedit_tpu_torch.models.mesh import pose_to_w2c, project_mesh
+    from mvedit_tpu_torch.models.mesh.rasterize import (_bin_triangles,
+                                                        candidates)
+    size = cfg.height
+    if kind == "atlas":
+        pts = verts * torch.tensor([size, size, 1.0], device=DEV)
+    elif kind == "pixels":
+        pts = verts
+    else:
+        poses, intr, _ = _rig(size)
+        pts = project_mesh(verts, pose_to_w2c(torch.as_tensor(
+            poses[0], device=DEV)), torch.as_tensor(intr[0], device=DEV))
+    lists = _bin_triangles(pts, faces, fmask, cfg)
+    return pts, lists, candidates(pts, faces, fmask, cfg)
+
+
+def raster_agreement(out, pts, faces, cand, cval, cfg):
+    """The kernel's (best, key, face) against `select_reference` on the
+    joined list: pixels whose winner index or face differs, pixels whose
+    key bits differ, the largest |key| difference where both cover, and
+    the plain winners."""
+    from mvedit_tpu_torch.kernels.raster_select import raster_select_reference
+    bk, kk, fk = out
+    bp, kp, fp = raster_select_reference(pts, faces, cand, cval, cfg.tile,
+                                         cfg.tiles_x, cfg.cull_backface)
+    mism = int(((bk != bp) | (fk != fp)).sum())
+    bits = int((kk.view(torch.int32) != kp.view(torch.int32)).sum())
+    both = (kk < 1e38) & (kp < 1e38)
+    err = float((kk - kp).abs()[both].max()) if both.any() else 0.0
+    return mism, bits, err, bp, kp
+
+
+def raster_edge_cases():
+    """The GPU tests' edge cases (`tests/torch_raster_cases.py`: slivers,
+    pixel-centre ties, duplicates with face 0 big, full lists, an empty
+    frame) at 128^2 and 256^2 (several warps per pixel block) and 512^2,
+    and three of them with culling: (name, pts, faces, mask, cfg)."""
+    from mvedit_tpu_torch.models.mesh import RasterConfig
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_raster_cases import CASES
+    runs = [(n, size, False) for n in CASES for size in (128, 256, 512)]
+    runs += [(n, 256, True) for n in ("slivers", "pixel_grid",
+                                      "duplicates")]
+    for name, size, cull in runs:
+        pts, faces, fv, kw = CASES[name](2, size)
+        yield (f"{name} {size}^2{' cull' if cull else ''}",
+               *(torch.as_tensor(x, device=DEV) for x in (pts, faces, fv)),
+               RasterConfig(cull_backface=cull, **kw))
+
+
 def phase_raster_kernel():
     """The raster selection kernel against `select_reference` on the same
-    candidate lists, at every config the path gives it."""
-    from mvedit_tpu_torch.kernels.raster_select import (raster_select,
-                                                        select_reference)
-    from mvedit_tpu_torch.models.mesh import (RasterConfig, pose_to_w2c,
-                                              project_mesh)
-    from mvedit_tpu_torch.models.mesh.rasterize import candidates
-    log(f"[raster] bounds: winners differ at <= {MAX_ID_MISMATCH:g} of the "
-        f"pixels, keys within {KEY_RTOL:g} relative where they agree")
+    candidates, at every config the path gives it (timed: single launches
+    and batches of AB_BATCH) and at the GPU tests' edge cases (not timed).
+    Winners, face ids and key bits must be equal."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import RasterConfig
+    log("[raster] bound: winners, face ids and key bits equal to the "
+        "plain version's at every pixel")
     rows, failed, soups = [], [], {}
     for name, size, span, k, k_big, kind in RASTER_CASES:
         if kind not in soups:
@@ -603,47 +685,56 @@ def phase_raster_kernel():
         verts, faces, fmask = soups[kind]
         cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
                            k_big=k_big)
-        if kind == "atlas":
-            pts = verts * torch.tensor([size, size, 1.0], device=DEV)
-        else:
-            poses, intr, _ = _rig(size)
-            pts = project_mesh(verts, pose_to_w2c(torch.as_tensor(
-                poses[0], device=DEV)), torch.as_tensor(intr[0], device=DEV))
-        cand, cval = candidates(pts, faces, fmask, cfg)
-        args = (pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
-        bk, kk = raster_select(*args)
-        bp, kp = select_reference(*args)
+        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
+            verts, faces, fmask, cfg, kind)
+        args = (pts, faces, tt, tv, cfg.tile, cfg.tiles_x, False, bt, bv)
+        staged = RS.raster_select.staged
+        out = RS.raster_select(*args)
         torch.cuda.synchronize()
-
-        def ids(b, key):
-            return torch.where(key < 1e38, cand.gather(1, b.long()),
-                               torch.full_like(cand[:, :1], -1))
-        tk, tp = ids(bk, kk), ids(bp, kp)
-        npx = tp.numel()
-        mism = int((tk != tp).sum())
-        both = (tk == tp) & (tp >= 0)
-        d = (kk - kp).abs()[both]
-        err = float(d.max()) if d.numel() else 0.0
-        rel = float((d / kp.abs()[both].clamp(min=1e-30)).max()) \
-            if d.numel() else 0.0
-        hits = int((tp >= 0).sum())
-        big = int(((bp >= k) & (tp >= 0)).sum())
-        ms = median_ms(lambda: raster_select(*args))
-        plain_ms = median_ms(lambda: select_reference(*args))
-        bd = raster_bound(*args)
-        ok = (mism <= MAX_ID_MISMATCH * npx and rel <= KEY_RTOL
-              and hits > 0.01 * npx and big > 0)
-        log(f"[raster] {name}: {size}^2, span {span}, K {cand.shape[1]}, "
+        mism, bits, err, bp, kp = raster_agreement(out, pts, faces, cand,
+                                                   cval, cfg)
+        npx = bp.numel()
+        hits = int((kp < 1e38).sum())
+        big = int(((bp >= k) & (kp < 1e38)).sum())
+        ms = median_ms(lambda: RS.raster_select(*args))
+        batched = median_ms(lambda: RS.raster_select(*args), batch=AB_BATCH)
+        graphed = median_ms(lambda: RS.raster_select(*args), batch=AB_BATCH,
+                            graph=True)
+        plain_ms = median_ms(lambda: RS.raster_select_reference(*args))
+        bd = raster_bound(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
+        ok = (mism == 0 and bits == 0 and hits > 0.01 * npx and big > 0
+              and RS.raster_select.staged == staged)
+        log(f"[raster] {name}: {size}^2, span {span}, K {k} + {k_big}, "
             f"{int(fmask.sum())} faces; {hits} of {npx} pixels hit, {big} "
-            f"won from the big list; mismatched ids {mism}, max key rel err "
-            f"{rel:.2e}; kernel {ms:.3f} ms bound {bd['bound_ms']:.3f} ms "
-            f"({bd['bound_by']}: {bd['flops']:.3e} f32 flops) library none "
-            f"plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-        rows.append(dict(case=name, ms=ms, plain_ms=plain_ms,
-                         mismatched=mism, key_err=err, **bd))
+            f"won from the big list; mismatched ids {mism}, key bits "
+            f"{bits}; live candidates per tile {bd['live_mean']:.1f} mean, "
+            f"{bd['live_max']} max (of {int(cval.sum()) / cand.shape[0]:.1f}"
+            f" valid slots); pixel tests per pixel {bd['tests_per_px']:.2f};"
+            f" kernel {ms:.4f} ms single, {batched:.4f} ms batched x"
+            f"{AB_BATCH}, {graphed:.4f} ms graphed x{AB_BATCH} (device "
+            f"only); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+            f"{bd['flops']:.3e} f32 flops) library none plain "
+            f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+        rows.append(dict(case=name, ms=ms, batched_ms=batched,
+                         graphed_ms=graphed,
+                         plain_ms=plain_ms, mismatched=mism, key_bits=bits,
+                         key_err=err, **bd))
         if not ok:
             failed.append(name)
     del soups
+    for name, pts, faces, fv, cfg in raster_edge_cases():
+        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
+            pts, faces, fv, cfg, "pixels")
+        out = RS.raster_select(pts, faces, tt, tv, cfg.tile, cfg.tiles_x,
+                               cfg.cull_backface, bt, bv)
+        mism, bits, _, _, kp = raster_agreement(out, pts, faces, cand,
+                                                cval, cfg)
+        ok = mism == 0 and bits == 0
+        log(f"[raster] edge case {name}: {int((kp < 1e38).sum())} pixels "
+            f"hit; mismatched ids {mism}, key bits {bits} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"raster_select disagrees with its plain "
@@ -698,8 +789,8 @@ def phase_flash_fwd():
     return rows, worst
 
 
-def phase_ab(sources):
-    """`--ab`: builds each flash source (an edited copy of
+def phase_ab_flash(sources):
+    """`--ab` for flash attention: builds each flash source (an edited copy of
     `csrc/flash_attention.cu`, same C entry) with nvcc, all together;
     holds each kernel against the plain version at AB_CASES and at the
     request's shapes (first batch entry); then times them at the request's
@@ -770,6 +861,117 @@ def phase_ab(sources):
         raise AssertionError(f"disagreements with the plain version: "
                              f"{failed}")
     log("[ab] every source agrees with the plain version")
+
+
+def _tree_raster(tree):
+    """The raster wrapper of another checkout rooted at `tree`, loaded by
+    path as a module of its own: it builds that tree's kernel source into
+    that tree's `_build/`. The PR 2-4 wrapper takes the joined list:
+    (pts, faces, cand, cand_valid, tile, tiles_x) -> (best, key)."""
+    import importlib.util
+    path = os.path.join(tree, "mvedit_tpu_torch", "kernels",
+                        "raster_select.py")
+    spec = importlib.util.spec_from_file_location(
+        f"raster_select_of_{len(path)}_{abs(hash(path))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
+
+
+def phase_ab_raster(sources):
+    """`--ab` for the raster selection. Each SRC is an edited copy of
+    `csrc/raster_select.cu` (same C entry), built with nvcc side by side,
+    or the root of an earlier checkout (PRs 2-4), whose own wrapper is
+    called on the joined list with its ids already int32 and its mask
+    uint8 (its casts are then no-ops, so the time is its kernel's and its
+    host code's).
+    Each is held against the plain version at RASTER_CASES and the edge
+    cases (winners and key bits equal), then timed in turns (A, B, ...,
+    B, A) at RASTER_CASES: AB_BATCH launches captured in a CUDA graph per
+    CUDA-event pair (the kernel's device time), the same launched from the
+    host, and single launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import RasterConfig
+    out = os.path.join(os.path.dirname(RS.BUILD_LOG), "ab")
+    files = [s for s in sources if not os.path.isdir(s)]
+    libs = {s: os.path.join(out, f"libraster_ab{i}.so")
+            for i, s in enumerate(files)}
+    with ThreadPoolExecutor(max(1, len(files))) as ex:
+        list(ex.map(lambda s: RS.compile_source(s, libs[s],
+                                                f"{libs[s]}.nvcc.log"),
+                    files))
+    calls = {}
+    for src in sources:
+        if src in libs:
+            with open(f"{libs[src]}.nvcc.log") as f:
+                regs = re.findall(r"Used (\d+) registers", f.read())
+            log(f"[ab] {src}: registers per instantiation {regs}")
+            lib = RS.load_library(libs[src])
+            calls[src] = (lambda x, lib=lib: RS.launch(
+                x["pts"], x["faces"], x["tt"], x["tv"], 16, x["cfg"].tiles_x,
+                x["cfg"].cull_backface, x["bt"], x["bv"], lib=lib))
+        else:
+            mod = _tree_raster(src)
+            calls[src] = (lambda x, mod=mod: mod.raster_select(
+                x["pts"], x["faces32"], x["cand32"], x["cval8"], 16,
+                x["cfg"].tiles_x, x["cfg"].cull_backface)[:2])
+
+    def inputs(pts, faces, fmask, cfg, kind):
+        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
+            pts, faces, fmask, cfg, kind)
+        return dict(pts=pts, faces=faces, tt=tt, tv=tv, bt=bt, bv=bv,
+                    cand=cand, cval=cval, cfg=cfg, faces32=faces.int(),
+                    cand32=cand.int(), cval8=cval.to(torch.uint8))
+    cases, soups = [], {}
+    for name, size, span, k, k_big, kind in RASTER_CASES:
+        if kind not in soups:
+            soups[kind] = _raster_soup(kind)
+        cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
+                           k_big=k_big)
+        cases.append((name, inputs(*soups[kind], cfg, kind)))
+    del soups
+    edges = [(name, inputs(pts, faces, fv, cfg, "pixels"))
+             for name, pts, faces, fv, cfg in raster_edge_cases()]
+    failed = []
+    for name, x in cases + edges:
+        for src, call in calls.items():
+            res = call(x)
+            best, key = res[0], res[1]
+            face = res[2] if len(res) == 3 else torch.where(
+                key < 1e38, x["cand"].gather(1, best.long()),
+                torch.full_like(x["cand"][:, :1], -1))
+            mism, bits, _, _, _ = raster_agreement(
+                (best, key, face), x["pts"], x["faces"], x["cand"],
+                x["cval"], x["cfg"])
+            if mism or bits:
+                failed.append((src, name, mism, bits))
+    del edges
+    for name, x in cases:
+        turns = list(calls) + list(calls)[::-1]
+        graphed = {src: [] for src in calls}
+        batched = {src: [] for src in calls}
+        single = {src: [] for src in calls}
+        for src in turns:
+            graphed[src].append(median_ms(lambda: calls[src](x),
+                                          batch=AB_BATCH, graph=True))
+            batched[src].append(median_ms(lambda: calls[src](x),
+                                          batch=AB_BATCH))
+            single[src].append(median_ms(lambda: calls[src](x)))
+        bd = raster_bound(x["pts"], x["faces"], x["cand"], x["cval"], 16,
+                          x["cfg"].tiles_x)
+        log(f"[ab] raster {name}: " + "; ".join(
+            f"{src} graphed {' / '.join(f'{t:.4f}' for t in graphed[src])} "
+            f"ms, batched {' / '.join(f'{t:.4f}' for t in batched[src])} "
+            f"ms, single {' / '.join(f'{t:.4f}' for t in single[src])} ms"
+            for src in calls) + f"; bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+    if failed:
+        raise AssertionError(f"disagreements with the plain version: "
+                             f"{failed}")
+    log("[ab] every raster source agrees with the plain version")
 
 
 def phase_mesh(runner):
@@ -1340,9 +1542,11 @@ def main():
                                          "flash_fwd"),
                     help="with --kernels-only: check this kernel only")
     ap.add_argument("--ab", nargs="+", metavar="SRC",
-                    help="only build these flash-attention sources (edited "
-                         "copies of csrc/flash_attention.cu), check them and "
-                         "time them against each other in turns")
+                    help="only build these kernel sources (edited copies of "
+                         "csrc/flash_attention.cu or csrc/raster_select.cu; "
+                         "for the raster kernel also the root of another "
+                         "checkout), check them and time them against each "
+                         "other in turns")
     ap.add_argument("--profile", metavar="OUT_DIR",
                     help="after the run, profile a warm text-to-image "
                          "request, denoise timesteps, mesh and NeRF fit "
@@ -1352,7 +1556,16 @@ def main():
         ap.error("--kernel needs --kernels-only")
     smi = phase_device()
     if args.ab:
-        phase_ab(args.ab)
+        def raster(src):
+            if os.path.isdir(src):
+                return True
+            with open(src) as f:
+                return "mvedit_raster_select" in f.read()
+        flash = [src for src in args.ab if not raster(src)]
+        if flash:
+            phase_ab_flash(flash)
+        if len(flash) < len(args.ab):
+            phase_ab_raster([src for src in args.ab if raster(src)])
         return
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
@@ -1386,7 +1599,9 @@ def main():
         f"{launches - t2i_launches} in the denoise timesteps")
     if t2i_launches == 0 or launches == t2i_launches:
         raise AssertionError("the main path did not launch flash_attention")
-    # the mesh path: counted part by part inside
+    # the mesh path: counted part by part inside; no staged raster input
+    # from here to the end of the paths
+    RS.raster_select.staged = 0
     mesh_launches, mesh_ctx = phase_mesh(runner)
     # the whole request, twice: counted part by part inside
     import tempfile
@@ -1403,6 +1618,12 @@ def main():
         f"{launch.staged}")
     if launch.staged:
         raise AssertionError("the wrapper staged path inputs for the kernel")
+    # the rasterizer hands the selection float32 pts, int64 faces and ids,
+    # bool masks, contiguous: read as they are
+    log(f"[launches] raster_select staged copies over the mesh phase, the "
+        f"requests and tet 256: {RS.raster_select.staged}")
+    if RS.raster_select.staged:
+        raise AssertionError("the raster wrapper staged path inputs")
     if args.profile:
         phase_profile(runner, args.profile, mesh_ctx)
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
@@ -1412,8 +1633,9 @@ def main():
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
         f"{FWD_HOT} (flash_fwd); library_ms is one scaled_dot_product_"
         f"attention call (none computes raster_select); errors over all "
-        f"checked cases (raster_select: max |key| error where the winners "
-        f"agree, and the mismatched ids)")
+        f"checked cases (raster_select: max |key| error where both cover, "
+        f"the mismatched ids and key bits; ms single launches, batched_ms "
+        f"{AB_BATCH} per event pair, graphed_ms {AB_BATCH} in a CUDA graph)")
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1430,7 +1652,9 @@ def main():
          + sum(req_launches.values()),
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
-         "ms": rhot["ms"], "plain_ms": rhot["plain_ms"],
+         "key_bits_differing": sum(r["key_bits"] for r in raster_rows),
+         "ms": rhot["ms"], "batched_ms": rhot["batched_ms"],
+         "graphed_ms": rhot["graphed_ms"], "plain_ms": rhot["plain_ms"],
          "bound_ms": rhot["bound_ms"], "bound_by": rhot["bound_by"],
          "library_ms": None},
         {"name": "flash_fwd", "route": "cuda",

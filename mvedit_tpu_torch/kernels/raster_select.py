@@ -1,39 +1,54 @@
 """Raster selection: the hand-written Hopper kernel and its plain PyTorch
-version.
+versions.
 
-`raster_select(pts, faces, cand, cand_valid, tile, tiles_x)` is the
-counterpart of `mvedit_tpu/models/mesh/select_pallas.py::select_pallas`
-together with its coefficient pass `prepare_coeffs`. For every screen tile
-(tile x tile pixels, pixel centres at +0.5) and its K candidate triangles
-it evaluates three sign-folded edge functions and the screen-space 1/z
-plane, affine in the pixel, and keeps per pixel the covering candidate
-with the largest 1/z; ties go to the lowest candidate index. It returns
-(best (T, tile^2) int32 index into the candidate axis, key (T, tile^2)
-float32 = -1/z of the winner, 3e38 and index 0 where nothing covers).
-It is not differentiable: gradients come from the winner recompute in
+`raster_select(pts, faces, tile_tris, tile_valid, tile, tiles_x,
+cull_backface, big_tris, big_valid)` is the counterpart of
+`mvedit_tpu/models/mesh/select_pallas.py::select_pallas` together with its
+coefficient pass `prepare_coeffs`. Each screen tile (16 x 16 pixels, pixel
+centres at +0.5) has a candidate axis: its bin list (tile_tris (T, Kt))
+followed by the global big list (big_tris (Kb,), shared by every tile; an
+index >= Kt points into it). Per pixel it evaluates three sign-folded edge
+functions and the screen-space 1/z plane, affine in the pixel, and keeps
+the covering candidate with the largest 1/z; ties go to the lowest
+candidate index. It returns (best (T, 256) int32 index into the candidate
+axis, key (T, 256) float32 = -1/z of the winner, face (T, 256) int64 face
+id of the winner), with 0, 3e38 and -1 where nothing covers the pixel. It
+is not differentiable: gradients come from the winner recompute in
 `rasterize._winner_outputs`.
 
 - CUDA tensors launch `csrc/raster_select.cu` (sm_90a), built with nvcc at
   first use into `_build/` and bound through ctypes. A build or launch
   failure raises; nothing falls back.
-- CPU tensors take `select_reference`, the plain version.
+- CPU tensors take `raster_select_reference`, the plain version of the
+  same interface, which concatenates the lists and runs `select_reference`,
+  the plain version of the TPU kernel's own interface (one (T, K) list).
 
 Both evaluate the coefficients and the affine tests op by op in the same
 order with IEEE rounding (the kernel builds without FMA contraction), so on
-the card the kernel's ids and keys match the plain version's bit for bit.
-`raster_select.launches` counts kernel launches.
+the card the kernel's ids and keys equal the plain version's bit for bit.
+
+`plan(...)` says on the host alone (CPU and `meta` tensors too) whether the
+kernel reads the inputs as they are ("direct": float32 pts, int64 faces
+and ids, bool masks, each contiguous: what `rasterize` hands it) or from
+converted copies ("staged"), and raises for what it does not take.
+`raster_select.launches` counts kernel launches and `raster_select.staged`
+the launches that needed the copies (0 on the paths). `block_masks` is the
+plain version of the kernel's per-warp reject, used to count its work.
 """
 import ctypes
+import functools
 import os
 import subprocess
 import threading
 
 import torch
 
-__all__ = ["raster_select", "select_reference", "prepare_coeffs", "build",
-           "BIG"]
+__all__ = ["raster_select", "raster_select_reference", "select_reference",
+           "prepare_coeffs", "block_masks", "plan", "launch", "splits_for",
+           "build", "compile_source", "load_library", "BIG", "TILE"]
 
 BIG = 3.0e38                 # key of a pixel that nothing covers
+TILE = 16                    # the kernel's tile edge in pixels
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_HERE), "csrc", "raster_select.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -83,8 +98,9 @@ def prepare_coeffs(pts, faces, cand, cand_valid, cull_backface=False):
 @torch.no_grad()
 def select_reference(pts, faces, cand, cand_valid, tile, tiles_x,
                      cull_backface=False, tile_chunk=64):
-    """The plain version of `raster_select`, over chunks of `tile_chunk`
-    tiles so that the (tiles, tile^2, K) temporaries stay bounded."""
+    """The plain version of `select_pallas` on one (T, K) candidate list
+    -> (best, key), over chunks of `tile_chunk` tiles so that the
+    (tiles, tile^2, K) temporaries stay bounded."""
     T = cand.shape[0]
     P = tile * tile
     dev = pts.device
@@ -114,81 +130,219 @@ def select_reference(pts, faces, cand, cand_valid, tile, tiles_x,
     return best, bkey
 
 
+@torch.no_grad()
+def raster_select_reference(pts, faces, tile_tris, tile_valid, tile,
+                            tiles_x, cull_backface=False, big_tris=None,
+                            big_valid=None):
+    """The plain version of `raster_select`: (best, key, face), from
+    `select_reference` on the joined (T, Kt + Kb) candidate axis."""
+    cand, cval = tile_tris.long(), tile_valid.bool()
+    if big_tris is not None:
+        T = cand.shape[0]
+        cand = torch.cat([cand, big_tris.long()[None].expand(T, -1)], 1)
+        cval = torch.cat([cval, big_valid.bool()[None].expand(T, -1)], 1)
+    best, key = select_reference(pts, faces.long(), cand, cval, tile,
+                                 tiles_x, cull_backface)
+    face = torch.where(key < BIG, cand.gather(1, best.long()),
+                       torch.full_like(cand[:, :1], -1))
+    return best, key, face
+
+
+def block_masks(co, tiles_x, tile_ids=None):
+    """The plain version of the kernel's per-warp reject: for coefficients
+    `co` (T, K, 12) from `prepare_coeffs`, a (T, K, 8) bool, True where
+    candidate k may cover a pixel of warp block b of its tile (8 x 4
+    pixels at (8 (b % 2), 4 (b / 2))). Each edge is evaluated, with the
+    selection's own rounding, at the block corner where it is largest;
+    invalid and degenerate candidates ((0, 0, -1) edges) get no block.
+    `tile_ids` (T,) are the tiles' indices (default 0..T-1)."""
+    T = co.shape[0]
+    t = torch.arange(T, device=co.device) if tile_ids is None else tile_ids
+    x0 = ((t % tiles_x) * TILE)[:, None]                    # (T, 1)
+    y0 = ((t // tiles_x) * TILE)[:, None]
+    b = torch.arange(8, device=co.device)
+    out = None
+    for e in range(3):
+        al, be, ga = (co[..., 3 * e + i, None] for i in range(3))   # (T,K,1)
+        cx = (x0 + 8 * (b % 2))[:, None, :] + torch.where(al >= 0, 7, 0)
+        cy = (y0 + 4 * (b // 2))[:, None, :] + torch.where(be >= 0, 3, 0)
+        w = al * (cx.float() + 0.5) + be * (cy.float() + 0.5) + ga
+        out = w >= 0 if out is None else out & (w >= 0)
+    return out
+
+
+def compile_source(src, lib, log):
+    """nvcc `src` for sm_90a into the shared library `lib`, and ptxas'
+    report (registers, shared memory, spills per instantiation) into
+    `log`. -fmad=false: no FMA contraction, so the affine tests round as
+    the plain version's separate ops do."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError(f"no CUDA toolkit found to build {src}")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
+           "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-fmad=false", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, src]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    with open(log, "w") as f:
+        f.write(res.stdout + res.stderr)
+    os.replace(tmp, lib)
+
+
+def load_library(lib):
+    """Load a library built by `compile_source` and bind its C entry."""
+    lib = ctypes.CDLL(lib)
+    fn = lib.mvedit_raster_select
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p, i, i, p, p, i, i, i, i,
+                   p, p, p, p]
+    fn.restype = i
+    return lib
+
+
 def build():
     """Compile the kernel (if its library is missing or older than the
     source) and load it. Returns the ctypes library."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            from torch.utils.cpp_extension import CUDA_HOME
-            if CUDA_HOME is None:
-                raise RuntimeError("no CUDA toolkit found to build "
-                                   "raster_select.cu")
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            # -fmad=false: no FMA contraction, so the affine tests round
-            # as the plain version's separate ops do
-            cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-                   "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-fmad=false", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, _SRC]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            with open(BUILD_LOG, "w") as f:
-                f.write(res.stdout + res.stderr)
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
-        fn = lib.mvedit_raster_select
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            if (not os.path.exists(_LIB)
+                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                compile_source(_SRC, _LIB, BUILD_LOG)
+            _lib = load_library(_LIB)
+        return _lib
 
 
-def raster_select(pts, faces, cand, cand_valid, tile, tiles_x,
-                  cull_backface=False):
-    """pts (V, 3) pixel-space (u, v, z) float32, faces (F, 3) int, cand
-    (T, K) int ids into faces, cand_valid (T, K) bool -> (best (T, P)
-    int32, key (T, P) float32), see module doc."""
-    T, K = cand.shape
-    if cand_valid.shape != (T, K) or pts.dim() != 2 or pts.shape[1] != 3 \
-            or faces.dim() != 2 or faces.shape[1] != 3:
-        raise ValueError(f"bad shapes: pts {tuple(pts.shape)}, faces "
-                         f"{tuple(faces.shape)}, cand {tuple(cand.shape)}, "
-                         f"cand_valid {tuple(cand_valid.shape)}")
-    if pts.device.type == "cpu":
-        return select_reference(pts, faces, cand, cand_valid, tile, tiles_x,
-                                cull_backface)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    if not 1 <= tile * tile <= 1024:
-        raise ValueError(f"tile {tile}: one thread per pixel, at most 1024")
+def plan(pts, faces, tile_tris, tile_valid, tile, big_tris=None,
+         big_valid=None):
+    """"direct" or "staged" for the kernel, decided from shapes, dtypes,
+    devices and layouts alone; raises ValueError or TypeError for inputs
+    it does not take. The path's inputs take the first test."""
+    big = big_tris is not None
+    if big != (big_valid is not None):
+        raise ValueError("give both big_tris and big_valid, or neither")
+    ps, fs, ts = pts.shape, faces.shape, tile_tris.shape
+    if len(ps) != 2 or ps[1] != 3 or len(fs) != 2 or fs[1] != 3 \
+            or len(ts) != 2 or tile_valid.shape != ts:
+        raise ValueError(f"bad shapes: pts {tuple(ps)}, faces {tuple(fs)}, "
+                         f"tile_tris {tuple(ts)}, tile_valid "
+                         f"{tuple(tile_valid.shape)}")
+    if big and (big_tris.dim() != 1 or big_valid.shape != big_tris.shape):
+        raise ValueError(f"bad big list: {tuple(big_tris.shape)}, "
+                         f"{tuple(big_valid.shape)}")
+    if tile != TILE:
+        raise ValueError(f"tile {tile}: the kernel's tiles are {TILE}^2")
+    ids = (faces, tile_tris, big_tris) if big else (faces, tile_tris)
+    masks = (tile_valid, big_valid) if big else (tile_valid,)
     dev = pts.device
-    pts = pts.detach().float().contiguous()
-    faces = faces.to(device=dev, dtype=torch.int32).contiguous()
-    cand = cand.to(device=dev, dtype=torch.int32).contiguous()
-    valid = cand_valid.to(device=dev, dtype=torch.uint8).contiguous()
-    best = torch.empty((T, tile * tile), dtype=torch.int32, device=dev)
-    key = torch.empty((T, tile * tile), dtype=torch.float32, device=dev)
+    if any(x.device != dev for x in ids + masks):
+        raise ValueError("all inputs must be on one device")
+    if ts[1] + (big_tris.shape[0] if big else 0) >= 2 ** 31 \
+            or ts[0] >= 2 ** 31:
+        raise ValueError("candidate axis or tile count too large")
+    if pts.dtype is torch.float32 and pts.is_contiguous() \
+            and all(x.dtype is torch.int64 and x.is_contiguous()
+                    for x in ids) \
+            and all(x.dtype is torch.bool and x.is_contiguous()
+                    for x in masks):
+        return "direct"
+    if not pts.is_floating_point():
+        raise TypeError(f"pts must be floating, got {pts.dtype}")
+    for x in ids + masks:
+        if x.is_floating_point() or x.is_complex():
+            raise TypeError(f"ids and masks must be integer or bool, got "
+                            f"{x.dtype}")
+    return "staged"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(T, sms):
+    """Warps per 8 x 4 pixel block, from the tile count T and the card's
+    `sms` SMs (measured on the H100 with `chip_smoke.py --ab`, PERF.md):
+    1 (8-warp CTAs) at 16 tiles per SM or more (the 1024^2 bake), 2 from
+    4 per SM (the 512^2 renders), else 4 (the 128^2 and 256^2 ramp), the
+    block's candidates taken in turns."""
+    if T >= 16 * sms:
+        return 1
+    return 2 if T >= 4 * sms else 4
+
+
+def launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
+           cull_backface=False, big_tris=None, big_valid=None, lib=None,
+           splits=None):
+    """Launch the kernel on CUDA tensors; returns (best, key, face). Counts
+    staged launches in `raster_select.staged`, and no launch: that count
+    is `raster_select`'s.
+    `lib` is a library of `load_library` to launch instead of the built
+    one (an edited source, timed against it); `splits` overrides
+    `splits_for`."""
+    how = plan(pts, faces, tile_tris, tile_valid, tile, big_tris, big_valid)
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if how == "staged":
+        pts = pts.detach().float().contiguous()
+        faces, tile_tris = (x.long().contiguous() for x in (faces, tile_tris))
+        tile_valid = tile_valid.bool().contiguous()
+        if big_tris is not None:
+            big_tris = big_tris.long().contiguous()
+            big_valid = big_valid.bool().contiguous()
+        raster_select.staged += 1
+    T, Kt = tile_tris.shape
+    Kb = 0 if big_tris is None else big_tris.shape[0]
+    best = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
+    key = torch.empty((T, TILE * TILE), dtype=torch.float32, device=dev)
+    face = torch.empty((T, TILE * TILE), dtype=torch.int64, device=dev)
     if T == 0:
-        return best, key
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        return best, key, face
+    lib = build() if lib is None else lib
+    if splits is None:
+        splits = splits_for(T, _sm_count(dev.index))
+    args = (pts.data_ptr(), faces.data_ptr(), faces.shape[0],
+            tile_tris.data_ptr(), tile_valid.data_ptr(), T, Kt,
+            None if big_tris is None else big_tris.data_ptr(),
+            None if big_valid is None else big_valid.data_ptr(), Kb,
+            tiles_x, int(cull_backface), splits, best.data_ptr(),
+            key.data_ptr(), face.data_ptr())
+    # the launch goes to the runtime's current device: switch only when
+    # the tensors lie on another
+    if dev.index == torch.cuda.current_device():
         err = lib.mvedit_raster_select(
-            pts.data_ptr(), faces.data_ptr(), cand.data_ptr(),
-            valid.data_ptr(), T, K, tile, tiles_x, int(cull_backface),
-            faces.shape[0], best.data_ptr(), key.data_ptr(), stream)
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.mvedit_raster_select(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raster_select launch failed: CUDA error {err}")
+    return best, key, face
+
+
+def raster_select(pts, faces, tile_tris, tile_valid, tile, tiles_x,
+                  cull_backface=False, big_tris=None, big_valid=None):
+    """pts (V, 3) pixel-space (u, v, z) float, faces (F, 3) int, tile_tris
+    (T, Kt) int ids into faces, tile_valid (T, Kt) bool, and the optional
+    big list big_tris / big_valid (Kb,) -> (best (T, 256) int32, key
+    (T, 256) float32, face (T, 256) int64), see module doc."""
+    if pts.device.type == "cpu":
+        plan(pts, faces, tile_tris, tile_valid, tile, big_tris, big_valid)
+        return raster_select_reference(pts, faces, tile_tris, tile_valid,
+                                       tile, tiles_x, cull_backface,
+                                       big_tris, big_valid)
+    out = launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
+                 cull_backface, big_tris, big_valid)
     raster_select.launches += 1
-    return best, key
+    return out
 
 
 raster_select.launches = 0
+raster_select.staged = 0

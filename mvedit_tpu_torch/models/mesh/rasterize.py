@@ -8,9 +8,10 @@
    sort and a searchsorted turn the pairs into per-tile candidate lists of
    fixed capacity (`k_per_tile`, `k_big`; candidates past them are dropped,
    as in the reference).
-3. **Select**: per pixel, the nearest covering candidate, through
-   `kernels.raster_select` (the hand-written kernel on the card, its plain
-   version on the CPU). Selection is discrete and carries no gradient.
+3. **Select**: per pixel, the nearest covering candidate and its face id,
+   through `kernels.raster_select` (the hand-written kernel on the card,
+   its plain version on the CPU), which reads the bin lists and the big
+   list apart. Selection is discrete and carries no gradient.
 4. **Winner outputs**: the winner's perspective-correct barycentrics,
    depth and soft silhouette alpha are recomputed differentiably from
    `pts`, so gradients reach the vertices as nvdiffrast's coverage
@@ -131,8 +132,10 @@ def _bin_triangles(pts, faces, face_valid, cfg: RasterConfig):
 
 
 def candidates(pts, faces, face_valid, cfg: RasterConfig):
-    """Each tile's candidate list, its bin list then the global big list:
-    (cand (num_tiles, k_per_tile + k_big) int64 face ids, cand_valid)."""
+    """Each tile's candidate list, its bin list then the global big list,
+    joined: (cand (num_tiles, k_per_tile + k_big) int64 face ids,
+    cand_valid), the one (T, K) list of the TPU kernel's interface
+    (`select_reference`). `rasterize` hands the lists over apart."""
     tile_tris, tile_valid, big_tris, big_valid = _bin_triangles(
         pts.detach(), faces.long(), face_valid, cfg)
     T = cfg.num_tiles
@@ -201,13 +204,19 @@ def rasterize(pts, faces, face_valid, cfg: RasterConfig):
     bary (H, W, 2) perspective-correct u, v, z (camera depth), alpha_hard,
     alpha (soft silhouette), winner_faces (H, W, 3)."""
     faces = faces.long()
-    cand, cand_valid = candidates(pts, faces, face_valid, cfg)
     ts = cfg.tile
     with torch.no_grad():
-        best, bkey = raster_select(pts.detach(), faces, cand, cand_valid, ts,
-                                   cfg.tiles_x, cfg.cull_backface)
-        # the winner's face id: a lookup in its tile's candidate list
-        wt = cand.gather(1, best.long())                    # (T, P)
+        # the bin lists and the big list go to the selection as they are;
+        # it returns each pixel's winning face id (-1 on a miss)
+        tile_tris, tile_valid, big_tris, big_valid = _bin_triangles(
+            pts.detach(), faces, face_valid, cfg)
+        _, bkey, wt = raster_select(pts.detach(), faces, tile_tris,
+                                    tile_valid, ts, cfg.tiles_x,
+                                    cfg.cull_backface, big_tris, big_valid)
+        # a miss (-1) takes its tile's first slot as a dummy winner: its
+        # outputs are masked, and the backward's scatter of their zero
+        # gradients spreads over the tiles instead of piling onto one face
+        wt = torch.where(wt >= 0, wt, tile_tris[:, :1])
 
     def detile(x):
         # (T, ts * ts) -> (H, W)

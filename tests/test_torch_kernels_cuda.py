@@ -13,10 +13,14 @@ Tolerances:
   inputs): both round P and the output to bf16 (eps 2^-8) at other points
   and sum in another order. The bounds fail a kernel that scales by
   1/sqrt(padded D) or leaves ragged keys unmasked.
-- raster selection: exact, at the render configs and at the UV bake's
-  (1024^2 grid atlas, tile 16, span 4, K 64 + 32). The kernel evaluates
-  every coefficient and affine test op by op in the plain version's order
-  with IEEE rounding and no FMA contraction, so winners and keys are
+- raster selection: exact (winners, face ids and key bits), at the render
+  configs, at the UV bake's (1024^2 grid atlas, tile 16, span 4, K 64 +
+  32), and on the edge cases of `torch_raster_cases.py` (slivers,
+  pixel-centre ties, duplicates, full lists, an empty frame, culling) at
+  128^2 and 256^2 (several warps per pixel block) and 512^2. The kernel
+  evaluates every coefficient and affine test op by op in the plain
+  version's order with IEEE rounding and no FMA contraction, and its
+  rejects are exact for those rounded tests, so winners and keys are
   bit-equal.
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
@@ -151,35 +155,51 @@ def _soup(cuda, n_faces, size, seed):
     return project_mesh(verts, pose, intr), faces
 
 
+def _select_both(pts, faces, fv, cfg, splits=None):
+    """The kernel on `rasterize`'s split lists against `select_reference`
+    on the joined list: winners, faces and key bits equal, one launch, no
+    staged copy. `splits` launches through `launch` with that many warps
+    per pixel block instead."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh.rasterize import (_bin_triangles,
+                                                        candidates)
+    tt, tv, bt, bv = _bin_triangles(pts, faces.long(), fv, cfg)
+    before, staged = RS.raster_select.launches, RS.raster_select.staged
+    if splits is None:
+        bk, kk, fk = RS.raster_select(pts, faces, tt, tv, cfg.tile,
+                                      cfg.tiles_x, cfg.cull_backface, bt, bv)
+        assert RS.raster_select.launches == before + 1
+    else:
+        bk, kk, fk = RS.launch(pts, faces, tt, tv, cfg.tile, cfg.tiles_x,
+                               cfg.cull_backface, bt, bv, splits=splits)
+    torch.cuda.synchronize()
+    assert RS.raster_select.staged == staged
+    cand, cval = candidates(pts, faces, fv, cfg)
+    bp, kp, fp = RS.raster_select_reference(pts, faces, cand, cval, cfg.tile,
+                                            cfg.tiles_x, cfg.cull_backface)
+    assert torch.equal(bk, bp) and torch.equal(fk, fp)
+    assert torch.equal(kk.view(torch.int32), kp.view(torch.int32))
+    return bp, kp
+
+
 @pytest.mark.parametrize("size,span,k", [(512, 2, 1024), (512, 4, 256),
                                          (256, 2, 256), (128, 2, 256)])
 def test_raster_select_matches_plain(cuda, size, span, k):
     """Winners equal at every pixel (the kernel rounds every op as the
     plain version does, without FMA contraction) and keys bit-equal."""
-    from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.models.mesh import RasterConfig
-    from mvedit_tpu_torch.models.mesh.rasterize import candidates
     pts, faces = _soup(cuda, 20000, size, size + k)
     cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k)
     fv = torch.ones(faces.shape[0], dtype=torch.bool, device=cuda)
-    cand, cval = candidates(pts, faces, fv, cfg)
-    before = RS.raster_select.launches
-    bk, kk = RS.raster_select(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
-    torch.cuda.synchronize()
-    assert RS.raster_select.launches == before + 1
-    bp, kp = RS.select_reference(pts, faces, cand, cval, cfg.tile,
-                                 cfg.tiles_x)
+    bp, kp = _select_both(pts, faces, fv, cfg)
     assert bool((kp < 1e38).any()) and bool((bp >= k).any())
-    assert torch.equal(bk, bp) and torch.equal(kk, kp)
 
 
 def test_raster_select_bake_config_matches_plain(cuda):
     """The UV bake's config: a 1024^2 per-triangle grid atlas of 60k faces
     (cells ~4 texels), z = 1, tile 16, span 4, K 64 + 32."""
     import numpy as np
-    from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.models.mesh import Mesh, RasterConfig
-    from mvedit_tpu_torch.models.mesh.rasterize import candidates
     n = 60000
     m = Mesh(v=np.zeros((3 * n, 3), np.float32),
              f=np.arange(3 * n, dtype=np.int32).reshape(n, 3))
@@ -191,15 +211,67 @@ def test_raster_select_bake_config_matches_plain(cuda):
                        torch.ones_like(uv[:, 0])], -1)
     faces = torch.as_tensor(m.ft, device=cuda).long()
     fv = torch.ones(n, dtype=torch.bool, device=cuda)
-    cand, cval = candidates(pts, faces, fv, cfg)
-    before = RS.raster_select.launches
-    bk, kk = RS.raster_select(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
-    torch.cuda.synchronize()
-    assert RS.raster_select.launches == before + 1
-    bp, kp = RS.select_reference(pts, faces, cand, cval, cfg.tile,
-                                 cfg.tiles_x)
+    _, kp = _select_both(pts, faces, fv, cfg)
     assert float((kp < 1e38).float().mean()) > 0.2
-    assert torch.equal(bk, bp) and torch.equal(kk, kp)
+
+
+def _case(cuda, name, size, cull=False, seed=2):
+    from torch_raster_cases import CASES
+    from mvedit_tpu_torch.models.mesh import RasterConfig
+    pts, faces, fv, kw = CASES[name](seed, size)
+    return (torch.as_tensor(pts, device=cuda),
+            torch.as_tensor(faces, device=cuda),
+            torch.as_tensor(fv, device=cuda),
+            RasterConfig(cull_backface=cull, **kw))
+
+
+@pytest.mark.parametrize("size", [128, 256, 512])
+@pytest.mark.parametrize("name", ["slivers", "pixel_grid", "duplicates",
+                                  "full_lists", "empty"])
+def test_raster_select_edge_cases(cuda, name, size):
+    """Slivers several tiles long, vertices on pixel centres and integer
+    edges (rounding ties), duplicate candidates with face 0 big (ties to
+    the lowest index, padding of the big list included), overflowing bin
+    lists and an empty frame; 128^2 and 256^2 take the small-grid path
+    (several warps per pixel block), 512^2 one warp per block."""
+    pts, faces, fv, cfg = _case(cuda, name, size)
+    bp, kp = _select_both(pts, faces, fv, cfg)
+    if name == "empty":
+        assert bool((kp == 3e38).all()) and bool((bp == 0).all())
+    else:
+        assert float((kp < 1e38).float().mean()) > 0.01
+
+
+@pytest.mark.parametrize("name", ["slivers", "pixel_grid", "duplicates"])
+def test_raster_select_culling(cuda, name):
+    pts, faces, fv, cfg = _case(cuda, name, 256, cull=True)
+    _select_both(pts, faces, fv, cfg)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("name", ["duplicates", "slivers"])
+def test_raster_select_every_split(cuda, name, splits):
+    """Each instantiation (1, 2, 4 warps per pixel block) gives the same
+    winners, whatever the grid size would pick."""
+    pts, faces, fv, cfg = _case(cuda, name, 256)
+    _select_both(pts, faces, fv, cfg, splits=splits)
+
+
+def test_raster_select_staged_inputs(cuda):
+    """int32 faces and ids and uint8 masks are staged (counted) and give
+    the same result."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh.rasterize import _bin_triangles
+    pts, faces, fv, cfg = _case(cuda, "duplicates", 128)
+    tt, tv, bt, bv = _bin_triangles(pts, faces, fv, cfg)
+    want = RS.raster_select(pts, faces, tt, tv, 16, cfg.tiles_x, False,
+                            bt, bv)
+    staged = RS.raster_select.staged
+    got = RS.raster_select(pts, faces.int(), tt.int(), tv.to(torch.uint8),
+                           16, cfg.tiles_x, False, bt.int(),
+                           bv.to(torch.uint8))
+    assert RS.raster_select.staged == staged + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 LPIPS_BF16_RTOL = 5e-2

@@ -113,10 +113,14 @@ def test_select_reference_matches_select_pallas():
     np.testing.assert_allclose(tk.numpy()[hit], key[hit], rtol=1e-5)
     # the wrapper takes the plain version for a CPU tensor, no launch
     before = KS.raster_select.launches
-    b2, k2 = KS.raster_select(_t(pts), _t(faces), _t(cand), _t(cval),
-                              jc.tile, jc.tiles_x)
+    b2, k2, f2 = KS.raster_select(_t(pts), _t(faces), _t(cand), _t(cval),
+                                  jc.tile, jc.tiles_x)
     assert KS.raster_select.launches == before
     np.testing.assert_array_equal(b2.numpy(), tb.numpy())
+    np.testing.assert_array_equal(k2.numpy(), tk.numpy())
+    # the winner's face id, -1 where nothing covers
+    want = np.where(hit, np.take_along_axis(np.asarray(cand), best, 1), -1)
+    np.testing.assert_array_equal(f2.numpy(), want)
 
 
 def _raster_both(verts, faces, fvalid, **kw):
