@@ -65,9 +65,10 @@ the script exits non-zero and prints no result.
 
 `--ab SRC...` does phase 1 and then only the A/B: edited copies of the
 flash source (`phase_ab_flash`, timed at the request's shapes) or of the
-raster source (`phase_ab_raster`, at RASTER_CASES; a directory stands for
-another checkout's raster wrapper, such as an earlier commit's), built
-side by side, checked against the plain version, and timed in turns.
+raster source (`phase_ab_raster`, at RASTER_CASES), built side by side,
+checked against the plain version, and timed in turns. A kernel with
+another C entry, such as an earlier commit's, is timed by that tree's own
+`chip_smoke.py` in the same call.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
@@ -274,54 +275,63 @@ def library_attention(q, k, v, scale=None, batch=1):
     return ms, backend
 
 
-def raster_bound(pts, faces, cand, cval, tile, tiles_x):
+def raster_bound(pts, faces, tile_tris, tile_valid, big_tris, big_valid,
+                 tiles_x):
     """Least time of one raster selection on the card, counted from this
-    call's data: the coefficient sets of the valid candidates (48 f32
-    flops each) and, per pixel and valid candidate, the tests it needs
-    (4 flops for edge 0, 4 more for each further edge while the earlier
-    ones pass, 4 for the key of a covered pixel) at the f32 peak; against
-    the bytes it must move: the masks, the ids of the valid slots, the
-    faces and vertices they reach, once each, and the three outputs.
-    Beside the bound, the kernel's own work from the same coefficients
-    (`block_masks`, its reject): the live candidates per tile (mean, max)
-    and the pixel tests per pixel its warps run."""
-    from mvedit_tpu_torch.kernels.raster_select import (block_masks,
+    call's data. Operations, at the f32 peak: the coefficients of each
+    face that a valid slot reaches (48 flops, once per face); the reject,
+    each edge at one corner of each 8 x 4 pixel block (12 flops per valid
+    (tile, slot) pair and block); and only for the (pixel, candidate)
+    pairs that the reject keeps, 4 flops for edge 0, 4 more for each
+    further edge while the earlier ones pass, 4 for the key of a covered
+    pixel. The reject (`block_masks`) is exact for the rounded tests, so
+    it keeps every covered pair. Bytes, at the memory rate: the bin lists'
+    masks and the ids of their valid slots, the big list's masks and
+    valid ids once, the faces and vertices they reach once each, and the
+    three outputs. Beside the bound, the kernel's own work: the live
+    candidates per tile (mean, max) and the pixel tests per pixel its
+    warps run."""
+    from mvedit_tpu_torch.kernels.raster_select import (TILE, block_masks,
                                                         prepare_coeffs)
-    T, K = cand.shape
-    P = tile * tile
-    t = torch.arange(T, device=cand.device)
-    py, px = torch.meshgrid(torch.arange(tile, device=cand.device),
-                            torch.arange(tile, device=cand.device),
-                            indexing="ij")
-    flops = 48.0 * float(cval.sum())
+    T, P = tile_tris.shape[0], TILE * TILE
+    dev = tile_tris.device
+    cand = torch.cat([tile_tris, big_tris[None].expand(T, -1)], 1)
+    cval = torch.cat([tile_valid, big_valid[None].expand(T, -1)], 1)
+    K = cand.shape[1]
+    pix = torch.arange(P, device=dev)
+    px, py = pix % TILE, pix // TILE
+    blk = px // 8 + 2 * (py // 4)            # the pixel's 8 x 4 block
+    ids = torch.unique(torch.cat([tile_tris[tile_valid],
+                                  big_tris[big_valid]]))
+    flops = 48.0 * ids.numel() + 8 * 12.0 * float(cval.sum())
     live, tests = [], 0.0
     step = max(1, (1 << 27) // (P * K))
     for t0 in range(0, T, step):
-        co = prepare_coeffs(pts, faces, cand[t0:t0 + step],
-                            cval[t0:t0 + step])          # (t, K, 12)
-        tt = t[t0:t0 + step]
-        keep = block_masks(co, tiles_x, tt)               # (t, K, 8)
+        t = torch.arange(t0, min(T, t0 + step), device=dev)
+        co = prepare_coeffs(pts, faces, cand[t], cval[t])   # (t, K, 12)
+        keep = block_masks(co, tiles_x, t)                   # (t, K, 8)
         live.append(keep.any(-1).sum(-1))
-        tests += 32.0 * float(keep.sum())
-        qx = ((tt % tiles_x) * tile)[:, None] + px.reshape(-1) + 0.5
-        qy = ((tt // tiles_x) * tile)[:, None] + py.reshape(-1) + 0.5
-        qx, qy = qx.float()[:, :, None], qy.float()[:, :, None]   # (t, P, 1)
-        on = cval[t0:t0 + step, None, :].expand(-1, P, -1)
+        on = keep[:, :, blk].transpose(1, 2)                 # (t, P, K)
+        tests += float(on.sum())
         flops += 4.0 * float(on.sum())
+        qx = ((t % tiles_x) * TILE)[:, None] + px + 0.5
+        qy = ((t // tiles_x) * TILE)[:, None] + py + 0.5
+        qx, qy = qx.float()[:, :, None], qy.float()[:, :, None]   # (t, P, 1)
         for e in range(3):
             c = co[:, None, :, 3 * e:3 * e + 3]
             on = on & (c[..., 0] * qx + c[..., 1] * qy + c[..., 2] >= 0)
             flops += 4.0 * float(on.sum())
         del co, on, keep
     live = torch.cat(live).float()
-    ids = torch.unique(cand[cval])
-    nbytes = (cval.numel() + 8 * float(cval.sum()) + 24 * ids.numel()
-              + 12 * torch.unique(faces[ids]).numel() + T * P * 16)
+    nbytes = (tile_valid.numel() + 8 * float(tile_valid.sum())
+              + big_valid.numel() + 8 * float(big_valid.sum())
+              + 24 * ids.numel() + 12 * torch.unique(faces[ids]).numel()
+              + T * P * 16)
     ops_ms = flops / PEAK_F32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                flops=flops, live_mean=float(live.mean()),
+                flops=flops, nbytes=nbytes, live_mean=float(live.mean()),
                 live_max=int(live.max()), tests_per_px=tests / (T * P))
 
 
@@ -669,6 +679,27 @@ def raster_edge_cases():
                RasterConfig(cull_backface=cull, **kw))
 
 
+def raster_edge_check(call, tag):
+    """`call`, a wrapper of `raster_select`'s interface, against the plain
+    version at `raster_edge_cases`: logs each case under `tag` and returns
+    the names of those whose winners, face ids or key bits differ."""
+    failed = []
+    for name, pts, faces, fv, cfg in raster_edge_cases():
+        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
+            pts, faces, fv, cfg, "pixels")
+        out = call(pts, faces, tt, tv, cfg.tile, cfg.tiles_x,
+                   cfg.cull_backface, bt, bv)
+        mism, bits, _, _, kp = raster_agreement(out, pts, faces, cand,
+                                                cval, cfg)
+        ok = mism == 0 and bits == 0
+        log(f"{tag} edge case {name}: {int((kp < 1e38).sum())} pixels "
+            f"hit; mismatched ids {mism}, key bits {bits} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    return failed
+
+
 def phase_raster_kernel():
     """The raster selection kernel against `select_reference` on the same
     candidates, at every config the path gives it (timed: single launches
@@ -701,7 +732,7 @@ def phase_raster_kernel():
         graphed = median_ms(lambda: RS.raster_select(*args), batch=AB_BATCH,
                             graph=True)
         plain_ms = median_ms(lambda: RS.raster_select_reference(*args))
-        bd = raster_bound(pts, faces, cand, cval, cfg.tile, cfg.tiles_x)
+        bd = raster_bound(pts, faces, tt, tv, bt, bv, cfg.tiles_x)
         ok = (mism == 0 and bits == 0 and hits > 0.01 * npx and big > 0
               and RS.raster_select.staged == staged)
         log(f"[raster] {name}: {size}^2, span {span}, K {k} + {k_big}, "
@@ -713,7 +744,8 @@ def phase_raster_kernel():
             f" kernel {ms:.4f} ms single, {batched:.4f} ms batched x"
             f"{AB_BATCH}, {graphed:.4f} ms graphed x{AB_BATCH} (device "
             f"only); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
-            f"{bd['flops']:.3e} f32 flops) library none plain "
+            f"{bd['flops']:.3e} f32 flops, {bd['nbytes']:.3e} bytes) "
+            f"library none plain "
             f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
         rows.append(dict(case=name, ms=ms, batched_ms=batched,
                          graphed_ms=graphed,
@@ -722,19 +754,7 @@ def phase_raster_kernel():
         if not ok:
             failed.append(name)
     del soups
-    for name, pts, faces, fv, cfg in raster_edge_cases():
-        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
-            pts, faces, fv, cfg, "pixels")
-        out = RS.raster_select(pts, faces, tt, tv, cfg.tile, cfg.tiles_x,
-                               cfg.cull_backface, bt, bv)
-        mism, bits, _, _, kp = raster_agreement(out, pts, faces, cand,
-                                                cval, cfg)
-        ok = mism == 0 and bits == 0
-        log(f"[raster] edge case {name}: {int((kp < 1e38).sum())} pixels "
-            f"hit; mismatched ids {mism}, key bits {bits} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(name)
+    failed += raster_edge_check(RS.raster_select, "[raster]")
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"raster_select disagrees with its plain "
@@ -863,105 +883,64 @@ def phase_ab_flash(sources):
     log("[ab] every source agrees with the plain version")
 
 
-def _tree_raster(tree):
-    """The raster wrapper of another checkout rooted at `tree`, loaded by
-    path as a module of its own: it builds that tree's kernel source into
-    that tree's `_build/`. The PR 2-4 wrapper takes the joined list:
-    (pts, faces, cand, cand_valid, tile, tiles_x) -> (best, key)."""
-    import importlib.util
-    path = os.path.join(tree, "mvedit_tpu_torch", "kernels",
-                        "raster_select.py")
-    spec = importlib.util.spec_from_file_location(
-        f"raster_select_of_{len(path)}_{abs(hash(path))}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.build()
-    return mod
-
-
 def phase_ab_raster(sources):
-    """`--ab` for the raster selection. Each SRC is an edited copy of
-    `csrc/raster_select.cu` (same C entry), built with nvcc side by side,
-    or the root of an earlier checkout (PRs 2-4), whose own wrapper is
-    called on the joined list with its ids already int32 and its mask
-    uint8 (its casts are then no-ops, so the time is its kernel's and its
-    host code's).
-    Each is held against the plain version at RASTER_CASES and the edge
-    cases (winners and key bits equal), then timed in turns (A, B, ...,
-    B, A) at RASTER_CASES: AB_BATCH launches captured in a CUDA graph per
+    """`--ab` for the raster selection: builds each SRC (an edited copy of
+    `csrc/raster_select.cu`, same C entry) with nvcc, all together; holds
+    each against the plain version at RASTER_CASES and at the edge cases
+    (`raster_edge_check`), then times them in turns (A, B, ..., B, A) at
+    RASTER_CASES: AB_BATCH launches replayed from a CUDA graph per
     CUDA-event pair (the kernel's device time), the same launched from the
     host, and single launches."""
+    import functools
     from concurrent.futures import ThreadPoolExecutor
 
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.models.mesh import RasterConfig
     out = os.path.join(os.path.dirname(RS.BUILD_LOG), "ab")
-    files = [s for s in sources if not os.path.isdir(s)]
-    libs = {s: os.path.join(out, f"libraster_ab{i}.so")
-            for i, s in enumerate(files)}
-    with ThreadPoolExecutor(max(1, len(files))) as ex:
-        list(ex.map(lambda s: RS.compile_source(s, libs[s],
-                                                f"{libs[s]}.nvcc.log"),
-                    files))
+    libs = [os.path.join(out, f"libraster_ab{i}.so")
+            for i in range(len(sources))]
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(lambda s, lib: RS.compile_source(s, lib,
+                                                     f"{lib}.nvcc.log"),
+                    sources, libs))
     calls = {}
-    for src in sources:
-        if src in libs:
-            with open(f"{libs[src]}.nvcc.log") as f:
-                regs = re.findall(r"Used (\d+) registers", f.read())
-            log(f"[ab] {src}: registers per instantiation {regs}")
-            lib = RS.load_library(libs[src])
-            calls[src] = (lambda x, lib=lib: RS.launch(
-                x["pts"], x["faces"], x["tt"], x["tv"], 16, x["cfg"].tiles_x,
-                x["cfg"].cull_backface, x["bt"], x["bv"], lib=lib))
-        else:
-            mod = _tree_raster(src)
-            calls[src] = (lambda x, mod=mod: mod.raster_select(
-                x["pts"], x["faces32"], x["cand32"], x["cval8"], 16,
-                x["cfg"].tiles_x, x["cfg"].cull_backface)[:2])
-
-    def inputs(pts, faces, fmask, cfg, kind):
-        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
-            pts, faces, fmask, cfg, kind)
-        return dict(pts=pts, faces=faces, tt=tt, tv=tv, bt=bt, bv=bv,
-                    cand=cand, cval=cval, cfg=cfg, faces32=faces.int(),
-                    cand32=cand.int(), cval8=cval.to(torch.uint8))
-    cases, soups = [], {}
+    for src, lib in zip(sources, libs):
+        with open(f"{lib}.nvcc.log") as f:
+            regs = re.findall(r"Used (\d+) registers", f.read())
+        log(f"[ab] {src}: registers per instantiation {regs}")
+        calls[src] = functools.partial(RS.launch, lib=RS.load_library(lib))
+    cases, soups, failed = [], {}, []
     for name, size, span, k, k_big, kind in RASTER_CASES:
         if kind not in soups:
             soups[kind] = _raster_soup(kind)
+        verts, faces, fmask = soups[kind]
         cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
                            k_big=k_big)
-        cases.append((name, inputs(*soups[kind], cfg, kind)))
-    del soups
-    edges = [(name, inputs(pts, faces, fv, cfg, "pixels"))
-             for name, pts, faces, fv, cfg in raster_edge_cases()]
-    failed = []
-    for name, x in cases + edges:
+        pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
+            verts, faces, fmask, cfg, kind)
+        args = (pts, faces, tt, tv, cfg.tile, cfg.tiles_x, False, bt, bv)
         for src, call in calls.items():
-            res = call(x)
-            best, key = res[0], res[1]
-            face = res[2] if len(res) == 3 else torch.where(
-                key < 1e38, x["cand"].gather(1, best.long()),
-                torch.full_like(x["cand"][:, :1], -1))
-            mism, bits, _, _, _ = raster_agreement(
-                (best, key, face), x["pts"], x["faces"], x["cand"],
-                x["cval"], x["cfg"])
+            mism, bits, _, _, _ = raster_agreement(call(*args), pts, faces,
+                                                   cand, cval, cfg)
             if mism or bits:
-                failed.append((src, name, mism, bits))
-    del edges
-    for name, x in cases:
+                failed.append((src, name))
+        cases.append((name, args, raster_bound(pts, faces, tt, tv, bt, bv,
+                                               cfg.tiles_x)))
+        del cand, cval
+    del soups
+    for src, call in calls.items():
+        failed += [(src, n) for n in raster_edge_check(call, f"[ab] {src}")]
+    for name, args, bd in cases:
         turns = list(calls) + list(calls)[::-1]
         graphed = {src: [] for src in calls}
         batched = {src: [] for src in calls}
         single = {src: [] for src in calls}
         for src in turns:
-            graphed[src].append(median_ms(lambda: calls[src](x),
+            graphed[src].append(median_ms(lambda: calls[src](*args),
                                           batch=AB_BATCH, graph=True))
-            batched[src].append(median_ms(lambda: calls[src](x),
+            batched[src].append(median_ms(lambda: calls[src](*args),
                                           batch=AB_BATCH))
-            single[src].append(median_ms(lambda: calls[src](x)))
-        bd = raster_bound(x["pts"], x["faces"], x["cand"], x["cval"], 16,
-                          x["cfg"].tiles_x)
+            single[src].append(median_ms(lambda: calls[src](*args)))
         log(f"[ab] raster {name}: " + "; ".join(
             f"{src} graphed {' / '.join(f'{t:.4f}' for t in graphed[src])} "
             f"ms, batched {' / '.join(f'{t:.4f}' for t in batched[src])} "
@@ -1543,10 +1522,9 @@ def main():
                     help="with --kernels-only: check this kernel only")
     ap.add_argument("--ab", nargs="+", metavar="SRC",
                     help="only build these kernel sources (edited copies of "
-                         "csrc/flash_attention.cu or csrc/raster_select.cu; "
-                         "for the raster kernel also the root of another "
-                         "checkout), check them and time them against each "
-                         "other in turns")
+                         "csrc/flash_attention.cu or csrc/raster_select.cu),"
+                         " check them and time them against each other in "
+                         "turns")
     ap.add_argument("--profile", metavar="OUT_DIR",
                     help="after the run, profile a warm text-to-image "
                          "request, denoise timesteps, mesh and NeRF fit "
@@ -1557,8 +1535,6 @@ def main():
     smi = phase_device()
     if args.ab:
         def raster(src):
-            if os.path.isdir(src):
-                return True
             with open(src) as f:
                 return "mvedit_raster_select" in f.read()
         flash = [src for src in args.ab if not raster(src)]

@@ -22,11 +22,12 @@
 // `select_reference`), so ids and keys are bit-equal to it.
 //
 // What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`
-// `raster_bound`, counted from the call's data): at every path config the
-// bound is a few microseconds: 5.6 us of f32 operations at the fit's 512^2
-// (K 1024 + 64), 2.3 us at `load_init_mesh`'s (K 256 + 64), 0.7 / 0.2 us
-// at the 256^2 / 128^2 ramp (bytes / operations), 8.7 us of bytes at the
-// bake's 1024^2 (K 64 + 32). The PR 2 kernel sat at 30-180x its bound
+// `raster_bound`, counted from the call's data: edge tests only on the
+// pixel-candidate pairs that the exact reject below keeps): at every path
+// config the bound is the bytes, a few microseconds: 3.5 us at the fit's
+// 512^2 (K 1024 + 64), 2.2 us at `load_init_mesh`'s (K 256 + 64),
+// 0.7 / 0.23 us at the 256^2 / 128^2 ramp, 8.5 us at the bake's 1024^2
+// (K 64 + 32). The PR 2 kernel's device time sat at 11-160x these bounds
 // because
 //  (a) every thread walked all K slots, most of them padding;
 //  (b) every pixel tested every candidate, though a DMTet triangle at span
@@ -34,7 +35,8 @@
 //  (c) one 8-warp CTA per tile left the SMs short of warps at 128^2 (64
 //      tiles) and 256^2 (256 tiles);
 //  (d) the wrapper cast and concatenated the lists on every call.
-// What is left binds by latency: each chunk is a chain of dependent
+// This kernel sits at 4-44x them (16x at the fit). What is left binds by
+// latency: each chunk is a chain of dependent
 // loads (mask and id, face, corners) and two barriers, and each warp's
 // scan a chain of shared-memory loads and rounded tests; on the fit's
 // config the build and the scan take about half of the time each
