@@ -5,33 +5,45 @@
     python3 chip_smoke.py --kernels-only     # phases 1-3
     python3 chip_smoke.py --kernels-only --kernel raster_select
                                              # phases 1-3, one kernel's check
+                                             # (also flash_attention,
+                                             # flash_fwd, segment_sum)
     python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
     python3 chip_smoke.py --ab A.cu B.cu     # kernel sources timed in turns
+    python3 chip_smoke.py --time-fits        # NeRF and mesh fit chunks and
+                                             # a render-all, timed
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
 the shapes the main path gives it, then drives the port at full width with
-seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
-`run_3d_to_3d` requests.
+seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
+`run_3d_to_3d` requests, checkpoint loading, and whole `run_retex`
+requests with IP-Adapter.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of every kernel source, all started together, with ptxas'
    report;
 3. kernels against their plain versions, timed with CUDA events:
    flash attention (bf16) at every path shape; the raster selection at the
-   fit's, `load_init_mesh`'s, the render-size ramp's and the UV bake's
-   configs, timed as single launches, in batches of 20 launched from the
+   fit's, `load_init_mesh`'s, the render-size ramp's, the UV bake's and
+   (32 x 32 tiles) texture superres's 2048^2 bake's configs, timed as
+   single launches, in batches of 20 launched from the
    host and in batches of 20 replayed from a CUDA graph (the device's
    time alone), with its live
    candidates per tile and pixel tests per pixel, then at the GPU tests'
    edge cases (`tests/torch_raster_cases.py`; winners, face ids and key
    bits must equal the plain version's); the JAX package's own flash
-   kernel API (`ops/flash_attention.py`); LPIPS in bf16 against f32
-   (within 5e-2). Beside each time: the bound computed from the call's
+   kernel API (`ops/flash_attention.py`); the fixed-order segment sum at
+   the path's shapes (the dense grid's corner gathers at a NeRF chunk's
+   sample count and at retex's albedo fit, the mesh fit's vertex sums, a
+   render's corner gather): the same bits on two runs, the bits of its
+   order rebuilt in plain PyTorch, and within the rounding of that order
+   of a float64 sum; LPIPS in bf16 against
+   f32 (within 5e-2). Beside each time: the bound computed from the call's
    inputs (bytes at 3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s
    and, for attention, 3.9e12 exponentials/s, the exp floor) and, for
    attention, one `scaled_dot_product_attention` call as the library
-   yardstick (timed here only; the port never calls it);
+   yardstick, and for the segment sum one `index_add_` (timed here only;
+   the port calls neither);
 4. `run_text_to_img`: two 512^2 requests (8 DPM-Solver++ steps each);
 5. the MVEdit 2-pass reference-pair denoise timestep at 6 views x 512^2,
    three timesteps, with the decoded x0 images standing in for the 3D
@@ -50,15 +62,29 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, and whole
    (of 80), tet_init_inverse_steps 24 (of 120). The warm request's wall
    time, phase times (`utils.profiling.PhaseTimer`) and peak memory are
    printed; the raster kernel's launches are counted in `load_init_mesh`,
-   the mesh fit, the re-render and the bake, each on its own;
+   the mesh fit, the re-render and the bake, each on its own; the cold
+   and the warm request share one seed, and their GLBs' vertices, faces
+   and albedo must be bit-equal;
 8. tet 256 on the request's fitted field: the switch, 8 fit steps (of
    120), then the bake with `mesh_reduction` 0.5: QEM decimation, 4 steps
-   (of 24) of texture refinement, the UV bake.
+   (of 24) of texture refinement, the UV bake;
+9. checkpoint loading: the runner's seeded SRVGG enhancer and a full-size
+   ControlNet written as `.safetensors` (by hand: the port reads them
+   without the package) and as `.bin` into a temporary `checkpoint_dir`,
+   loaded by a second runner of another seed: equal outputs on the card;
+10. `run_retex` at full width, twice with one seed: SD1.5 with tile +
+   depth ControlNets, 2-pass, LPIPS, the dense field (32, 160), 12 views
+   plus the top view (`front_view_id=0`), 512^2, a seeded 512^2 `in_image`
+   through IP-Adapter (the vision tower at `CLIPVisionConfig()` widths);
+   the defaults' depth (steps 12 at strength 0.7: 9 timesteps,
+   n_inverse_steps 24); the two albedos must be bit-equal, and flash
+   attention, the raster selection and the segment sum must each launch.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
-phase 6; the request, part by part, in phase 7): a kernel of a path with
+phase 6; the request, part by part, in phase 7; the retex request in
+phase 10; the segment sum over phases 6-10): a kernel of a path with
 no launch there fails the run, and so does an input that the flash or the
 raster wrapper had to stage (copy) for its kernel. Without a CUDA device
 the script exits non-zero and prints no result.
@@ -69,6 +95,12 @@ raster source (`phase_ab_raster`, at RASTER_CASES), built side by side,
 checked against the plain version, and timed in turns. A kernel with
 another C entry, such as an earlier commit's, is timed by that tree's own
 `chip_smoke.py` in the same call.
+
+`--time-fits` does phase 1 and then only times a warm NeRF-fit chunk, a
+render-all and a warm mesh-fit chunk of the `mvedit_tpu_torch` beside the
+script. To time an earlier commit, unpack it into a directory of the
+checkout that `.gitignore` lists, copy this script into it and run that
+copy in the same call.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
@@ -133,17 +165,37 @@ AB_CASES = [((2, 1000, 2, 40), 1000), ((1, 4096, 2, 40), 1152),
             ((1, 512, 2, 80), 512), ((1, 512, 2, 128), 512),
             ((1, 384, 2, 8), 384)]
 AB_BATCH = 20
-# raster selection: (case, size, span, k_per_tile, k_big, mesh), the
+# raster selection: (case, size, span, k_per_tile, k_big, mesh, tile), the
 # configs the path gives the kernel: the mesh fit and re-render
-# (`_mesh_raster_cfg`), `load_init_mesh` (the default RasterConfig), the
-# render-size ramp and the UV bake (`_extract_and_bake`: the grid atlas of
-# the extracted surface at 1024^2, tile 16)
-RASTER_CASES = [("fit", 512, 2, 1024, 64, "dmtet"),
-                ("load_init_mesh", 512, 4, 256, 64, "knot"),
-                ("ramp_256", 256, 2, 256, 64, "dmtet"),
-                ("ramp_128", 128, 2, 256, 64, "dmtet"),
-                ("bake", 1024, 4, 64, 32, "atlas")]
+# (`_mesh_raster_cfg`), `load_init_mesh` and retex's frozen-mesh renders
+# (the default RasterConfig), the render-size ramp, the UV bake
+# (`_extract_and_bake` and retex: the grid atlas of the surface at 1024^2,
+# tile 16) and texture superres's bake (2048^2, tile 32)
+RASTER_CASES = [("fit", 512, 2, 1024, 64, "dmtet", 16),
+                ("load_init_mesh", 512, 4, 256, 64, "knot", 16),
+                ("ramp_256", 256, 2, 256, 64, "dmtet", 16),
+                ("ramp_128", 128, 2, 256, 64, "dmtet", 16),
+                ("bake", 1024, 4, 64, 32, "atlas", 16),
+                ("superres_bake", 2048, 4, 64, 32, "atlas", 32)]
 RASTER_HOT = "fit"
+# the fixed-order segment sum: (case, rows, contributions, channels,
+# dtype), the path's shapes: the dense grid's (32, 160) levels, gathered
+# for all 8 corners at once, at a NeRF chunk's sample count (16384 rays of
+# 128 samples, the 256^2 fit's patch), and the mesh fit's vertex sums at
+# tet 128 (~100k vertices, ~200k faces: the gathers' backward of 3 F
+# corners, the normal and Laplacian sums of 3 F and 6 F) and a render's
+# corner gather of the packed xyz + normal (the background's pixels all on
+# one dummy face: one row of ~180k), and retex's albedo fit (6 views of
+# 512^2 a step, every pixel a point on the surface or, for the background,
+# on one point: rows of thousands at level 0, ~10^6 on the background's 8)
+SEGMENT_CASES = [("grid_level1", 161 ** 3, 16384 * 128 * 8, 8, "bf16"),
+                 ("grid_level0", 33 ** 3, 16384 * 128 * 8, 8, "bf16"),
+                 ("mesh_gather", 100000, 3 * 200000, 3, "f32"),
+                 ("mesh_laplacian", 100000, 6 * 200000, 4, "f32"),
+                 ("render_gather", 180000, 512 * 512, 6, "f32"),
+                 ("retex_level0", 33 ** 3, 6 * 512 * 512 * 8, 8, "bf16"),
+                 ("retex_level1", 161 ** 3, 6 * 512 * 512 * 8, 8, "bf16")]
+SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
 FWD_HOT = (48, 8192, 40)
@@ -162,6 +214,10 @@ REQ_TET_INIT = 24            # tet_init_inverse_steps (120)
 TET_BIG = 256
 TET_BIG_FIT = 8              # the first fit at tet 256 (120)
 REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
+# run_retex at full width, at the endpoint's defaults
+RETEX_VIEWS = 12             # + the top view of front_view_id
+RETEX_STEPS = 12             # at strength 0.7: 9 timesteps
+RETEX_N_INV = 24
 LPIPS_BF16_RTOL = 5e-2       # bf16 LPIPS against f32, relative
 DEV = "cuda"
 TIMED_RUNS = 10
@@ -199,12 +255,14 @@ def phase_build():
 
     from mvedit_tpu_torch.kernels import flash_attention as FA
     from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
 
     def build(mod):
         t0 = time.perf_counter()
         mod.build()
         return time.perf_counter() - t0
-    mods = {"flash_attention.cu": FA, "raster_select.cu": RS}
+    mods = {"flash_attention.cu": FA, "raster_select.cu": RS,
+            "segment_sum.cu": SS}
     with ThreadPoolExecutor(len(mods)) as ex:
         secs = dict(zip(mods, ex.map(build, mods.values())))
     for name, mod in mods.items():
@@ -276,7 +334,7 @@ def library_attention(q, k, v, scale=None, batch=1):
 
 
 def raster_bound(pts, faces, tile_tris, tile_valid, big_tris, big_valid,
-                 tiles_x):
+                 tiles_x, tile=16):
     """Least time of one raster selection on the card, counted from this
     call's data. Operations, at the f32 peak: the coefficients of each
     face that a valid slot reaches (48 flops, once per face); the reject,
@@ -291,31 +349,31 @@ def raster_bound(pts, faces, tile_tris, tile_valid, big_tris, big_valid,
     three outputs. Beside the bound, the kernel's own work: the live
     candidates per tile (mean, max) and the pixel tests per pixel its
     warps run."""
-    from mvedit_tpu_torch.kernels.raster_select import (TILE, block_masks,
+    from mvedit_tpu_torch.kernels.raster_select import (block_masks,
                                                         prepare_coeffs)
-    T, P = tile_tris.shape[0], TILE * TILE
+    T, P = tile_tris.shape[0], tile * tile
     dev = tile_tris.device
     cand = torch.cat([tile_tris, big_tris[None].expand(T, -1)], 1)
     cval = torch.cat([tile_valid, big_valid[None].expand(T, -1)], 1)
     K = cand.shape[1]
     pix = torch.arange(P, device=dev)
-    px, py = pix % TILE, pix // TILE
-    blk = px // 8 + 2 * (py // 4)            # the pixel's 8 x 4 block
+    px, py = pix % tile, pix // tile
+    blk = px // 8 + (tile // 8) * (py // 4)  # the pixel's 8 x 4 block
     ids = torch.unique(torch.cat([tile_tris[tile_valid],
                                   big_tris[big_valid]]))
-    flops = 48.0 * ids.numel() + 8 * 12.0 * float(cval.sum())
+    flops = 48.0 * ids.numel() + (P // 32) * 12.0 * float(cval.sum())
     live, tests = [], 0.0
     step = max(1, (1 << 27) // (P * K))
     for t0 in range(0, T, step):
         t = torch.arange(t0, min(T, t0 + step), device=dev)
         co = prepare_coeffs(pts, faces, cand[t], cval[t])   # (t, K, 12)
-        keep = block_masks(co, tiles_x, t)                   # (t, K, 8)
+        keep = block_masks(co, tiles_x, t, tile)             # (t, K, blocks)
         live.append(keep.any(-1).sum(-1))
         on = keep[:, :, blk].transpose(1, 2)                 # (t, P, K)
         tests += float(on.sum())
         flops += 4.0 * float(on.sum())
-        qx = ((t % tiles_x) * TILE)[:, None] + px + 0.5
-        qy = ((t // tiles_x) * TILE)[:, None] + py + 0.5
+        qx = ((t % tiles_x) * tile)[:, None] + px + 0.5
+        qy = ((t // tiles_x) * tile)[:, None] + py + 0.5
         qx, qy = qx.float()[:, :, None], qy.float()[:, :, None]   # (t, P, 1)
         for e in range(3):
             c = co[:, None, :, 3 * e:3 * e + 3]
@@ -664,17 +722,23 @@ def raster_edge_cases():
     """The GPU tests' edge cases (`tests/torch_raster_cases.py`: slivers,
     pixel-centre ties, duplicates with face 0 big, full lists, an empty
     frame) at 128^2 and 256^2 (several warps per pixel block) and 512^2,
-    and three of them with culling: (name, pts, faces, mask, cfg)."""
+    three of them with culling, and each at 256^2 in 32 x 32 tiles:
+    (name, pts, faces, mask, cfg)."""
     from mvedit_tpu_torch.models.mesh import RasterConfig
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
     from torch_raster_cases import CASES
-    runs = [(n, size, False) for n in CASES for size in (128, 256, 512)]
-    runs += [(n, 256, True) for n in ("slivers", "pixel_grid",
-                                      "duplicates")]
-    for name, size, cull in runs:
+    runs = [(n, size, False, None) for n in CASES
+            for size in (128, 256, 512)]
+    runs += [(n, 256, True, None) for n in ("slivers", "pixel_grid",
+                                            "duplicates")]
+    runs += [(n, 256, False, 32) for n in CASES]
+    for name, size, cull, tile in runs:
         pts, faces, fv, kw = CASES[name](2, size)
-        yield (f"{name} {size}^2{' cull' if cull else ''}",
+        if tile is not None:
+            kw = dict(kw, tile=tile)
+        yield (f"{name} {size}^2{' cull' if cull else ''}"
+               f"{f' tile {tile}' if tile else ''}",
                *(torch.as_tensor(x, device=DEV) for x in (pts, faces, fv)),
                RasterConfig(cull_backface=cull, **kw))
 
@@ -710,12 +774,12 @@ def phase_raster_kernel():
     log("[raster] bound: winners, face ids and key bits equal to the "
         "plain version's at every pixel")
     rows, failed, soups = [], [], {}
-    for name, size, span, k, k_big, kind in RASTER_CASES:
+    for name, size, span, k, k_big, kind, tile in RASTER_CASES:
         if kind not in soups:
             soups[kind] = _raster_soup(kind)
         verts, faces, fmask = soups[kind]
         cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
-                           k_big=k_big)
+                           k_big=k_big, tile=tile)
         pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
             verts, faces, fmask, cfg, kind)
         args = (pts, faces, tt, tv, cfg.tile, cfg.tiles_x, False, bt, bv)
@@ -732,10 +796,11 @@ def phase_raster_kernel():
         graphed = median_ms(lambda: RS.raster_select(*args), batch=AB_BATCH,
                             graph=True)
         plain_ms = median_ms(lambda: RS.raster_select_reference(*args))
-        bd = raster_bound(pts, faces, tt, tv, bt, bv, cfg.tiles_x)
+        bd = raster_bound(pts, faces, tt, tv, bt, bv, cfg.tiles_x, tile)
         ok = (mism == 0 and bits == 0 and hits > 0.01 * npx and big > 0
               and RS.raster_select.staged == staged)
-        log(f"[raster] {name}: {size}^2, span {span}, K {k} + {k_big}, "
+        log(f"[raster] {name}: {size}^2, tile {tile}, span {span}, K {k} + "
+            f"{k_big}, "
             f"{int(fmask.sum())} faces; {hits} of {npx} pixels hit, {big} "
             f"won from the big list; mismatched ids {mism}, key bits "
             f"{bits}; live candidates per tile {bd['live_mean']:.1f} mean, "
@@ -747,7 +812,7 @@ def phase_raster_kernel():
             f"{bd['flops']:.3e} f32 flops, {bd['nbytes']:.3e} bytes) "
             f"library none plain "
             f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-        rows.append(dict(case=name, ms=ms, batched_ms=batched,
+        rows.append(dict(case=name, tile=tile, ms=ms, batched_ms=batched,
                          graphed_ms=graphed,
                          plain_ms=plain_ms, mismatched=mism, key_bits=bits,
                          key_err=err, **bd))
@@ -805,6 +870,114 @@ def phase_flash_fwd():
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"at {failed}")
+    return rows, worst
+
+
+def segment_bound(n, rows, C, elt):
+    """Least time of one segment sum on the card: its bytes (the targets,
+    8 B each, and the values read once, the float32 output written once)
+    at the memory rate; its adds (one per contribution and channel, f32)
+    take far less."""
+    nbytes = 8.0 * n + n * C * elt + 4.0 * rows * C
+    ops_ms = n * C / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                nbytes=nbytes)
+
+
+def grid_corners(x, res):
+    """(M, 3) points in [0, 1] -> (8 M,) the dense grid's corner rows at
+    resolution `res`, point by point (`ops/dense_grid.py`'s order)."""
+    p0 = torch.floor(x * res).long()
+    side = res + 1
+    return torch.stack([
+        ((p0[:, 0] + ox).clamp(max=res) * side
+         + (p0[:, 1] + oy).clamp(max=res)) * side
+        + (p0[:, 2] + oz).clamp(max=res)
+        for ox in (0, 1) for oy in (0, 1) for oz in (0, 1)], 1).reshape(-1)
+
+
+def phase_segment_sum():
+    """The fixed-order segment sum at SEGMENT_CASES against its plain
+    versions: two runs give the same bits; they are the bits of
+    `segment_sum_ordered` (the kernel's order in plain PyTorch: rows added
+    in order, long rows as 256 strided partials and a fixed tree); each row
+    lies within `rounding_bound` of a float64 sum (k u sum|x|, k = n for a
+    row of n <= LONG, ceil(n / 256) + 8 beyond). Timed: the wrapper's whole
+    call (the stable sort of the targets, the offsets and the kernel), the
+    kernel alone on a kept order, the plain version (an atomic float32
+    `index_add` into zeros), and one `index_add_` (the library call; the
+    port never calls it)."""
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    rows, failed, worst = [], [], 0.0
+    for name, R, n, C, dt in SEGMENT_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        if name.startswith("retex"):
+            # a sphere of radius 0.3 in the unit cube; the background's
+            # pixels (65%) all on one point
+            m = n // 8
+            d = torch.randn((m, 3), generator=gen, device=DEV)
+            x = 0.5 + 0.3 * d / d.norm(dim=-1, keepdim=True)
+            bg = torch.rand((m, 1), generator=gen, device=DEV) < 0.65
+            x = torch.where(bg, torch.full_like(x, 0.37), x)
+            idx = grid_corners(x, round(R ** (1 / 3)) - 1)
+        elif name.startswith("grid"):
+            # samples along rays: runs of neighbouring cells, 8 corners each
+            base = torch.randint(0, R - 200, (n // 64,), generator=gen,
+                                 device=DEV)
+            idx = (base[:, None] + torch.arange(64, device=DEV)).reshape(-1)
+        elif name == "render_gather":
+            # a 512^2 view's corner gather: the background pixels (70%)
+            # all gather the dummy face's corner, row 0
+            idx = torch.randint(0, R, (n,), generator=gen, device=DEV)
+            idx = torch.where(torch.rand((n,), generator=gen, device=DEV)
+                              < 0.7, torch.zeros_like(idx), idx)
+        else:
+            idx = torch.randint(0, R, (n,), generator=gen, device=DEV)
+        vals = torch.randn((n, C), generator=gen, device=DEV).to(dtype)
+        a = SS.segment_sum(idx, vals, R)
+        b = SS.segment_sum(idx, vals, R)
+        same = bool(torch.equal(a, b))
+        kernel_order = bool(torch.equal(a, SS.segment_sum_ordered(idx, vals,
+                                                                  R)))
+        exact = SS.segment_sum_reference(idx, vals, R, torch.float64)
+        bound = SS.rounding_bound(idx, vals, R)
+        d = (a.double() - exact).abs()
+        err = float(d.max())
+        slack = float((d / bound.clamp(min=1e-300)).max())
+        ok = same and kernel_order and bool((d <= bound).all())
+        longest = int(torch.bincount(idx[(idx >= 0) & (idx < R)],
+                                     minlength=R).max())
+        del exact, d
+        order = SS.segment_order(idx, R)
+        ms = median_ms(lambda: SS.segment_sum(idx, vals, R))
+        kernel_ms = median_ms(lambda: SS.launch(vals, *order, R))
+        plain_ms = median_ms(lambda: SS.segment_sum_reference(idx, vals, R))
+        vf = vals.float()
+        lib_ms = median_ms(lambda: torch.zeros(
+            (R, C), device=DEV).index_add_(0, idx, vf))
+        bd = segment_bound(n, R, C, vals.element_size())
+        log(f"[segment_sum] {name}: {n} contributions into {R} rows x {C} "
+            f"{dt}, the longest row {longest}; bit-equal run to run {same}, "
+            f"to the kernel's order in plain PyTorch {kernel_order}; max "
+            f"|d| to the float64 sum {err:.3e}, at most {slack:.3f} of "
+            f"its rounding bound; {ms:.4f} ms (sort + offsets "
+            f"+ kernel), kernel alone {kernel_ms:.4f} ms; bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['nbytes']:.3e} "
+            f"bytes) library {lib_ms:.4f} ms (index_add_) plain "
+            f"{plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+        rows.append(dict(case=name, ms=ms, kernel_ms=kernel_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, **bd))
+        worst = max(worst, err)
+        if not ok:
+            failed.append(name)
+        del idx, vals, a, b, bound, order, vf
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"segment_sum disagrees with its plain version "
                              f"at {failed}")
     return rows, worst
 
@@ -910,12 +1083,12 @@ def phase_ab_raster(sources):
         log(f"[ab] {src}: registers per instantiation {regs}")
         calls[src] = functools.partial(RS.launch, lib=RS.load_library(lib))
     cases, soups, failed = [], {}, []
-    for name, size, span, k, k_big, kind in RASTER_CASES:
+    for name, size, span, k, k_big, kind, tile in RASTER_CASES:
         if kind not in soups:
             soups[kind] = _raster_soup(kind)
         verts, faces, fmask = soups[kind]
         cfg = RasterConfig(height=size, width=size, span=span, k_per_tile=k,
-                           k_big=k_big)
+                           k_big=k_big, tile=tile)
         pts, (tt, tv, bt, bv), (cand, cval) = _raster_inputs(
             verts, faces, fmask, cfg, kind)
         args = (pts, faces, tt, tv, cfg.tile, cfg.tiles_x, False, bt, bv)
@@ -925,7 +1098,7 @@ def phase_ab_raster(sources):
             if mism or bits:
                 failed.append((src, name))
         cases.append((name, args, raster_bound(pts, faces, tt, tv, bt, bv,
-                                               cfg.tiles_x)))
+                                               cfg.tiles_x, tile)))
         del cand, cval
     del soups
     for src, call in calls.items():
@@ -1247,6 +1420,15 @@ def phase_request(runner, tmp):
         total_fa += fa
         for k, v in parts.parts.items():
             total_parts[k] = total_parts.get(k, 0) + v
+    # one seed, one output: the cold and the warm request's GLBs
+    glbs = [Mesh.load(os.path.join(tmp, f"out_{run}.glb"))
+            for run in ("cold", "warm")]
+    same = {k: bool(np.array_equal(getattr(glbs[0], k),
+                                   getattr(glbs[1], k)))
+            for k in ("v", "f", "albedo")}
+    log(f"[request] cold and warm GLBs bit-equal (one seed): {same}")
+    if not all(same.values()):
+        raise AssertionError("two requests of one seed gave two GLBs")
     log("[request] flash_attention shapes over both requests (calls): "
         + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
     missing = [k for k in shapes if (k, 1.0) not in
@@ -1323,6 +1505,192 @@ def phase_tet256(runner, ctx):
         f"{peak / 2**30:.2f} GiB {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the tet-256 phase failed its checks")
+
+
+_ST_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16",
+             torch.float16: "F16", torch.int64: "I64", torch.bool: "BOOL"}
+
+
+def write_safetensors(path, state):
+    """A `.safetensors` file written by hand (the card's machine has no
+    `safetensors` package): an 8-byte little-endian header length, the
+    JSON header (dtype, shape, byte range of each tensor), the raw
+    little-endian bytes."""
+    header, blobs, off = {}, [], 0
+    for k, v in state.items():
+        v = v.detach().contiguous().cpu()
+        raw = v.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": _ST_NAMES[v.dtype], "shape": list(v.shape),
+                     "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little"))
+        f.write(h)
+        for b in blobs:
+            f.write(b)
+
+
+def phase_checkpoint(tmp):
+    """A round trip through `checkpoint_dir`: a runner's seeded SRVGG
+    enhancer and full-size tile ControlNet (its zero-initialised heads
+    given seeded values, so that its residuals are not all zero) written
+    as `.safetensors` and as `.bin` (SRVGG under Real-ESRGAN's
+    "params_ema"), each loaded by a runner of another seed: the outputs
+    must be equal on the card."""
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    src = Adapter3DRunner(seed=SEED + 200, device=DEV)
+    enhance = src.load_image_enhancer()
+    cn = src.load_controlnets(("tile",))[0]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    with torch.no_grad():
+        for name, p in cn.named_parameters():
+            if "controlnet_" in name and not name.startswith(
+                    "controlnet_cond_embedding.blocks"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=DEV,
+                                    dtype=p.dtype) * 0.02)
+    img = torch.rand((2, 128, 128, 3), generator=gen, device=DEV)
+    lat = torch.randn((2, SIZE // 8, SIZE // 8, 4), generator=gen,
+                      device=DEV)
+    t = torch.full((2,), 500, dtype=torch.int32, device=DEV)
+    ctx = torch.randn((2, 77, cn.cfg.cross_attention_dim), generator=gen,
+                      device=DEV)
+    # the hint at the image size: 8x the latent (2x with tiny models)
+    hs = SIZE // 8 * (2 if src.tiny else 8)
+    hint = torch.rand((2, hs, hs, 3), generator=gen, device=DEV)
+
+    def outputs(enh, net):
+        with torch.inference_mode():
+            downs, mid = net(lat, t, ctx, hint)
+            return [enh(img, SIZE)] + list(downs) + [mid]
+    ref = outputs(enhance, cn)
+    states = {"image_enhancer": src._cache["srvgg"].state_dict(),
+              "controlnet_tile": cn.state_dict()}
+    for fmt in ("safetensors", "bin"):
+        root = os.path.join(tmp, f"checkpoint_{fmt}")
+        t0 = time.perf_counter()
+        for sub, st in states.items():
+            if fmt == "safetensors":
+                write_safetensors(os.path.join(root, sub,
+                                               f"{sub}.safetensors"), st)
+            else:
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+                torch.save({"params_ema": st} if sub == "image_enhancer"
+                           else st, os.path.join(root, sub,
+                                                 "pytorch_model.bin"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dst = Adapter3DRunner(checkpoint_dir=root, seed=SEED + 300,
+                              device=DEV)
+        out = outputs(dst.load_image_enhancer(),
+                      dst.load_controlnets(("tile",))[0])
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(out, ref))
+        nonzero = all(float(x.abs().max()) > 0 for x in ref)
+        log(f"[checkpoint] {fmt}: SRVGG + tile ControlNet ("
+            f"{sum(p.numel() for p in cn.parameters()) / 1e6:.1f}M "
+            f"parameters) written in {t_write:.2f} s, loaded by a runner "
+            f"of another seed and run in {t_load:.2f} s; outputs equal "
+            f"{equal} {'ok' if equal and nonzero else 'FAIL'}")
+        if not (equal and nonzero):
+            raise AssertionError(f"the {fmt} checkpoint round trip changed "
+                                 f"the outputs")
+        del dst, out
+    del src, enhance, cn, ref, states
+    torch.cuda.empty_cache()
+
+
+def phase_retex(runner, tmp):
+    """`run_retex` at full width, twice with one seed (see the module
+    doc). Returns the flash, raster and segment-sum launches of the two
+    requests."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.mesh import Mesh
+    knot = torus_knot()
+    src = os.path.join(tmp, "retex_knot.glb")
+    Mesh(v=knot.v, f=knot.f).write_glb(src)
+    img = np.random.default_rng(SEED + 13).random(
+        (SIZE, SIZE, 3)).astype(np.float32)
+    log(f"[retex] {RETEX_VIEWS} views + the top view (front_view_id 0), "
+        f"{SIZE}^2, steps {RETEX_STEPS} at strength 0.7, n_inverse_steps "
+        f"{RETEX_N_INV} (the defaults; no cut in depth), tile + depth "
+        f"ControlNets, 2-pass, LPIPS on, dense field (32, 160), a seeded "
+        f"{SIZE}^2 in_image through IP-Adapter")
+    shapes, kernel = {}, TA.flash_attention
+
+    def recording(q, k, v):
+        key = tuple(q.shape) if q.shape == k.shape else \
+            (tuple(q.shape), tuple(k.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+        return kernel(q, k, v)
+    albedos, totals = [], dict(flash=0, raster=0, segment=0)
+    for run in ("first", "second"):
+        dst = os.path.join(tmp, f"retex_{run}.glb")
+        TA.flash_attention = recording
+        flash_attention.launches = RS.raster_select.launches = 0
+        SS.segment_sum.launches = 0
+        staged = (launch.staged, RS.raster_select.staged,
+                  SS.segment_sum.staged)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = runner.run_retex(
+                src, "a golden torus knot, studio light", seed=SEED,
+                steps=RETEX_STEPS, n_inverse_steps=RETEX_N_INV,
+                num_views=RETEX_VIEWS, front_view_id=0, in_image=img,
+                out_path=dst)
+            torch.cuda.synchronize()
+        finally:
+            TA.flash_attention = kernel
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n = dict(flash=flash_attention.launches,
+                 raster=RS.raster_select.launches,
+                 segment=SS.segment_sum.launches)
+        for k in totals:
+            totals[k] += n[k]
+        albedo = out["mesh"].albedo
+        losses = torch.cat([x.float().flatten() for x in out["fit_losses"]])
+        back = Mesh.load(dst)
+        ok = (albedo.shape == (1024, 1024, 3) and np.isfinite(albedo).all()
+              and bool(torch.isfinite(losses).all())
+              and back.albedo is not None and min(n.values()) > 0
+              and out["renders"].shape[1:] == (SIZE, SIZE, 3)
+              and (launch.staged, RS.raster_select.staged,
+                   SS.segment_sum.staged) == staged)
+        log(f"[retex] {run}: {wall:.3f} s wall, peak memory allocated "
+            f"{peak / 2**30:.2f} GiB; {len(out['fit_losses'])} timesteps, "
+            f"{out['renders'].shape[0]} views at the end, "
+            f"{losses.numel()} fit losses (first {float(losses[0]):.4f}, "
+            f"last {float(losses[-1]):.4f}); albedo mean "
+            f"{float(albedo.mean()):.4f} {'ok' if ok else 'FAIL'}")
+        log(f"[launches] retex {run}: flash_attention {n['flash']}, "
+            f"raster_select {n['raster']}, segment_sum {n['segment']}")
+        if not ok:
+            raise AssertionError("the run_retex request failed its checks")
+        albedos.append(albedo)
+        del out
+    same = bool(np.array_equal(albedos[0], albedos[1]))
+    log(f"[retex] the two albedos of one seed bit-equal: {same}")
+    if not same:
+        raise AssertionError("two retex requests of one seed differ")
+    log("[retex] flash_attention shapes over both requests (calls): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
+    missing = [k for k in shapes if (k, 1.0) not in
+               [(c[0], c[1]) for c in KERNEL_CASES]]
+    if missing:
+        raise AssertionError(f"retex shapes not checked in phase 3: "
+                             f"{missing}")
+    return totals
 
 
 # kernel families by name, first match wins
@@ -1512,13 +1880,91 @@ def phase_profile(runner, out_dir, mesh_ctx):
     _report(out_dir, "render_all", "render_all")
 
 
+def phase_time_fits(runs=5):
+    """Host-clock medians (after `torch.cuda.synchronize()`) of a warm
+    NeRF-fit chunk (8 steps at 256^2, LPIPS on, the request's field and
+    schedule), of a NeRF render-all of 16 views at 256^2, and of a warm
+    mesh-fit chunk (8 steps at the request's tet resolution and 512^2,
+    LPIPS on), on the 32-view `load_init_mesh` renders of the torus knot.
+    Only APIs that every tree of the port with `run_3d_to_3d` has are
+    used, so that a copy of this script beside an earlier checkout's
+    package times that one in the same call."""
+    import types
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.models.fields import ingp_init
+    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+    import mvedit_tpu_torch
+    runner = Adapter3DRunner(seed=SEED, device=DEV)
+    m = types.SimpleNamespace(lpips_params=runner.load_lpips())
+    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV)
+    pipe = MVEdit3DPipeline(m, cfg)
+    poses, intr, lights = _rig(SIZE)
+    init = runner.load_init_mesh(torus_knot(), poses, intr, SIZE, lights)
+    targets = {"images": init["images"], "masks": init["masks"],
+               "poses": torch.as_tensor(poses, device=DEV),
+               "intrinsics": torch.as_tensor(intr, device=DEV),
+               "cam_lights": torch.as_tensor(lights, device=DEV),
+               "cam_weights": torch.ones(REQ_VIEWS, device=DEV)}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    field = ingp_init(cfg.ingp, gen, DEV)
+    run, make_opt = pipe._nerf_fit_fns(256, 8)
+    opt = make_opt(field)
+    grid = OccupancyGrid.create(cfg.render.grid_size, device=DEV)
+    tgt = pipe._resize_targets(targets, 256)
+    views = {"poses": targets["poses"][:16],
+             "intrinsics": targets["intrinsics"][:16]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    chunk = []
+    for i in range(runs + 1):
+        (field, opt, grid, _), sec = timed(lambda: run(
+            field, opt, grid, tgt, sched=pipe._sched_weights(0.5, "nerf"),
+            lpips_params=m.lpips_params, generator=gen))
+        if i:
+            chunk.append(sec)
+    render = []
+    with torch.no_grad():
+        for i in range(4):
+            _, sec = timed(lambda: pipe._render_all(field, None, None, grid,
+                                                    views, 256))
+            if i:
+                render.append(sec)
+    # the DMTet fit at tet 128 from a seeded field (phase 6's stand-in)
+    mfield = ingp_init(cfg.ingp, gen, DEV)
+    with torch.no_grad():
+        mfield["mlp"][-1]["b"][0] = DENSITY_BIAS
+    tet_grid, state, mopt = pipe._init_mesh_phase(mfield, device=DEV)
+    run_m, _, _ = pipe._mesh_fit_fns(tet_grid, 8)
+    mesh = []
+    for i in range(runs + 1):
+        (state, mopt, _), sec = timed(lambda: run_m(
+            state, mopt, targets, sched=pipe._sched_weights(0.6, "mesh"),
+            generator=gen, lpips_params=m.lpips_params))
+        if i:
+            mesh.append(sec)
+
+    def fmt(xs):
+        return (f"median {statistics.median(xs):.4f} s of {len(xs)} "
+                f"({' '.join(f'{x:.4f}' for x in xs)})")
+    log(f"[fits] package {os.path.dirname(mvedit_tpu_torch.__file__)}: "
+        f"NeRF-fit chunk (8 steps, 256^2, LPIPS) {fmt(chunk)}; render-all "
+        f"of 16 views at 256^2 {fmt(render)}; mesh-fit chunk (8 steps, "
+        f"tet {cfg.tet_resolution}, 512^2, LPIPS) {fmt(mesh)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-3: build the kernels and hold them "
                          "against their plain versions")
     ap.add_argument("--kernel", choices=("flash_attention", "raster_select",
-                                         "flash_fwd"),
+                                         "flash_fwd", "segment_sum"),
                     help="with --kernels-only: check this kernel only")
     ap.add_argument("--ab", nargs="+", metavar="SRC",
                     help="only build these kernel sources (edited copies of "
@@ -1529,10 +1975,16 @@ def main():
                     help="after the run, profile a warm text-to-image "
                          "request, denoise timesteps, mesh and NeRF fit "
                          "chunks into OUT_DIR")
+    ap.add_argument("--time-fits", action="store_true",
+                    help="only time a warm NeRF-fit chunk and a render-all "
+                         "(host clock, median of several)")
     args = ap.parse_args()
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
     smi = phase_device()
+    if args.time_fits:
+        phase_time_fits()
+        return
     if args.ab:
         def raster(src):
             with open(src) as f:
@@ -1546,17 +1998,20 @@ def main():
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
     from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
     from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
                                                           launch)
     from mvedit_tpu_torch.ops.flash_attention import flash_fwd
-    todo = [args.kernel] if args.kernel else ["flash_attention",
-                                              "raster_select", "flash_fwd"]
+    todo = [args.kernel] if args.kernel else [
+        "flash_attention", "raster_select", "flash_fwd", "segment_sum"]
     if "flash_attention" in todo:
         rows, worst = phase_kernel()
     if "raster_select" in todo:
         raster_rows = phase_raster_kernel()
     if "flash_fwd" in todo:
         fwd_rows, fwd_worst = phase_flash_fwd()
+    if "segment_sum" in todo:
+        seg_rows, seg_worst = phase_segment_sum()
     if not args.kernel:
         phase_lpips()
     if args.kernels_only:
@@ -1576,14 +2031,29 @@ def main():
     if t2i_launches == 0 or launches == t2i_launches:
         raise AssertionError("the main path did not launch flash_attention")
     # the mesh path: counted part by part inside; no staged raster input
-    # from here to the end of the paths
-    RS.raster_select.staged = 0
+    # from here to the end of the paths; the segment sum counted from here
+    # to the end of the retex phase
+    RS.raster_select.staged = SS.segment_sum.staged = 0
+    SS.segment_sum.launches = 0
+    seg_launches = 0
     mesh_launches, mesh_ctx = phase_mesh(runner)
+    seg_launches += SS.segment_sum.launches
     # the whole request, twice: counted part by part inside
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
+        SS.segment_sum.launches = 0
         req_launches, req_flash, req_ctx = phase_request(runner, tmp)
         phase_tet256(runner, req_ctx)
+        seg_launches += SS.segment_sum.launches
+        phase_checkpoint(tmp)
+        retex = phase_retex(runner, tmp)
+        seg_launches += retex["segment"]
+    log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
+        f"requests, tet 256 and the retex requests (staged copies "
+        f"{SS.segment_sum.staged})")
+    if seg_launches == 0 or SS.segment_sum.staged:
+        raise AssertionError("the paths did not launch segment_sum, or "
+                             "staged its inputs")
     # the JAX package's own flash API is on no path of the system (nothing
     # outside its file calls it there): its count over both paths is 0
     fwd_launches = flash_fwd.launches
@@ -1605,10 +2075,13 @@ def main():
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
     rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
+    shot = next(r for r in seg_rows if r["case"] == SEGMENT_HOT)
     log(f"[kernels] times and bounds below at {HOT_SHAPE} "
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
-        f"{FWD_HOT} (flash_fwd); library_ms is one scaled_dot_product_"
-        f"attention call (none computes raster_select); errors over all "
+        f"{FWD_HOT} (flash_fwd), {SEGMENT_HOT} (segment_sum: ms the whole "
+        f"call, sort included, kernel_ms the kernel alone); library_ms is "
+        f"one scaled_dot_product_attention call, one index_add_ for "
+        f"segment_sum (none computes raster_select); errors over all "
         f"checked cases (raster_select: max |key| error where both cover, "
         f"the mismatched ids and key bits; ms single launches, batched_ms "
         f"{AB_BATCH} per event pair, graphed_ms {AB_BATCH} in a CUDA graph)")
@@ -1617,7 +2090,8 @@ def main():
         {"name": "flash_attention", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
-         "launches": launches + req_flash, "max_abs_err": worst,
+         "launches": launches + req_flash + retex["flash"],
+         "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
          "library_ms": hot["library_ms"]},
@@ -1625,7 +2099,7 @@ def main():
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
          "launches": sum(mesh_launches.values())
-         + sum(req_launches.values()),
+         + sum(req_launches.values()) + retex["raster"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
          "key_bits_differing": sum(r["key_bits"] for r in raster_rows),
@@ -1639,7 +2113,17 @@ def main():
          "launches": fwd_launches, "max_abs_err": fwd_worst,
          "ms": fhot["ms"], "plain_ms": fhot["plain_ms"],
          "bound_ms": fhot["bound_ms"], "bound_by": fhot["bound_by"],
-         "library_ms": fhot["library_ms"]}]}))
+         "library_ms": fhot["library_ms"]},
+        {"name": "segment_sum", "route": "cuda",
+         "source": "mvedit_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "none: a port-only kernel (the fixed-order sum behind "
+                     "the gathers' gradients; on the TPU XLA scatter-adds, "
+                     "mvedit_tpu/ops/segment.py:29)",
+         "launches": seg_launches, "max_abs_err": seg_worst,
+         "ms": shot["ms"], "kernel_ms": shot["kernel_ms"],
+         "plain_ms": shot["plain_ms"], "bound_ms": shot["bound_ms"],
+         "bound_by": shot["bound_by"],
+         "library_ms": shot["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,27 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
-Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`
-and `run_text_to_img` need: the SD1.5 UNet, VAE and CLIP text encoder, the
-tile and depth (and ip2p) ControlNets, LPIPS, the SRVGG image enhancer,
-prompt encoding, the mesh preprocessing, and the rig constants (`constants`,
-with `apis/cameras.py` and `utils/camera.py`). Models are built on `device`
-with seeded random weights (drawn from a `torch.Generator`; loading
-checkpoints from `checkpoint_dir` is not ported yet). Full-size models
-store bf16 weights, as the reference casts them; the f32 layers compute in
-f32 all the same.
+Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`,
+`run_retex` and `run_text_to_img` need: the SD1.5 UNet, VAE and CLIP text
+encoder, the tile and depth (and ip2p) ControlNets, LPIPS, the SRVGG image
+enhancer, IP-Adapter with its CLIP vision tower, prompt encoding, the mesh
+preprocessing, and the rig constants (`constants`, with `apis/cameras.py`
+and `utils/camera.py`).
+
+Models are built on `device` with seeded random weights (drawn from a
+`torch.Generator`), then loaded from `checkpoint_dir` where it holds them,
+in the reference's search order: `<checkpoint_dir>/<subdir>/` with
+`diffusion_pytorch_model.{safetensors,bin}`, `model.safetensors`,
+`pytorch_model.bin` or `<subdir>.safetensors`, for the subdirs `unet`,
+`vae`, `text_encoder`, `controlnet_{tile,depth,ip2p}`, `image_enhancer`
+and `ip_adapter_vision`; LPIPS from `lpips/lpips_vgg.{safetensors,bin}`;
+the IP-Adapter projection and UNet branches from
+`ip_adapter/ip_adapter.npz` (the reference's converted flax tree). The
+files' keys are diffusers' / transformers' (SRVGG: Real-ESRGAN's), so they
+go in with `load_state_dict`; keys that match nothing are reported, and
+parameters a file lacks keep their seeded values. `checkpoint_dir` may be
+a `huggingface://org/repo` reference into the local cache. Full-size
+models store bf16 weights, as the reference casts them; the f32 layers
+compute in f32 all the same.
 """
 import os
 import types
@@ -21,6 +34,7 @@ from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
                                 UNet2DCondition, UNetConfig, VAEConfig,
                                 schedulers as S)
 from ..models.diffusion.tokenizer import CLIPTokenizer, HashTokenizer
+from ..models.diffusion.weights import load_torch_state
 from ..models.mesh import Mesh
 from . import cameras as C
 from .endpoints import EndpointsMixin
@@ -31,7 +45,11 @@ __all__ = ["Adapter3DRunner", "init_random_"]
 # 104; clip.py:109)
 _ZERO_INIT = ("controlnet_cond_embedding.conv_out.",
               "controlnet_down_blocks.", "controlnet_mid_block.",
-              "embeddings.position_embedding.")
+              "embeddings.position_embedding.", "embeddings.class_embedding")
+# the files of a model's subdir, in the reference's search order
+_CHECKPOINT_FILES = ("diffusion_pytorch_model.safetensors",
+                     "diffusion_pytorch_model.bin", "model.safetensors",
+                     "pytorch_model.bin")
 
 
 @torch.no_grad()
@@ -54,6 +72,9 @@ def init_random_(module, generator):
 class Adapter3DRunner(EndpointsMixin):
     def __init__(self, checkpoint_dir=None, seed=42, tiny_models=False,
                  device="cuda"):
+        if checkpoint_dir is not None:
+            from ..utils.hub import resolve_checkpoint
+            checkpoint_dir = resolve_checkpoint(checkpoint_dir)
         self.checkpoint_dir = checkpoint_dir
         self.seed = seed
         self.tiny = tiny_models
@@ -73,8 +94,39 @@ class Adapter3DRunner(EndpointsMixin):
                           attn_down=(True, False), cross_attention_dim=32,
                           num_heads=4, dtype=torch.float32)
 
-    def _build(self, name, make, seed_offset=0):
-        """Builds, seeds and (full size) casts a model once per name."""
+    def _checkpoint_file(self, subdir):
+        """The first checkpoint file of `checkpoint_dir/subdir/`, or None."""
+        if not (self.checkpoint_dir and subdir):
+            return None
+        for fname in _CHECKPOINT_FILES + (f"{subdir}.safetensors",):
+            path = os.path.join(self.checkpoint_dir, subdir, fname)
+            if os.path.exists(path):
+                return path
+        return None
+
+    @staticmethod
+    def _load_into(name, model, state, convert=None):
+        """`load_state_dict` of a checkpoint's state (through `convert`,
+        which returns (state, unmatched keys)); reports the keys that match
+        no parameter and the parameters the state lacks."""
+        unmatched = []
+        if convert is not None:
+            state, unmatched = convert(state)
+        state = {k: v for k, v in state.items() if "position_ids" not in k}
+        missing, unexpected = model.load_state_dict(state, strict=False)
+        unmatched = list(unmatched) + list(unexpected)
+        if unmatched:
+            print(f"[runner] {name}: {len(unmatched)} unconverted keys, "
+                  f"e.g. {unmatched[:4]}")
+        if missing:
+            print(f"[runner] {name}: {len(missing)} parameters keep their "
+                  f"seeded values, e.g. {list(missing)[:4]}")
+
+    def _build(self, name, make, seed_offset=0, subdir=None, convert=None,
+               post_init=None):
+        """Builds, seeds, loads from `checkpoint_dir/subdir` where a file is
+        found, and (full size) casts a model, once per name. `post_init`
+        adjusts the seeded values before the load."""
         if name in self._cache:
             return self._cache[name]
         gen = torch.Generator(device=self.device)
@@ -82,6 +134,11 @@ class Adapter3DRunner(EndpointsMixin):
         with torch.device(self.device):
             model = make()
         init_random_(model, gen)
+        if post_init is not None:
+            post_init(model)
+        path = self._checkpoint_file(subdir)
+        if path is not None:
+            self._load_into(name, model, load_torch_state(path), convert)
         if not self.tiny:
             # inference-only frozen nets store bf16 weights (runner.py:96-107)
             model = model.to(torch.bfloat16)
@@ -101,11 +158,12 @@ class Adapter3DRunner(EndpointsMixin):
             cfg, vae_cfg, text_cfg = SD15_UNET, SD_VAE, SD15_TEXT
         m = types.SimpleNamespace()
         m.unet = self._build(f"unet:{checkpoint}",
-                             lambda: UNet2DCondition(cfg))
+                             lambda: UNet2DCondition(cfg), subdir="unet")
         m.vae = self._build(f"vae:{checkpoint}",
-                            lambda: AutoencoderKL(vae_cfg))
+                            lambda: AutoencoderKL(vae_cfg), subdir="vae")
         m.text = self._build(f"text:{checkpoint}",
-                             lambda: CLIPTextModel(text_cfg))
+                             lambda: CLIPTextModel(text_cfg),
+                             subdir="text_encoder")
         m.schedule = S.sd_schedule()
         m.text_cfg = text_cfg
         return m
@@ -117,7 +175,7 @@ class Adapter3DRunner(EndpointsMixin):
         return tuple(
             self._build(f"controlnet:{kind}",
                         lambda: ControlNet(cfg, hint_strides=hint_strides),
-                        seed_offset=1 + i)
+                        seed_offset=1 + i, subdir=f"controlnet_{kind}")
             for i, kind in enumerate(kinds))
 
     @torch.inference_mode()
@@ -131,14 +189,32 @@ class Adapter3DRunner(EndpointsMixin):
     def load_lpips(self):
         """LPIPS params for the fits' patch losses: None with tiny models
         (the pipelines then run without LPIPS), else VGG16 at its published
-        widths, seeded, bf16 (the reference's cast)."""
+        widths, from `lpips/lpips_vgg.{safetensors,bin}` (torchvision's
+        VGG16 `features` keys and the lpips heads as `linK` or the lpips
+        package's `linK.model.1.weight`) or seeded, stored bf16 (the
+        reference's cast)."""
         if self.tiny:
             return None
         if "lpips" not in self._cache:
-            from ..models.losses import lpips_init
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seed)
-            params = lpips_init(gen, self.device)
+            from ..models.losses import lpips_init, lpips_params_from_torch
+            path = None
+            if self.checkpoint_dir:
+                for fname in ("lpips_vgg.safetensors", "lpips_vgg.bin"):
+                    p = os.path.join(self.checkpoint_dir, "lpips", fname)
+                    if os.path.exists(p):
+                        path = p
+                        break
+            if path is not None:
+                sd = load_torch_state(path)
+                if "lin0" in sd:
+                    lins = [sd[f"lin{i}"] for i in range(5)]
+                else:
+                    lins = [sd[f"lin{i}.model.1.weight"] for i in range(5)]
+                params = lpips_params_from_torch(sd, lins, self.device)
+            else:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self.seed)
+                params = lpips_init(gen, self.device)
             self._cache["lpips"] = {
                 "convs": [{k: v.to(torch.bfloat16) for k, v in c.items()}
                           for c in params["convs"]],
@@ -152,12 +228,20 @@ class Adapter3DRunner(EndpointsMixin):
             return self._cache["enhance_fn"]
         from ..models.image_enhancer import SRVGGNetCompact
         from ..ops.image import resize_bilinear
-        net = self._build("srvgg", lambda: SRVGGNetCompact(
-            num_feat=8 if self.tiny else 64, num_conv=2 if self.tiny else 32))
-        with torch.no_grad():
-            for mod in net.body:         # PReLU slopes start at 0.25
+
+        @torch.no_grad()
+        def prelu_init(net):             # PReLU slopes start at 0.25
+            for mod in net.body:
                 if isinstance(mod, torch.nn.PReLU):
                     mod.weight.fill_(0.25)
+
+        def unwrap(sd):
+            # Real-ESRGAN's .pth files keep the weights under "params_ema"
+            # or "params"
+            return sd.get("params_ema", sd.get("params", sd)), []
+        net = self._build("srvgg", lambda: SRVGGNetCompact(
+            num_feat=8 if self.tiny else 64, num_conv=2 if self.tiny else 32),
+            subdir="image_enhancer", convert=unwrap, post_init=prelu_init)
 
         @torch.inference_mode()
         def enhance_fn(images, size):
@@ -168,6 +252,199 @@ class Adapter3DRunner(EndpointsMixin):
 
         self._cache["enhance_fn"] = enhance_fn
         return enhance_fn
+
+    def enable_ip_adapter(self, m, image, num_tokens=4):
+        """Image-prompt conditioning (the reference's `enable_ip_adapter`):
+
+        1. the CLIP vision tower encodes `image` (resized to its input
+           size with the reference's antialiased bilinear, CLIP-normalised)
+           into one embed;
+        2. `ImageProjModel` turns it into `num_tokens` context tokens, and
+           the zero embed into the uncond tokens;
+        3. every UNet cross-attention gets its `ip_to_k` / `ip_to_v`
+           branch (`add_ip_branches`).
+
+        Weights come from `ip_adapter_vision/` and `ip_adapter/
+        ip_adapter.npz` in `checkpoint_dir`, else seeded with `seed + 7`.
+        The tower has `CLIPVisionConfig()`'s widths, as the reference's
+        runner builds it (not `IPADAPTER_VISION`'s ViT-H). Sets
+        `m.ip_encode_fn` (images (N, H, W, 3) in [0, 1] -> (2N, T, C)
+        [uncond; cond] tokens) and `m.ip_context` (2, T, C), which the
+        pipelines read, and returns the latter."""
+        from ..models.diffusion.clip import CLIPVisionConfig, CLIPVisionModel
+        from ..models.diffusion.ip_adapter import (ImageProjModel,
+                                                   add_ip_branches)
+        from ..models.diffusion.weights import (convert_clip_vision,
+                                                torch_state_from_flax)
+        from ..ops.image import resize_bilinear
+        dev = self.device
+        if self.tiny:
+            vcfg = CLIPVisionConfig(image_size=32, patch_size=8,
+                                    hidden_size=32, intermediate_size=64,
+                                    num_layers=2, num_heads=4,
+                                    projection_dim=32)
+        else:
+            vcfg = CLIPVisionConfig()
+        vision = self._build("ip_vision", lambda: CLIPVisionModel(vcfg),
+                             seed_offset=7, subdir="ip_adapter_vision",
+                             convert=convert_clip_vision)
+        ctx_dim = m.text_cfg.hidden_size
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self.seed + 7)
+        with torch.device(dev):
+            proj = init_random_(ImageProjModel(ctx_dim, vcfg.projection_dim,
+                                               num_tokens), gen)
+        proj.eval().requires_grad_(False)
+        new = set(add_ip_branches(m.unet))
+        with torch.no_grad():
+            for name, p in m.unet.named_parameters():
+                if name in new:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=dev,
+                                        dtype=p.dtype) * p.shape[1] ** -0.5)
+        m.unet.requires_grad_(False)
+        path = self.checkpoint_dir and os.path.join(
+            self.checkpoint_dir, "ip_adapter", "ip_adapter.npz")
+        if path and os.path.exists(path):
+            with np.load(path) as d:
+                flat = {k: d[k] for k in d.files}
+            tree = {}
+            for k, v in flat.items():
+                node = tree
+                *parents, leaf = k.split("/")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = v
+            self._load_into("ip_proj", proj, torch_state_from_flax(
+                tree["image_proj"], "image_proj"))
+            ip_state = torch_state_from_flax(tree["unet_patch"], "unet")
+            _, unexpected = m.unet.load_state_dict(ip_state, strict=False)
+            if unexpected:
+                print(f"[runner] ip_adapter: {len(unexpected)} unconverted "
+                      f"keys, e.g. {list(unexpected)[:4]}")
+        mean = torch.tensor([0.4815, 0.4578, 0.4082], device=dev)
+        std = torch.tensor([0.2686, 0.2613, 0.2758], device=dev)
+
+        @torch.inference_mode()
+        def ip_encode_fn(images):
+            ims = torch.as_tensor(np.asarray(images, np.float32)
+                                  if not torch.is_tensor(images) else images,
+                                  dtype=torch.float32, device=dev)
+            if ims.dim() == 3:
+                ims = ims[None]
+            ims = resize_bilinear(ims, (vcfg.image_size, vcfg.image_size))
+            emb = vision((ims - mean) / std).float()
+            tok_c = proj(emb)
+            tok_u = proj(torch.zeros_like(emb))
+            return torch.cat([tok_u, tok_c], 0).clone()
+
+        m.ip_encode_fn = ip_encode_fn
+        m.ip_context = ip_encode_fn(image)
+        return m.ip_context
+
+    def run_retex(self, mesh_path, prompt, negative_prompt="", seed=42,
+                  steps=12, denoising_strength=0.7, cfg_scale=None,
+                  num_views=None, render_size=None, n_inverse_steps=24,
+                  instruct=False, front_view_id=None, in_image=None,
+                  out_path=None, draws=None, **kwargs):
+        """Re-texturing (the reference's `run_retex` -> `TexturePipeline`).
+        instruct=True adds the ip2p ControlNet on the source renders;
+        front_view_id (an index into the preprocessing turntable) starts
+        the rig at its azimuth, weights the views by a von Mises pdf (3.0
+        on the front view), inserts a top view at index 1 and gives each
+        view its direction prompt; in_image (H, W, 3) in [0, 1] prompts
+        through IP-Adapter. Extra kwargs follow `apis/parameters.py::
+        retex_defaults`. The random draws come from a generator seeded
+        with `seed`, or from `draws` (`pipelines.GeneratorDraws`' methods).
+        Texture superres (`superres=True`) is not ported yet and raises."""
+        from ..models.fields import INGPConfig
+        from ..ops.dense_grid import DenseGridConfig
+        from ..pipelines.texture import TextureConfig, TexturePipeline
+        from ..utils import camera as cam_utils
+        from . import parameters as P
+        if kwargs.get("superres", False):
+            raise NotImplementedError("texture superres is not ported yet")
+        nk = dict(P.retex_defaults)
+        if instruct:
+            nk.update(P.instruct_retex_params)
+        for k, v in kwargs.items():
+            if k in nk and v is not None:
+                nk[k] = v
+        prompt = ", ".join(p for p in (prompt, nk["aux_prompt"]) if p)
+        negative_prompt = ", ".join(
+            p for p in (negative_prompt, nk["aux_negative_prompt"]) if p)
+        dev = self.device
+        m = self.load_stable_diffusion()
+        m.controlnets = self.load_controlnets(
+            ("tile", "depth", "ip2p") if instruct else ("tile", "depth"))
+        m.lpips_params = self.load_lpips()
+        if in_image is not None:
+            self.enable_ip_adapter(m, in_image)
+        else:
+            m.ip_context = None
+        num_views = num_views or (4 if self.tiny else 12)
+        render_size = render_size or (64 if self.tiny else 512)
+        c = self.constants
+        rng = np.random.default_rng(seed)
+        front_azi = cam_weights = None
+        if front_view_id is not None and \
+                0 <= front_view_id < c["preproc_num_views"]:
+            front_azi = front_view_id / c["preproc_num_views"] * 2 * np.pi
+        poses, intr = C.surround_rig(
+            num_views, c["proc_3d_to_3d_camera_distance"],
+            c["proc_3d_to_3d_fov"], c["proc_retex_min_elev"],
+            c["proc_retex_max_elev"], render_size,
+            begin_rad=front_azi or 0.0, rng=rng)
+        prompts = [prompt] * num_views
+        if front_azi is not None:
+            from scipy.stats import vonmises
+            cam_azi = np.arctan2(poses[:, 1, 3], poses[:, 0, 3])
+            cam_weights = vonmises.pdf(
+                cam_azi, loc=front_azi,
+                kappa=c["vonmises_kappa"]) * (2 * np.pi)
+            cam_weights[0] = 3.0
+            # a top view (elevation 0.6 rad) at index 1, weight 1.0, so that
+            # keep_first_views=2 keeps the front and the top view
+            aux_pose = cam_utils.get_pose_from_angles(
+                np.array([front_azi], np.float32),
+                np.array([0.6], np.float32),
+                np.array([c["proc_3d_to_3d_camera_distance"]],
+                         np.float32))[:, :3]
+            poses = np.concatenate([poses[:1], aux_pose, poses[1:]], 0)
+            intr = np.concatenate([intr, intr[:1]], 0)
+            suffixes = cam_utils.view_prompts(
+                np.concatenate([poses[:1], poses[2:]], 0), front_azi)
+            suffixes = [suffixes[0], "view from above"] + suffixes[1:]
+            cam_weights = np.concatenate(
+                [cam_weights[:1], [1.0], cam_weights[1:]]).astype(np.float32)
+            prompts = [", ".join(p for p in (prompt, s_) if p)
+                       for s_ in suffixes]
+            num_views = num_views + 1
+        ingp = INGPConfig(backend="dense", dense=DenseGridConfig(
+            resolutions=(8, 32) if self.tiny else (32, 160)))
+        cfg = TextureConfig(
+            num_views=num_views, render_size=render_size,
+            diffusion_steps=steps, denoising_strength=denoising_strength,
+            guidance_scale=float(cfg_scale if cfg_scale is not None
+                                 else nk["cfg_scale"]),
+            n_inverse_steps=n_inverse_steps, lr=float(nk["lr"]),
+            views_per_step=int(nk["render_bs"]),
+            min_num_views=min(int(nk["min_num_views"]), num_views),
+            keep_first_views=2 if front_azi is not None else 0,
+            mode=nk["mvedit_mode"], ingp=ingp)
+        mesh = self.run_mesh_preproc(mesh_path)["mesh"]
+        pos_e, neg_e = self.encode_prompt(m, prompts,
+                                          [negative_prompt] * num_views)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        out = TexturePipeline(m, cfg)(
+            mesh, t(poses), t(intr), pos_e.clone(), neg_e.clone(),
+            generator=gen, draws=draws, cam_weights=cam_weights)
+        if out_path:
+            out["mesh"].write(out_path, flip_yz=True)
+        return out
 
     def run_mesh_preproc(self, mesh_path, out_path=None):
         """Load and normalise an input mesh: multi-material GLB scenes

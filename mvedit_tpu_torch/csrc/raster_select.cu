@@ -1,5 +1,5 @@
-// Raster selection for Hopper (sm_90a): per 16 x 16 screen tile, the
-// nearest covering triangle of each pixel.
+// Raster selection for Hopper (sm_90a): per 16 x 16 or 32 x 32 screen
+// tile, the nearest covering triangle of each pixel.
 //
 // Replaces the TPU kernel `mvedit_tpu/models/mesh/select_pallas.py::
 // select_pallas` (body `_select_kernel`) together with the XLA pass that
@@ -35,7 +35,11 @@
 //  (c) one 8-warp CTA per tile left the SMs short of warps at 128^2 (64
 //      tiles) and 256^2 (256 tiles);
 //  (d) the wrapper cast and concatenated the lists on every call.
-// This kernel sits at 4-44x them (16x at the fit). What is left binds by
+// This kernel sits at 4-44x them (16x at the fit). The 32 x 32 tile
+// (texture superres's 2048^2 bake) is the same kernel templated on the
+// tile edge: 32 pixel blocks (4 across, 8 down), one 1024-thread CTA per
+// tile at one split, and chunks of 256 slots, so that the 4x longer block
+// lists stay within the 48 KB of static shared memory. What is left binds by
 // latency: each chunk is a chain of dependent
 // loads (mask and id, face, corners) and two barriers, and each warp's
 // scan a chain of shared-memory loads and rounded tests; on the fit's
@@ -54,7 +58,8 @@
 //      the big list's padding (face 0, valid when face 0 is big) stays,
 //      and its duplicates lose their ties by index.
 //  (2) Reject per warp. Each warp owns an 8 x 4 pixel block (2 x 4 blocks
-//      per tile). For each survivor the CTA evaluates which blocks it may
+//      per 16 x 16 tile, 4 x 8 per 32 x 32). For each survivor the CTA
+//      evaluates which blocks it may
 //      cover and appends it, in candidate-axis order again (one ballot per
 //      block), to those blocks' lists; a warp walks only its block's list,
 //      two entries at a time, with the edges as two float4 and a float
@@ -74,8 +79,9 @@
 //      past the apex of a needle the rounded edge tests may pass for
 //      pixels far outside it. The tile's own test is the union of its
 //      blocks'.
-//  (3) Small grids. Below 16 tiles per SM the CTA has 2 warps per pixel
-//      block (4 below 4 tiles per SM: the 128^2 and 256^2 ramp), which take
+//  (3) Small grids. Below 16 tiles per SM a 16 x 16 tile's CTA has 2 warps
+//      per pixel block (4 below 4 tiles per SM: the 128^2 and 256^2 ramp;
+//      a 32 x 32 tile's CTA is full at one), which take
 //      the block's list in turns; their (key, index) pairs are combined in
 //      shared memory by the smaller key and, on equal keys, the lower
 //      index. The float compare keeps -0.0 == +0.0 as the scan does, so no
@@ -93,10 +99,19 @@
 
 namespace {
 
-constexpr int kTile = 16;                 // tile edge in pixels
-constexpr int kPix = kTile * kTile;       // one warp per 8 x 4 block
-constexpr int kBlocks = kPix / 32;        // 8: 2 across, 4 down
 constexpr float kBig = 3.0e38f;
+
+// The tile edge's constants: kPix pixels, one warp per 8 x 4 block,
+// kBlocks blocks (kBx across), and the chunk's slot cap.
+template <int kTile>
+struct Tile {
+  static constexpr int kPix = kTile * kTile;
+  static constexpr int kBlocks = kPix / 32;   // 8 at 16, 32 at 32
+  static constexpr int kBx = kTile / 8;       // blocks across
+  static constexpr int kChunk = kTile == 16 ? 512 : 256;
+  static constexpr unsigned kAll =
+      kBlocks == 32 ? 0xffffffffu : (1u << kBlocks) - 1u;
+};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -116,9 +131,9 @@ struct Params {
   const bool* big_valid;       // (Kb,)
   long long F;
   int Kt, Kb, tiles_x, cull;
-  int* best;                   // (T, 256)
-  float* key;                  // (T, 256)
-  long long* face;             // (T, 256)
+  int* best;                   // (T, tile^2)
+  float* key;                  // (T, tile^2)
+  long long* face;             // (T, tile^2)
 };
 
 // The face id in candidate slot j of tile t, -1 where its mask is clear
@@ -177,26 +192,30 @@ __device__ __forceinline__ bool coeffs(const Params& p, long long id,
   return true;
 }
 
-// Bit b set when block b (8 x 4 pixels at (8 (b % 2), 4 (b / 2)) in the
-// tile whose first pixel is (x0, y0)) may hold a pixel that passes all
+// Bit b set when block b (8 x 4 pixels at (8 (b % kBx), 4 (b / kBx)) in
+// the tile whose first pixel is (x0, y0)) may hold a pixel that passes all
 // three edge tests: each edge is evaluated at the block corner where it is
 // largest (see the note at the top).
+template <int kTile>
 __device__ __forceinline__ unsigned block_mask(const float* c, int x0,
                                                int y0) {
-  unsigned m = (1u << kBlocks) - 1;
+  using G = Tile<kTile>;
+  unsigned m = G::kAll;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     const float al = c[3 * e], be = c[3 * e + 1], ga = c[3 * e + 2];
     const int dx = al >= 0.f ? 7 : 0, dy = be >= 0.f ? 3 : 0;
-    float hx[2], hy[4];
+    float hx[G::kBx], hy[kTile / 4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) hx[i] = mul(al, centre(x0 + 8 * i + dx));
+    for (int i = 0; i < G::kBx; ++i) hx[i] = mul(al, centre(x0 + 8 * i + dx));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) hy[i] = mul(be, centre(y0 + 4 * i + dy));
+    for (int i = 0; i < kTile / 4; ++i)
+      hy[i] = mul(be, centre(y0 + 4 * i + dy));
     unsigned me = 0;
 #pragma unroll
-    for (int b = 0; b < kBlocks; ++b)
-      me |= (add(add(hx[b & 1], hy[b >> 1]), ga) >= 0.f ? 1u : 0u) << b;
+    for (int b = 0; b < G::kBlocks; ++b)
+      me |= (add(add(hx[b % G::kBx], hy[b / G::kBx]), ga) >= 0.f ? 1u : 0u)
+            << b;
     m &= me;
   }
   return m;
@@ -227,12 +246,20 @@ __device__ __forceinline__ void take(float4 z, int idx, float qx, float qy,
 
 // S warps per pixel block; C candidate slots per chunk (one per thread of
 // the first C threads)
-template <int S>
-__global__ void __launch_bounds__(kPix * S, S == 1 ? 6 : (S == 2 ? 2 : 1))
+template <int kTile, int S>
+__global__ void __launch_bounds__(
+    Tile<kTile>::kPix * S,
+    Tile<kTile>::kPix * S <= 256 ? 6 : (Tile<kTile>::kPix * S <= 512 ? 2 : 1))
 raster_select_kernel(Params p) {
-  constexpr int C = kPix * S < 512 ? kPix * S : 512;
+  using G = Tile<kTile>;
+  constexpr int kPix = G::kPix, kBlocks = G::kBlocks, kBx = G::kBx;
+  constexpr int C = kPix * S < G::kChunk ? kPix * S : G::kChunk;
   constexpr int kWarps = kPix * S / 32;
   constexpr int kBuildWarps = C / 32;
+  // per-block offsets in registers at 8 blocks; at 32 they are recounted
+  // from the ballots kept in shared memory, which keeps the 1024-thread
+  // CTA within its 64 registers
+  constexpr bool kRegOff = kBlocks <= 8;
   // each survivor's edges as two float4 and a float, (a0 b0 g0 a1)
   // (b1 g1 a2 b2) g2, and its 1/z plane (zx zy zc) as a float4 that the
   // scan reads only for a covered pixel
@@ -243,15 +270,16 @@ raster_select_kernel(Params p) {
   __shared__ unsigned short blist[kBlocks][C];  // per block, entries of ce
   __shared__ int wlive[kWarps];
   __shared__ int wblk[kBlocks][kWarps];
-  __shared__ float part_key[S > 1 ? S - 1 : 1][kPix];
-  __shared__ int part_idx[S > 1 ? S - 1 : 1][kPix];
+  __shared__ unsigned wbal[kRegOff ? 1 : kBlocks][kRegOff ? 1 : kWarps];
+  __shared__ float part_key[S > 1 ? S - 1 : 1][S > 1 ? kPix : 1];
+  __shared__ int part_idx[S > 1 ? S - 1 : 1][S > 1 ? kPix : 1];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int blk = warp % kBlocks, split = warp / kBlocks;
   const int x0 = (t % p.tiles_x) * kTile, y0 = (t / p.tiles_x) * kTile;
-  const int px = (blk & 1) * 8 + (lane & 7);
-  const int py = (blk >> 1) * 4 + (lane >> 3);
+  const int px = (blk % kBx) * 8 + (lane & 7);
+  const int py = (blk / kBx) * 4 + (lane >> 3);
   const float qx = centre(x0 + px), qy = centre(y0 + py);
   const int K = p.Kt + p.Kb;
   const unsigned lt = (1u << lane) - 1u;
@@ -263,13 +291,18 @@ raster_select_kernel(Params p) {
     const int j = k0 + tid;
     float c[12];
     unsigned m = 0;
-    if (tid < C && coeffs(p, slot_id(p, t, j), c)) m = block_mask(c, x0, y0);
+    if (tid < C && coeffs(p, slot_id(p, t, j), c))
+      m = block_mask<kTile>(c, x0, y0);
     const unsigned live = __ballot_sync(0xffffffffu, m != 0);
-    int off[kBlocks];
+    int off[kRegOff ? kBlocks : 1];
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) {
       const unsigned bb = __ballot_sync(0xffffffffu, (m >> b) & 1u);
-      off[b] = __popc(bb & lt);
+      if constexpr (kRegOff) {
+        off[b] = __popc(bb & lt);
+      } else {
+        if (lane == 0) wbal[b][warp] = bb;
+      }
       if (lane == 0) wblk[b][warp] = __popc(bb);
     }
     if (lane == 0) wlive[warp] = __popc(live);
@@ -288,7 +321,9 @@ raster_select_kernel(Params p) {
 #pragma unroll
       for (int b = 0; b < kBlocks; ++b) {
         if ((m >> b) & 1u) {
-          int q = off[b];
+          int q;
+          if constexpr (kRegOff) q = off[b];
+          else q = __popc(wbal[b][warp] & lt);
           for (int w = 0; w < warp; ++w) q += wblk[b][w];
           blist[b][q] = (unsigned short)pos;
         }
@@ -320,7 +355,7 @@ raster_select_kernel(Params p) {
   }
 
   const int pix = py * kTile + px;
-  if (S > 1) {
+  if constexpr (S > 1) {
     // (4) combine the block's S partial winners: smaller key, then lower
     // index (the float compare holds -0.0 == +0.0, as the scan does)
     if (split > 0) {
@@ -357,8 +392,8 @@ raster_select_kernel(Params p) {
 extern "C" int mvedit_raster_select(
     const void* pts, const void* faces, long long F, const void* tris,
     const void* valid, int T, int Kt, const void* big_tris,
-    const void* big_valid, int Kb, int tiles_x, int cull, int splits,
-    void* best, void* key, void* face, void* stream) {
+    const void* big_valid, int Kb, int tiles_x, int cull, int tile,
+    int splits, void* best, void* key, void* face, void* stream) {
   Params p;
   p.pts = static_cast<const float*>(pts);
   p.faces = static_cast<const long long*>(faces);
@@ -374,11 +409,17 @@ extern "C" int mvedit_raster_select(
   if (T <= 0 || Kt < 0 || Kb < 0 || tiles_x <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (splits) {
-    case 1: raster_select_kernel<1><<<T, kPix, 0, s>>>(p); break;
-    case 2: raster_select_kernel<2><<<T, 2 * kPix, 0, s>>>(p); break;
-    case 4: raster_select_kernel<4><<<T, 4 * kPix, 0, s>>>(p); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (tile == 16) {
+    switch (splits) {
+      case 1: raster_select_kernel<16, 1><<<T, 256, 0, s>>>(p); break;
+      case 2: raster_select_kernel<16, 2><<<T, 512, 0, s>>>(p); break;
+      case 4: raster_select_kernel<16, 4><<<T, 1024, 0, s>>>(p); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (tile == 32 && splits == 1) {
+    raster_select_kernel<32, 1><<<T, 1024, 0, s>>>(p);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

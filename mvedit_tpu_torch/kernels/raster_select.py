@@ -4,24 +4,27 @@ versions.
 `raster_select(pts, faces, tile_tris, tile_valid, tile, tiles_x,
 cull_backface, big_tris, big_valid)` is the counterpart of
 `mvedit_tpu/models/mesh/select_pallas.py::select_pallas` together with its
-coefficient pass `prepare_coeffs`. Each screen tile (16 x 16 pixels, pixel
-centres at +0.5) has a candidate axis: its bin list (tile_tris (T, Kt))
+coefficient pass `prepare_coeffs`. Each screen tile (tile x tile pixels,
+pixel centres at +0.5) has a candidate axis: its bin list (tile_tris (T, Kt))
 followed by the global big list (big_tris (Kb,), shared by every tile; an
 index >= Kt points into it). Per pixel it evaluates three sign-folded edge
 functions and the screen-space 1/z plane, affine in the pixel, and keeps
 the covering candidate with the largest 1/z; ties go to the lowest
-candidate index. It returns (best (T, 256) int32 index into the candidate
-axis, key (T, 256) float32 = -1/z of the winner, face (T, 256) int64 face
-id of the winner), with 0, 3e38 and -1 where nothing covers the pixel. It
+candidate index. It returns (best (T, tile^2) int32 index into the
+candidate axis, key (T, tile^2) float32 = -1/z of the winner, face
+(T, tile^2) int64 face id of the winner), with 0, 3e38 and -1 where
+nothing covers the pixel. It
 is not differentiable: gradients come from the winner recompute in
 `rasterize._winner_outputs`.
 
 - CUDA tensors launch `csrc/raster_select.cu` (sm_90a), built with nvcc at
-  first use into `_build/` and bound through ctypes. A build or launch
-  failure raises; nothing falls back.
+  first use into `_build/` and bound through ctypes, at the tiles it takes
+  (`TILES`: 16, and 32 for texture superres's 2048^2 bake). A build or
+  launch failure, or another tile, raises; nothing falls back.
 - CPU tensors take `raster_select_reference`, the plain version of the
   same interface, which concatenates the lists and runs `select_reference`,
-  the plain version of the TPU kernel's own interface (one (T, K) list).
+  the plain version of the TPU kernel's own interface (one (T, K) list),
+  at any tile, as the reference does.
 
 Both evaluate the coefficients and the affine tests op by op in the same
 order with IEEE rounding (the kernel builds without FMA contraction), so on
@@ -30,7 +33,8 @@ the card the kernel's ids and keys equal the plain version's bit for bit.
 `plan(...)` says on the host alone (CPU and `meta` tensors too) whether the
 kernel reads the inputs as they are ("direct": float32 pts, int64 faces
 and ids, bool masks, each contiguous: what `rasterize` hands it) or from
-converted copies ("staged"), and raises for what it does not take.
+converted copies ("staged"), and raises for what it does not take (on a
+CPU tensor, any tile).
 `raster_select.launches` counts kernel launches and `raster_select.staged`
 the launches that needed the copies (0 on the paths). `block_masks` is the
 plain version of the kernel's per-warp reject, used to count its work.
@@ -45,10 +49,10 @@ import torch
 
 __all__ = ["raster_select", "raster_select_reference", "select_reference",
            "prepare_coeffs", "block_masks", "plan", "launch", "splits_for",
-           "build", "compile_source", "load_library", "BIG", "TILE"]
+           "build", "compile_source", "load_library", "BIG", "TILES"]
 
 BIG = 3.0e38                 # key of a pixel that nothing covers
-TILE = 16                    # the kernel's tile edge in pixels
+TILES = (16, 32)             # the kernel's tile edges in pixels
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_HERE), "csrc", "raster_select.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -148,24 +152,25 @@ def raster_select_reference(pts, faces, tile_tris, tile_valid, tile,
     return best, key, face
 
 
-def block_masks(co, tiles_x, tile_ids=None):
+def block_masks(co, tiles_x, tile_ids=None, tile=16):
     """The plain version of the kernel's per-warp reject: for coefficients
-    `co` (T, K, 12) from `prepare_coeffs`, a (T, K, 8) bool, True where
-    candidate k may cover a pixel of warp block b of its tile (8 x 4
-    pixels at (8 (b % 2), 4 (b / 2))). Each edge is evaluated, with the
-    selection's own rounding, at the block corner where it is largest;
-    invalid and degenerate candidates ((0, 0, -1) edges) get no block.
-    `tile_ids` (T,) are the tiles' indices (default 0..T-1)."""
+    `co` (T, K, 12) from `prepare_coeffs`, a (T, K, tile^2 / 32) bool, True
+    where candidate k may cover a pixel of warp block b of its tile (8 x 4
+    pixels at (8 (b % bx), 4 (b / bx)), bx = tile / 8). Each edge is
+    evaluated, with the selection's own rounding, at the block corner where
+    it is largest; invalid and degenerate candidates ((0, 0, -1) edges) get
+    no block. `tile_ids` (T,) are the tiles' indices (default 0..T-1)."""
     T = co.shape[0]
     t = torch.arange(T, device=co.device) if tile_ids is None else tile_ids
-    x0 = ((t % tiles_x) * TILE)[:, None]                    # (T, 1)
-    y0 = ((t // tiles_x) * TILE)[:, None]
-    b = torch.arange(8, device=co.device)
+    x0 = ((t % tiles_x) * tile)[:, None]                    # (T, 1)
+    y0 = ((t // tiles_x) * tile)[:, None]
+    bx = tile // 8
+    b = torch.arange(tile * tile // 32, device=co.device)
     out = None
     for e in range(3):
         al, be, ga = (co[..., 3 * e + i, None] for i in range(3))   # (T,K,1)
-        cx = (x0 + 8 * (b % 2))[:, None, :] + torch.where(al >= 0, 7, 0)
-        cy = (y0 + 4 * (b // 2))[:, None, :] + torch.where(be >= 0, 3, 0)
+        cx = (x0 + 8 * (b % bx))[:, None, :] + torch.where(al >= 0, 7, 0)
+        cy = (y0 + 4 * (b // bx))[:, None, :] + torch.where(be >= 0, 3, 0)
         w = al * (cx.float() + 0.5) + be * (cy.float() + 0.5) + ga
         out = w >= 0 if out is None else out & (w >= 0)
     return out
@@ -199,7 +204,7 @@ def load_library(lib):
     lib = ctypes.CDLL(lib)
     fn = lib.mvedit_raster_select
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, ctypes.c_longlong, p, p, i, i, p, p, i, i, i, i,
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p, i, i, p, p, i, i, i, i, i,
                    p, p, p, p]
     fn.restype = i
     return lib
@@ -222,7 +227,8 @@ def plan(pts, faces, tile_tris, tile_valid, tile, big_tris=None,
          big_valid=None):
     """"direct" or "staged" for the kernel, decided from shapes, dtypes,
     devices and layouts alone; raises ValueError or TypeError for inputs
-    it does not take. The path's inputs take the first test."""
+    it does not take (a tile outside `TILES` only off the CPU, whose plain
+    version takes any). The path's inputs take the first test."""
     big = big_tris is not None
     if big != (big_valid is not None):
         raise ValueError("give both big_tris and big_valid, or neither")
@@ -235,11 +241,11 @@ def plan(pts, faces, tile_tris, tile_valid, tile, big_tris=None,
     if big and (big_tris.dim() != 1 or big_valid.shape != big_tris.shape):
         raise ValueError(f"bad big list: {tuple(big_tris.shape)}, "
                          f"{tuple(big_valid.shape)}")
-    if tile != TILE:
-        raise ValueError(f"tile {tile}: the kernel's tiles are {TILE}^2")
     ids = (faces, tile_tris, big_tris) if big else (faces, tile_tris)
     masks = (tile_valid, big_valid) if big else (tile_valid,)
     dev = pts.device
+    if tile not in TILES and dev.type != "cpu":
+        raise ValueError(f"tile {tile}: the kernel's tiles are {TILES}")
     if any(x.device != dev for x in ids + masks):
         raise ValueError("all inputs must be on one device")
     if ts[1] + (big_tris.shape[0] if big else 0) >= 2 ** 31 \
@@ -265,13 +271,14 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits_for(T, sms):
+def splits_for(T, sms, tile=16):
     """Warps per 8 x 4 pixel block, from the tile count T and the card's
     `sms` SMs (measured on the H100 with `chip_smoke.py --ab`, PERF.md):
     1 (8-warp CTAs) at 16 tiles per SM or more (the 1024^2 bake), 2 from
     4 per SM (the 512^2 renders), else 4 (the 128^2 and 256^2 ramp), the
-    block's candidates taken in turns."""
-    if T >= 16 * sms:
+    block's candidates taken in turns. A 32 x 32 tile's CTA has 1024
+    threads at one split, the most a CTA may have."""
+    if tile == 32 or T >= 16 * sms:
         return 1
     return 2 if T >= 4 * sms else 4
 
@@ -299,19 +306,19 @@ def launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
         raster_select.staged += 1
     T, Kt = tile_tris.shape
     Kb = 0 if big_tris is None else big_tris.shape[0]
-    best = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
-    key = torch.empty((T, TILE * TILE), dtype=torch.float32, device=dev)
-    face = torch.empty((T, TILE * TILE), dtype=torch.int64, device=dev)
+    best = torch.empty((T, tile * tile), dtype=torch.int32, device=dev)
+    key = torch.empty((T, tile * tile), dtype=torch.float32, device=dev)
+    face = torch.empty((T, tile * tile), dtype=torch.int64, device=dev)
     if T == 0:
         return best, key, face
     lib = build() if lib is None else lib
     if splits is None:
-        splits = splits_for(T, _sm_count(dev.index))
+        splits = splits_for(T, _sm_count(dev.index), tile)
     args = (pts.data_ptr(), faces.data_ptr(), faces.shape[0],
             tile_tris.data_ptr(), tile_valid.data_ptr(), T, Kt,
             None if big_tris is None else big_tris.data_ptr(),
             None if big_valid is None else big_valid.data_ptr(), Kb,
-            tiles_x, int(cull_backface), splits, best.data_ptr(),
+            tiles_x, int(cull_backface), tile, splits, best.data_ptr(),
             key.data_ptr(), face.data_ptr())
     # the launch goes to the runtime's current device: switch only when
     # the tensors lie on another
@@ -331,8 +338,8 @@ def raster_select(pts, faces, tile_tris, tile_valid, tile, tiles_x,
                   cull_backface=False, big_tris=None, big_valid=None):
     """pts (V, 3) pixel-space (u, v, z) float, faces (F, 3) int, tile_tris
     (T, Kt) int ids into faces, tile_valid (T, Kt) bool, and the optional
-    big list big_tris / big_valid (Kb,) -> (best (T, 256) int32, key
-    (T, 256) float32, face (T, 256) int64), see module doc."""
+    big list big_tris / big_valid (Kb,) -> (best (T, tile^2) int32, key
+    (T, tile^2) float32, face (T, tile^2) int64), see module doc."""
     if pts.device.type == "cpu":
         plan(pts, faces, tile_tris, tile_valid, tile, big_tris, big_valid)
         return raster_select_reference(pts, faces, tile_tris, tile_valid,

@@ -13,8 +13,10 @@ reference does:
   D=512 mid-attention) to plain matmul attention.
 
 `AttnMode` keeps the reference's fields. This port implements joint
-(cross-view) self-attention; IP-Adapter tokens and zero123++ reference
-attention raise until their slices are ported.
+(cross-view) self-attention and IP-Adapter's decoupled cross-attention
+(`ip_to_k` / `ip_to_v` over the image tokens, added with `ip_scale`; its 4
+or 16 keys route to the plain attention); zero123++ reference attention
+raises until its slice is ported.
 """
 from dataclasses import dataclass
 
@@ -101,17 +103,21 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         ctx_dim = query_dim if context_dim is None else context_dim
         self.is_self = context_dim is None
+        self.ctx_dim = ctx_dim
         self.heads, self.dim_head = heads, dim_head
         self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_out = nn.ModuleList([Dense(inner, query_dim, dtype=dtype)])
 
-    def forward(self, x, context=None, mode=AttnMode()):
-        """x: (B, L, C); context: (B, Lc, Cc), or None for self-attention."""
-        if mode.ip_tokens > 0 or mode.reference != "none":
+    def forward(self, x, context=None, mode=AttnMode(), ip_context=None):
+        """x: (B, L, C); context: (B, Lc, Cc), or None for self-attention;
+        ip_context: (B, T, Cc) image tokens for a cross-attention with
+        IP branches (`ip_adapter.add_ip_branches`) when mode.ip_tokens >
+        0."""
+        if mode.reference != "none":
             raise NotImplementedError(
-                "IP-Adapter and reference attention are not ported yet")
+                "reference attention is not ported yet")
         B, L, C = x.shape
         joint = context is None and mode.num_views > 1
         if joint:
@@ -125,8 +131,14 @@ class CrossAttention(nn.Module):
                              self.dim_head)
 
         out = dot_product_attention(split(q), split(k), split(v))
-        out = out.reshape(B, L, self.heads * self.dim_head)
-        return self.to_out[0](out)
+        out = out.reshape(q.shape[0], q.shape[1], self.heads * self.dim_head)
+        if not self.is_self and mode.ip_tokens > 0 \
+                and ip_context is not None:
+            ip_out = dot_product_attention(
+                split(q), split(self.ip_to_k(ip_context)),
+                split(self.ip_to_v(ip_context)))
+            out = out + mode.ip_scale * ip_out.reshape(out.shape)
+        return self.to_out[0](out.reshape(B, L, -1))
 
 
 class _GEGLU(nn.Module):
@@ -163,9 +175,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.ff = FeedForward(dim, dtype=dtype)
 
-    def forward(self, x, context, mode=AttnMode()):
+    def forward(self, x, context, mode=AttnMode(), ip_context=None):
         x = x + self.attn1(self.norm1(x), None, mode)
-        x = x + self.attn2(self.norm2(x), context, mode)
+        x = x + self.attn2(self.norm2(x), context, mode, ip_context)
         return x + self.ff(self.norm3(x))
 
 
@@ -187,7 +199,7 @@ class Transformer2D(nn.Module):
             BasicTransformerBlock(channels, heads, dim_head, context_dim,
                                   dtype) for _ in range(depth)])
 
-    def forward(self, x, context, mode=AttnMode()):
+    def forward(self, x, context, mode=AttnMode(), ip_context=None):
         B, C, H, W = x.shape
         h = self.norm(x)
         if self.use_linear:
@@ -195,7 +207,7 @@ class Transformer2D(nn.Module):
         else:
             h = self.proj_in(h).permute(0, 2, 3, 1).reshape(B, H * W, C)
         for blk in self.transformer_blocks:
-            h = blk(h, context, mode)
+            h = blk(h, context, mode, ip_context)
         if self.use_linear:
             h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
         else:

@@ -1,19 +1,25 @@
-"""CLIP text encoder.
+"""CLIP text and vision encoders.
 
-Counterpart of `mvedit_tpu/models/diffusion/clip.py::CLIPTextModel`, with
-transformers' `CLIPTextModel` parameter names (`text_model.*`). Causal
-self-attention; quick_gelu for SD1.5. LayerNorm eps is flax's 1e-6, as in
-the reference. The vision tower is not ported yet.
+Counterpart of `mvedit_tpu/models/diffusion/clip.py`, with transformers'
+parameter names: `CLIPTextModel` (`text_model.*`; causal self-attention,
+quick_gelu for SD1.5) and `CLIPVisionModel`, the image tower with its
+projection that IP-Adapter encodes image prompts with
+(`vision_model.*`, `visual_projection`, as transformers'
+`CLIPVisionModelWithProjection`). LayerNorm eps is flax's 1e-6, as in the
+reference. The vision tower's attention goes through the diffusion
+models' `dot_product_attention`, as the reference's does.
 """
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
-from .layers import Dense
+from .attention import dot_product_attention
+from .layers import Conv, Dense
 from .norm import LayerNorm
 
-__all__ = ["CLIPTextConfig", "CLIPTextModel", "SD15_TEXT"]
+__all__ = ["CLIPTextConfig", "CLIPTextModel", "SD15_TEXT",
+           "CLIPVisionConfig", "CLIPVisionModel", "IPADAPTER_VISION"]
 
 
 @dataclass(frozen=True)
@@ -29,6 +35,25 @@ class CLIPTextConfig:
 
 
 SD15_TEXT = CLIPTextConfig()
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    projection_dim: int = 768
+    act: str = "quick_gelu"
+    dtype: torch.dtype = torch.float32
+
+
+# OpenCLIP ViT-H/14, the tower IP-Adapter's checkpoints were trained with
+IPADAPTER_VISION = CLIPVisionConfig(
+    image_size=224, patch_size=14, hidden_size=1280, intermediate_size=5120,
+    num_layers=32, num_heads=16, projection_dim=1024, act="gelu")
 
 
 def _act(name, x):
@@ -63,7 +88,7 @@ class _MLP(nn.Module):
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg):
         super().__init__()
         dt = cfg.dtype
         self.heads, self.act = cfg.num_heads, cfg.act
@@ -72,7 +97,7 @@ class CLIPLayer(nn.Module):
         self.layer_norm2 = LayerNorm(cfg.hidden_size, dtype=dt)
         self.mlp = _MLP(cfg.hidden_size, cfg.intermediate_size, dt)
 
-    def forward(self, x):
+    def forward(self, x, causal=True):
         B, L, C = x.shape
         a = self.self_attn
         h = self.layer_norm1(x)
@@ -80,8 +105,9 @@ class CLIPLayer(nn.Module):
         def split(t):
             return t.reshape(B, L, self.heads, C // self.heads)
 
-        o = causal_attention(split(a.q_proj(h)), split(a.k_proj(h)),
-                             split(a.v_proj(h))).reshape(B, L, C)
+        attend = causal_attention if causal else dot_product_attention
+        o = attend(split(a.q_proj(h)), split(a.k_proj(h)),
+                   split(a.v_proj(h))).reshape(B, L, C)
         x = x + a.out_proj(o)
         h = self.mlp.fc1(self.layer_norm2(x))
         return x + self.mlp.fc2(_act(self.act, h))
@@ -126,8 +152,62 @@ class CLIPTextModel(nn.Module):
         x = (emb.token_embedding.weight[input_ids].to(cfg.dtype)
              + emb.position_embedding.weight[:L][None].to(cfg.dtype))
         for i, layer in enumerate(tm.encoder.layers):
-            x = layer(x)
+            x = layer(x, causal=True)
             if output_hidden_state_index is not None \
                     and i == cfg.num_layers + output_hidden_state_index:
                 return x
         return tm.final_layer_norm(x)
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        n = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = Conv(3, cfg.hidden_size, cfg.patch_size,
+                                    stride=cfg.patch_size, bias=False,
+                                    dtype=cfg.dtype)
+        self.position_embedding = nn.Embedding(n, cfg.hidden_size)
+
+
+class _VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = LayerNorm(cfg.hidden_size, dtype=cfg.dtype)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = LayerNorm(cfg.hidden_size, dtype=cfg.dtype)
+
+
+class CLIPVisionModel(nn.Module):
+    """The CLIP image tower with its projection."""
+
+    def __init__(self, cfg: CLIPVisionConfig = IPADAPTER_VISION):
+        super().__init__()
+        self.cfg = cfg
+        self.vision_model = _VisionTransformer(cfg)
+        self.visual_projection = Dense(cfg.hidden_size, cfg.projection_dim,
+                                       bias=False, dtype=cfg.dtype)
+
+    def forward(self, pixel_values, return_hidden=False):
+        """pixel_values: (B, H, W, 3) CLIP-normalised -> image embeds
+        (B, projection_dim), or with `return_hidden` the penultimate
+        layer's hidden states (B, 1 + P, hidden) (IP-Adapter-plus's
+        Resampler input)."""
+        cfg, vm = self.cfg, self.vision_model
+        emb = vm.embeddings
+        B = pixel_values.shape[0]
+        patches = emb.patch_embedding(pixel_values.permute(0, 3, 1, 2))
+        patches = patches.flatten(2).transpose(1, 2)          # (B, P, C)
+        cls = emb.class_embedding.to(patches.dtype).expand(B, 1, -1)
+        x = torch.cat([cls, patches], 1)
+        x = x + emb.position_embedding.weight.to(x.dtype)[None]
+        x = vm.pre_layrnorm(x)
+        hidden = None
+        for i, layer in enumerate(vm.encoder.layers):
+            if return_hidden and i == cfg.num_layers - 1:
+                hidden = x          # the penultimate layer's output
+            x = layer(x, causal=False)
+        if return_hidden:
+            return hidden
+        return self.visual_projection(vm.post_layernorm(x[:, 0]))

@@ -173,21 +173,22 @@ class _MidBlock(nn.Module):
         self.attentions = nn.ModuleList([_transformer(cfg, ch)])
 
 
-def run_encoder(down_blocks, mid_block, h, temb, ehs, mode):
-    """Down blocks and mid block (shared by the UNet and the ControlNet).
-    Returns (h, skip residuals)."""
+def run_encoder(down_blocks, mid_block, h, temb, ehs, mode,
+                ip_context=None):
+    """Down blocks and mid block (shared by the UNet and the ControlNet,
+    which passes no image tokens). Returns (h, skip residuals)."""
     residuals = [h]
     for blk in down_blocks:
         for li, res in enumerate(blk.resnets):
             h = res(h, temb)
             if hasattr(blk, "attentions"):
-                h = blk.attentions[li](h, ehs, mode)
+                h = blk.attentions[li](h, ehs, mode, ip_context)
             residuals.append(h)
         if hasattr(blk, "downsamplers"):
             h = blk.downsamplers[0](h)
             residuals.append(h)
     h = mid_block.resnets[0](h, temb)
-    h = mid_block.attentions[0](h, ehs, mode)
+    h = mid_block.attentions[0](h, ehs, mode, ip_context)
     return mid_block.resnets[1](h, temb), residuals
 
 
@@ -195,11 +196,14 @@ class UNet2DCondition(nn.Module):
     """Conditional UNet.
 
     forward(sample, timesteps, encoder_hidden_states, part='all'|'enc'|'dec',
-    mode, down_block_res, mid_block_res, enc_state):
+    mode, down_block_res, mid_block_res, enc_state, ip_context):
     - 'all': epsilon (B, H, W, out) f32;
     - 'enc': dict(h, residuals, temb, ehs), the encoder state;
     - 'dec': consumes `enc_state` plus optional ControlNet residuals
-      (NHWC, added to the skips and the mid output).
+      (NHWC, added to the skips and the mid output);
+    - ip_context (B, T, C): IP-Adapter image tokens for every
+      cross-attention (given to both parts), with mode.ip_tokens > 0 and
+      the branches of `ip_adapter.add_ip_branches`.
     """
 
     def __init__(self, cfg: UNetConfig = SD15_UNET):
@@ -224,19 +228,24 @@ class UNet2DCondition(nn.Module):
         self.conv_out = Conv(boc[0], cfg.out_channels, 3, padding=1,
                              dtype=torch.float32)
 
-    def encode(self, sample, timesteps, ehs, mode=AttnMode()):
+    def encode(self, sample, timesteps, ehs, mode=AttnMode(),
+               ip_context=None):
         cfg, dt = self.cfg, self.cfg.dtype
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dt))
         h = self.conv_in(nhwc_to_nchw(sample).to(dt))
         ehs = ehs.to(dt)
+        if ip_context is not None:
+            ip_context = ip_context.to(dt)
         h, residuals = run_encoder(self.down_blocks, self.mid_block, h, temb,
-                                   ehs, mode)
+                                   ehs, mode, ip_context)
         return {"h": h, "residuals": residuals, "temb": temb, "ehs": ehs}
 
     def decode(self, enc_state, mode=AttnMode(), down_block_res=None,
-               mid_block_res=None):
+               mid_block_res=None, ip_context=None):
         dt = self.cfg.dtype
+        if ip_context is not None:
+            ip_context = ip_context.to(dt)
         h, temb, ehs = enc_state["h"], enc_state["temb"], enc_state["ehs"]
         residuals = list(enc_state["residuals"])
         if down_block_res is not None:
@@ -248,7 +257,7 @@ class UNet2DCondition(nn.Module):
             for li, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, residuals.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[li](h, ehs, mode)
+                    h = blk.attentions[li](h, ehs, mode, ip_context)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
         h = F.silu(self.conv_norm_out(h))
@@ -256,13 +265,14 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, part="all",
                 mode=AttnMode(), down_block_res=None, mid_block_res=None,
-                enc_state=None):
+                enc_state=None, ip_context=None):
         if part == "dec":
             if enc_state is None:
                 raise ValueError("part='dec' needs enc_state")
         else:
             enc_state = self.encode(sample, timesteps, encoder_hidden_states,
-                                    mode)
+                                    mode, ip_context)
             if part == "enc":
                 return enc_state
-        return self.decode(enc_state, mode, down_block_res, mid_block_res)
+        return self.decode(enc_state, mode, down_block_res, mid_block_res,
+                           ip_context)

@@ -1,27 +1,155 @@
-"""Weight bridge: a flax parameter tree -> a diffusers-keyed state dict.
+"""Checkpoint loading and the weight bridge.
 
-`torch_state_from_flax(tree, kind)` is the exact inverse of the reference's
-checkpoint converters (`mvedit_tpu/models/diffusion/weights.py`
-`convert_unet`, `convert_controlnet`, `convert_vae`, `convert_clip_text`):
-applied to its output they give back the same tree. The port's modules use
-diffusers' key names, so `module.load_state_dict(state)` takes the result
-as it is.
+Counterpart of `mvedit_tpu/models/diffusion/weights.py`. The port's modules
+use diffusers' and transformers' key names, so a checkpoint's state dict
+goes into them with `load_state_dict` as it is:
+
+- `load_torch_state(path)`: a `.safetensors`, `.bin` or `.pt` file (or a
+  `huggingface://` reference to one in the local cache) -> {key: tensor}.
+  Safetensors files are read without the `safetensors` package: an 8-byte
+  little-endian header length, a JSON header of dtypes, shapes and byte
+  ranges, then the raw little-endian data.
+- `convert_clip_vision(sd)`: a transformers CLIP vision state dict -> the
+  keys `CLIPVisionModel` takes, and the unmatched ones.
+- `convert_ip_adapter(sd, cfg)`: an IP-Adapter checkpoint (`image_proj.*` +
+  `ip_adapter.{i}.to_{k,v}_ip.weight`) -> (ImageProjModel state, the UNet's
+  `ip_to_k` / `ip_to_v` state, unmatched).
+- `torch_state_from_flax(tree, kind)`: the exact inverse of the reference's
+  flax converters (`convert_unet`, `convert_controlnet`, `convert_vae`,
+  `convert_clip_text`, `convert_clip_vision`, and the IP-Adapter trees of
+  its `ip_adapter.npz`): applied to their output it gives the state dict
+  they were converted from, in the port's keys.
 
 Layout rules (inverted): kernel (I, O) -> weight (O, I); kernel HWIO ->
 weight OIHW; scale -> weight; embedding -> weight.
 """
+import json
 import re
 
 import numpy as np
 import torch
 
-__all__ = ["torch_state_from_flax", "flatten"]
+__all__ = ["torch_state_from_flax", "flatten", "load_torch_state",
+           "read_safetensors", "convert_clip_vision", "convert_ip_adapter",
+           "attn2_keys"]
+
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
+              "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+              "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def read_safetensors(path):
+    """{key: tensor} of a `.safetensors` file, read by hand."""
+    with open(path, "rb") as f:
+        data = f.read()
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n].decode("utf-8"))
+    base = 8 + n
+    out = {}
+    for key, info in header.items():
+        if key == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: dtype {info['dtype']} of {key!r} "
+                             f"is not supported")
+        a, b = info["data_offsets"]
+        dt = _ST_DTYPES[info["dtype"]]
+        # a copy of the tensor's bytes: its offset need not be aligned
+        buf = bytearray(data[base + a:base + b])
+        t = torch.frombuffer(buf, dtype=dt) if buf else \
+            torch.empty((0,), dtype=dt)
+        out[key] = t.reshape(info["shape"])
+    return out
+
+
+def load_torch_state(path):
+    """A `.safetensors` / `.bin` / `.pt` checkpoint -> {key: tensor} on the
+    CPU; a `state_dict` entry is unwrapped. Accepts `huggingface://`
+    references, resolved against the local cache (`utils/hub.py`)."""
+    from ...utils.hub import is_hub_path, resolve_checkpoint
+    if is_hub_path(path):
+        path = resolve_checkpoint(path)
+    if str(path).endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def convert_clip_vision(sd):
+    """A transformers CLIP vision state dict (`vision_model.*`,
+    `visual_projection.weight`) -> (the state `CLIPVisionModel` takes,
+    unmatched keys). Position-id buffers are dropped, as the reference
+    drops them."""
+    state, unmatched = {}, []
+    for k, v in sd.items():
+        if "position_ids" in k:
+            continue
+        if k.startswith(("vision_model.", "visual_projection.")):
+            state[k] = v
+        else:
+            unmatched.append(k)
+    return state, unmatched
+
+
+def attn2_keys(cfg):
+    """The port's key prefix of each UNet cross-attention, in the order the
+    IP-Adapter checkpoint numbers its `ip_adapter.{i}` entries (diffusers'
+    attention processors: down blocks, then up blocks, then mid)."""
+    keys = []
+    n = len(cfg.block_out_channels)
+    depth = getattr(cfg, "transformer_depth", 1)
+
+    def tb(base):
+        keys.extend(f"{base}.transformer_blocks.{d}.attn2"
+                    for d in range(depth))
+    for bi in range(n):
+        if cfg.attn_down[bi]:
+            for li in range(cfg.layers_per_block):
+                tb(f"down_blocks.{bi}.attentions.{li}")
+    for ui, bi in enumerate(reversed(range(n))):
+        if cfg.attn_down[bi]:
+            for li in range(cfg.layers_per_block + 1):
+                tb(f"up_blocks.{ui}.attentions.{li}")
+    tb("mid_block.attentions.0")
+    return keys
+
+
+def convert_ip_adapter(sd, cfg):
+    """An IP-Adapter checkpoint (h94/IP-Adapter `ip-adapter_sd15.bin`
+    layout) -> (ImageProjModel state, UNet state of the `ip_to_k` /
+    `ip_to_v` branches, unmatched). The `ip_adapter.{i}` entries are
+    numbered over all attention processors; they go to the
+    cross-attentions in `attn2_keys` order."""
+    proj, unmatched, entries = {}, [], {}
+    for k, v in sd.items():
+        m = re.match(r"ip_adapter\.(\d+)\.to_([kv])_ip\.weight$", k)
+        if k.startswith("image_proj."):
+            proj[k[len("image_proj."):]] = v
+        elif m:
+            entries.setdefault(int(m.group(1)), {})[m.group(2)] = v
+        else:
+            unmatched.append(k)
+    keys = attn2_keys(cfg)
+    ids = sorted(entries)
+    if len(ids) != len(keys):
+        unmatched.append(f"ip_adapter entry count {len(ids)} != "
+                         f"cross-attention count {len(keys)}")
+    unet = {}
+    for i, key in zip(ids, keys):
+        unet[f"{key}.ip_to_k.weight"] = entries[i]["k"]
+        unet[f"{key}.ip_to_v.weight"] = entries[i]["v"]
+    return proj, unet, unmatched
 
 # inner attention-tower paths (the reference's _ATTN_INNER, inverted)
 _ATTN_INNER = [
     (r"transformer_blocks_(\d+)/(attn[12])/to_out_0",
      r"transformer_blocks.\1.\2.to_out.0"),
     (r"transformer_blocks_(\d+)/(attn[12])/(to_[qkv])",
+     r"transformer_blocks.\1.\2.\3"),
+    (r"transformer_blocks_(\d+)/(attn2)/(ip_to_[kv])",
      r"transformer_blocks.\1.\2.\3"),
     (r"transformer_blocks_(\d+)/ff/net_0_proj",
      r"transformer_blocks.\1.ff.net.0.proj"),
@@ -82,11 +210,45 @@ _CLIP_TEXT = [
     (r"final_layer_norm", r"text_model.final_layer_norm"),
 ]
 
+_CLIP_VISION = [
+    (r"layers_(\d+)/([qkv]_proj|out_proj)",
+     r"vision_model.encoder.layers.\1.self_attn.\2"),
+    (r"layers_(\d+)/layer_norm([12])",
+     r"vision_model.encoder.layers.\1.layer_norm\2"),
+    (r"layers_(\d+)/fc([12])", r"vision_model.encoder.layers.\1.mlp.fc\2"),
+    (r"patch_embedding", r"vision_model.embeddings.patch_embedding"),
+    (r"(pre_layrnorm|post_layernorm)", r"vision_model.\1"),
+    (r"visual_projection", r"visual_projection"),
+]
+
+_IMAGE_PROJ = [(r"(proj|norm)", r"\1")]
+
+_RESAMPLER = [
+    (r"layers_(\d+)_attn/(norm1|norm2|to_q|to_kv|to_out)",
+     r"layers.\1.attn.\2"),
+    (r"layers_(\d+)_ff_(norm|1|2)", r"layers.\1.ff_\2"),
+    (r"(proj_in|proj_out|norm_out)", r"\1"),
+]
+
+# params that are no module's kernel / scale / bias: flax path -> key
+_RAW = {
+    "clip_text": {"position_embedding":
+                  "text_model.embeddings.position_embedding.weight"},
+    "clip_vision": {"position_embedding":
+                    "vision_model.embeddings.position_embedding.weight",
+                    "class_embedding":
+                    "vision_model.embeddings.class_embedding"},
+    "resampler": {"latents": "latents"},
+}
+
 _RULES = {
     "unet": _UNET_BODY,
     "controlnet": _CONTROLNET_EXTRA + _UNET_BODY,
     "vae": _VAE,
     "clip_text": _CLIP_TEXT,
+    "clip_vision": _CLIP_VISION,
+    "image_proj": _IMAGE_PROJ,
+    "resampler": _RESAMPLER,
 }
 
 
@@ -129,13 +291,15 @@ def _leaf(name, arr):
 
 def torch_state_from_flax(tree, kind):
     """Flax params tree (numpy-convertible leaves) of `kind` in {'unet',
-    'controlnet', 'vae', 'clip_text'} -> {diffusers key: torch.Tensor}."""
+    'controlnet', 'vae', 'clip_text', 'clip_vision', 'image_proj',
+    'resampler'} -> {port key: torch.Tensor}."""
     rules = _RULES[kind]
+    raw = _RAW.get(kind, {})
     state = {}
     for path, val in flatten(tree).items():
         arr = np.asarray(val)
-        if kind == "clip_text" and path == "position_embedding":
-            key = "text_model.embeddings.position_embedding.weight"
+        if path in raw:
+            key = raw[path]
         else:
             module, leaf = path.rsplit("/", 1)
             name, arr = _leaf(leaf, arr)

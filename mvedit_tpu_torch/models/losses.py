@@ -9,6 +9,8 @@ torchvision / lpips state dicts map onto it directly.
 Images are NHWC in [0, 1], as in the reference; the VGG runs in the
 params' dtype (the runner keeps bf16 weights at full size).
 """
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -16,7 +18,23 @@ import torch.nn.functional as F
 from ..ops.clip import clip
 
 __all__ = ["l1_loss", "tv_loss", "entropy_loss", "lpips_init", "lpips_apply",
-           "lpips_params_from_flax"]
+           "lpips_params_from_flax", "lpips_params_from_torch",
+           "deterministic_convs"]
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN with deterministic algorithms only, for the fits' backward
+    passes: its heuristics may otherwise pick a backward-data algorithm for
+    LPIPS's convolutions that adds atomically, so that one seed gives two
+    results on the card."""
+    c = torch.backends.cudnn
+    prev = c.deterministic
+    c.deterministic = True
+    try:
+        yield
+    finally:
+        c.deterministic = prev
 
 
 def _weighted_mean(err, weight):
@@ -139,3 +157,27 @@ def lpips_params_from_flax(tree, device=None, dtype=torch.float32):
                               .transpose(3, 2, 0, 1)), "b": t(c["b"])}
                       for c in tree["convs"]],
             "lins": [t(l) for l in tree["lins"]]}
+
+
+def lpips_params_from_torch(vgg_state, lin_state, device=None,
+                            dtype=torch.float32):
+    """A torchvision VGG16 `features` state dict (keys `N.weight` or
+    `features.N.weight`) and the lpips package's five linear heads ((c, 1,
+    1, 1) or (c,)) -> the port's params (the reference's
+    `lpips_params_from_torch`; the conv weights stay OIHW)."""
+    convs, i = [], 0
+    while f"{i}.weight" in vgg_state or f"features.{i}.weight" in vgg_state:
+        pre = f"features.{i}" if f"features.{i}.weight" in vgg_state \
+            else str(i)
+        w = torch.as_tensor(vgg_state[f"{pre}.weight"])
+        if w.dim() == 4:
+            convs.append({"w": w.to(device=device, dtype=dtype),
+                          "b": torch.as_tensor(vgg_state[f"{pre}.bias"]).to(
+                              device=device, dtype=dtype)})
+        i += 1
+        while (f"{i}.weight" not in vgg_state
+               and f"features.{i}.weight" not in vgg_state and i < 40):
+            i += 1
+    lins = [torch.as_tensor(v).reshape(-1).to(device=device, dtype=dtype)
+            for v in lin_state]
+    return {"convs": convs[:13], "lins": lins}

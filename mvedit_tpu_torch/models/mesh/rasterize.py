@@ -11,9 +11,9 @@
 3. **Select**: per pixel, the nearest covering candidate and its face id,
    through `kernels.raster_select` (the hand-written kernel on the card,
    its plain version on the CPU), which reads the bin lists and the big
-   list apart. Selection is discrete and carries no gradient. The
-   selection takes 16 x 16 tiles only (`RasterConfig.tile` stays a field,
-   as in the reference, but any other value raises on every device).
+   list apart. Selection is discrete and carries no gradient. The kernel
+   takes 16 x 16 and 32 x 32 tiles (another `RasterConfig.tile` raises on
+   the card); the plain version takes any, as the reference does.
 4. **Winner outputs**: the winner's perspective-correct barycentrics,
    depth and soft silhouette alpha are recomputed differentiably from
    `pts`, so gradients reach the vertices as nvdiffrast's coverage
@@ -39,7 +39,7 @@ __all__ = ["RasterConfig", "project_mesh", "candidates", "rasterize",
 class RasterConfig:
     height: int = 512
     width: int = 512
-    tile: int = 16          # tile size in pixels: 16, the selection's only
+    tile: int = 16          # tile size in pixels (the kernel's: 16, 32)
     span: int = 4           # max tile span per axis before -> big list
     k_per_tile: int = 256   # candidate capacity per tile
     k_big: int = 64         # global big-triangle list capacity

@@ -23,7 +23,10 @@ def vertex_normals(verts, faces, face_mask=None):
     fn = torch.linalg.cross(v1 - v0, v2 - v0)
     if face_mask is not None:
         fn = fn * face_mask.to(fn.dtype)[:, None]
-    vn = segment_add(faces.reshape(-1), fn.repeat_interleave(3, 0),
+    # each face's normal to its three corners: an expand, whose backward is
+    # a sum (repeat_interleave's is an atomic index_add on the card)
+    vn = segment_add(faces.reshape(-1),
+                     fn[:, None].expand(-1, 3, -1).reshape(-1, 3),
                      verts.shape[0]).to(verts.dtype)
     # rsqrt(sumsq + eps), not x / clip(norm): a zero normal (a vertex no
     # face references) would NaN the gradient through the norm

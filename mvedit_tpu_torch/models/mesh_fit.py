@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.clip import clip
-from ..ops.segment import gather_rows
+from ..ops.segment import gather_rows, segment_add
 from ..ops.tonemapping import Tonemapping
 from . import losses as L
 from .fields import field_leaves
@@ -129,11 +129,13 @@ def normal_consistency_loss(verts, faces, face_mask):
     # otherwise NaN the sdf / deform gradient
     fn = fn * torch.rsqrt((fn * fn).sum(-1, keepdim=True) + 1e-20)
     w = face_mask.to(verts.dtype)
-    vsum = torch.zeros_like(verts)
-    deg = torch.zeros(verts.shape[0], dtype=verts.dtype, device=verts.device)
-    for i in range(3):
-        vsum = vsum.index_add(0, faces[:, i], fn * w[:, None])
-        deg = deg.index_add(0, faces[:, i], w)
+    V = verts.shape[0]
+    # the corners of column 0, then 1, then 2: the order of three
+    # sequential index_adds, kept by the fixed-order sum
+    tgt = faces.t().reshape(-1)
+    fw = (fn * w[:, None]).repeat(3, 1)
+    vsum = segment_add(tgt, torch.cat([fw, w.repeat(3)[:, None]], 1), V)
+    vsum, deg = vsum[:, :3].to(verts.dtype), vsum[:, 3].to(verts.dtype)
     vn = vsum / deg[:, None].clamp(min=1.0)
     vn = vn * torch.rsqrt((vn * vn).sum(-1, keepdim=True) + 1e-20)
     cos = sum((fn * gather_rows(vn, faces[:, i])).sum(-1)
@@ -145,15 +147,18 @@ def laplacian_loss(verts, faces, face_mask, vert_mask):
     """Uniform Laplacian smoothing over the extracted mesh: neighbour sums
     accumulated from the (masked) face buffer."""
     faces = faces.long()
-    w = face_mask.to(verts.dtype)
-    nsum = torch.zeros_like(verts)
-    deg = torch.zeros(verts.shape[0], dtype=verts.dtype, device=verts.device)
+    w = face_mask.to(verts.dtype)[:, None]
+    # each edge (a, b) adds b's position to a and a's to b, edges in the
+    # order of six sequential index_adds, kept by the fixed-order sum
+    tgt, src = [], []
     for a, b in ((0, 1), (1, 2), (2, 0)):
-        ia, ib = faces[:, a], faces[:, b]
-        nsum = nsum.index_add(0, ia, gather_rows(verts, ib) * w[:, None])
-        nsum = nsum.index_add(0, ib, gather_rows(verts, ia) * w[:, None])
-        deg = deg.index_add(0, ia, w)
-        deg = deg.index_add(0, ib, w)
+        tgt += [faces[:, a], faces[:, b]]
+        src += [faces[:, b], faces[:, a]]
+    tgt, src = torch.cat(tgt), torch.cat(src)
+    ws = w.repeat(6, 1)
+    acc = segment_add(tgt, torch.cat([gather_rows(verts, src) * ws, ws], 1),
+                      verts.shape[0])
+    nsum, deg = acc[:, :3].to(verts.dtype), acc[:, 3].to(verts.dtype)
     lap = verts - nsum / deg[:, None].clamp(min=1.0)
     m = (vert_mask & (deg > 0)).to(verts.dtype)
     # sqrt(sumsq + eps): the plain norm's gradient is NaN at lap == 0
@@ -353,7 +358,8 @@ def make_mesh_fit(grid: StructuredTetGrid, color_fn, cfg: MeshFitConfig):
                 draws["patch_oy"][s].long(), draws["patch_ox"][s].long())
             loss = loss_fn(state, batch, reg_ids, sw, topo, lpips_params,
                            crop)
-            loss.backward()
+            with L.deterministic_convs():
+                loss.backward()
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -423,7 +429,8 @@ def make_texture_refine(color_fn, cfg: MeshFitConfig, n_steps: int = 24):
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(field, batch, verts, faces, fmask, sw,
                            lpips_params, crop)
-            loss.backward()
+            with L.deterministic_convs():
+                loss.backward()
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

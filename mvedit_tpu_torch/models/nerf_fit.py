@@ -246,7 +246,8 @@ def make_nerf_fit(point_decode_fn: Callable, cfg: NerfFitConfig,
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(params, grid, patch, draws["jitter"][s], sw,
                            lpips_params if use_lpips else None)
-            loss.backward()
+            with L.deterministic_convs():
+                loss.backward()
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

@@ -11,7 +11,8 @@ masks:
 - `composite`: front-to-back compositing with the exclusive transmittance
   taken as exp of a log-space cumsum with a 1e-10 clip, the reference's
   formula (its gradient differs from `torch.cumprod`'s where an alpha
-  nears 1);
+  nears 1); the cumsum is `scan_sum`, a fixed-order scan on every device
+  (on the card a float `torch.cumsum` has no deterministic algorithm);
 - `OccupancyGrid` / `update_density_grid`: the EMA density grid, refreshed
   at (optionally jittered) cell centres; the jitter is an input too.
 """
@@ -24,7 +25,7 @@ from ..ops.clip import clip
 
 __all__ = ["RenderConfig", "OccupancyGrid", "ray_aabb", "sample_rays",
            "composite", "render_rays", "update_density_grid",
-           "occupancy_at", "tighten_interval"]
+           "occupancy_at", "tighten_interval", "scan_sum"]
 
 
 @dataclass(frozen=True)
@@ -117,6 +118,20 @@ def sample_rays(rays_o, rays_d, cfg: RenderConfig, jitter=None, grid=None):
     return xyz, ts, deltas, valid
 
 
+def scan_sum(x):
+    """`torch.cumsum(x, -1)` for float32 x in a fixed order: a log-step
+    scan (log2 S shifted adds) in float64, cast back once. Its adds and
+    its backward's have one order on every device, where the card's
+    cumsum has no deterministic algorithm; and, as the CPU's cumsum also
+    accumulates in float64, it gives the CPU's cumsum bits in practice
+    (tests/test_torch_volume_renderer.py), values and gradients."""
+    t, s = x.double(), 1
+    while s < t.shape[-1]:
+        t = t + torch.nn.functional.pad(t[..., :-s], (s, 0))
+        s *= 2
+    return t.to(x.dtype)
+
+
 def composite(sigmas, rgbs, ts, deltas, valid, cfg: RenderConfig,
               bg_color=None):
     """Front-to-back compositing with the early stop as a mask.
@@ -127,7 +142,7 @@ def composite(sigmas, rgbs, ts, deltas, valid, cfg: RenderConfig,
                                                     device=sigmas.device))
     alpha = 1.0 - torch.exp(-sigmas * deltas)
     # exclusive cumprod of (1 - alpha) through a log-space cumsum
-    log_t = torch.cumsum(torch.log(clip(1.0 - alpha, 1e-10)), -1)
+    log_t = scan_sum(torch.log(clip(1.0 - alpha, 1e-10)))
     trans = torch.exp(torch.cat([torch.zeros_like(log_t[..., :1]),
                                  log_t[..., :-1]], -1))
     live = trans > cfg.t_thresh

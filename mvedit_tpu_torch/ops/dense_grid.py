@@ -59,16 +59,23 @@ def dense_grid_encode(tables, xyz, cfg: DenseGridConfig):
             else t
         p0i = p0.long()
         side = res + 1
+        # corners in the reference's block order (x slowest, z fastest),
+        # gathered in one call: one sort of the targets in the backward
+        corners = list(product((0, 1), repeat=3))
+        idx = torch.stack([
+            ((p0i[:, 0] + ox).clamp(max=res) * side
+             + (p0i[:, 1] + oy).clamp(max=res)) * side
+            + (p0i[:, 2] + oz).clamp(max=res)
+            for ox, oy, oz in corners], 1)                     # (N, 8)
+        # unbind, not eight slices: its backward is one stack, where each
+        # slice's would be a zero-filled (N, 8, F) gradient to accumulate
+        vals = gather_rows(tab, idx).unbind(1)                 # 8 x (N, F)
         acc = None
-        # corners in the reference's block order (x slowest, z fastest)
-        for ox, oy, oz in product((0, 1), repeat=3):
-            cx, cy, cz = ((p0i[:, a] + o).clamp(max=res)
-                          for a, o in enumerate((ox, oy, oz)))
+        for (ox, oy, oz), val in zip(corners, vals):
             wc = ((w[:, 0] if ox else 1 - w[:, 0])
                   * (w[:, 1] if oy else 1 - w[:, 1])
                   * (w[:, 2] if oz else 1 - w[:, 2]))
-            v = gather_rows(tab, (cx * side + cy) * side + cz).float() \
-                * wc[:, None]
+            v = val.float() * wc[:, None]
             acc = v if acc is None else acc + v
         feats.append(acc)
     return torch.cat(feats, -1).reshape(*batch_shape, cfg.out_dim)

@@ -12,6 +12,9 @@ are NHWC; the CFG batch is [uncond; cond] along the first axis.
   decoder with tile (+ depth) residuals added to p1's.
 - use_reference: the uncond half runs per view, the cond half as
   [reference, target] pairs that self-attend jointly (k=2).
+- ip_context (2N, T, C), [uncond; cond] like the CFG batch: IP-Adapter
+  image tokens for the UNet's cross-attentions (a reference pair's two
+  rows share their view's tokens); the ControlNets never see them.
 """
 from dataclasses import dataclass
 from typing import Tuple
@@ -58,6 +61,14 @@ def _unpair_target(x):
     return x.reshape(x.shape[0] // 2, 2, *x.shape[1:])[:, 1]
 
 
+def _split_ip(ip_context, N):
+    """The (2N, T, C) [uncond; cond] image tokens -> (per-view uncond rows,
+    cond rows repeated for each [reference, target] pair)."""
+    if ip_context is None:
+        return None, None
+    return ip_context[:N], ip_context[N:].repeat_interleave(2, 0)
+
+
 def _pad_pair_residuals(downs, mid):
     """Zero residuals for the reference half of each pair."""
     def pad(r):
@@ -68,11 +79,6 @@ def _pad_pair_residuals(downs, mid):
     return [pad(r) for r in downs], pad(mid)
 
 
-def _no_ip(ip_context):
-    if ip_context is not None:
-        raise NotImplementedError("IP-Adapter conditioning is not ported yet")
-
-
 def make_noise_pred_1pass(models: DenoiseModels):
     """(latents, t, embeds, cond_images, cn_scales, gs, ip_context,
     ref_noisy) -> guided noise pred (N, h, w, 4)."""
@@ -81,26 +87,28 @@ def make_noise_pred_1pass(models: DenoiseModels):
     @torch.inference_mode()
     def noise_pred(latents, t, embeds, cond_images, cn_scales,
                    guidance_scale, ip_context=None, ref_noisy=None):
-        _no_ip(ip_context)
         n = len(models.controlnets)
         downs, mid = apply_multi_controlnet(
             models.controlnets, latents, t, embeds, list(cond_images)[:n],
             list(cn_scales)[:n])
         if models.use_reference and ref_noisy is not None:
             N = latents.shape[0] // 2
+            ip_u, ip_c = _split_ip(ip_context, N)
             eps_u = unet(latents[:N], t[:N], embeds[:N],
+                         mode=models.attn_mode(1), ip_context=ip_u,
                          down_block_res=[r[:N] for r in downs],
                          mid_block_res=mid[:N])
             pd, pm = _pad_pair_residuals([r[N:] for r in downs], mid[N:])
             eps_pairs = unet(_pair(ref_noisy, latents[N:]),
                              t[N:].repeat_interleave(2, 0),
                              embeds[N:].repeat_interleave(2, 0),
-                             mode=AttnMode(num_views=2),
+                             mode=models.attn_mode(2), ip_context=ip_c,
                              down_block_res=pd, mid_block_res=pm)
             eps_c = _unpair_target(eps_pairs)
             return guidance_scale * eps_c + (1 - guidance_scale) * eps_u
         eps = unet(latents, t, embeds, mode=models.attn_mode(),
-                   down_block_res=downs, mid_block_res=mid)
+                   ip_context=ip_context, down_block_res=downs,
+                   mid_block_res=mid)
         return _cfg_combine(eps, guidance_scale)
 
     return noise_pred
@@ -119,11 +127,12 @@ def make_noise_pred_2pass(models: DenoiseModels):
     unet = models.unet
 
     def _ref_split_run(latents, t, embeds, downs, mid, ref_noisy,
-                       guidance_scale, enc_state=None):
+                       guidance_scale, ip_context, enc_state=None):
         """Uncond per view + cond as [ref, target] pairs, CFG-combined.
         Returns (eps, (enc_u, enc_c))."""
         N = latents.shape[0] // 2
-        amode_c = AttnMode(num_views=2)
+        amode_u, amode_c = models.attn_mode(1), models.attn_mode(2)
+        ip_u, ip_c = _split_ip(ip_context, N)
         pair_lat = _pair(ref_noisy, latents[N:])
         t_u, e_u = t[:N], embeds[:N]
         t_c = t[N:].repeat_interleave(2, 0)
@@ -136,15 +145,18 @@ def make_noise_pred_2pass(models: DenoiseModels):
             downs_c, mid_c = _pad_pair_residuals([r[N:] for r in downs],
                                                  mid[N:])
         if enc_state is None:
-            enc_u = unet(latents[:N], t_u, e_u, part="enc")
-            enc_c = unet(pair_lat, t_c, e_c, part="enc", mode=amode_c)
+            enc_u = unet(latents[:N], t_u, e_u, part="enc", mode=amode_u,
+                         ip_context=ip_u)
+            enc_c = unet(pair_lat, t_c, e_c, part="enc", mode=amode_c,
+                         ip_context=ip_c)
         else:
             enc_u, enc_c = enc_state
         eps_u = unet(None, None, None, part="dec", enc_state=enc_u,
-                     down_block_res=downs_u, mid_block_res=mid_u)
+                     mode=amode_u, ip_context=ip_u, down_block_res=downs_u,
+                     mid_block_res=mid_u)
         eps_pairs = unet(None, None, None, part="dec", enc_state=enc_c,
-                         mode=amode_c, down_block_res=downs_c,
-                         mid_block_res=mid_c)
+                         mode=amode_c, ip_context=ip_c,
+                         down_block_res=downs_c, mid_block_res=mid_c)
         eps_c = _unpair_target(eps_pairs)
         eps = guidance_scale * eps_c + (1 - guidance_scale) * eps_u
         return eps, (enc_u, enc_c)
@@ -153,7 +165,6 @@ def make_noise_pred_2pass(models: DenoiseModels):
     def p1(latents, t, embeds, depth_images, depth_scale, guidance_scale,
            ip_context=None, extra_images=(), extra_scales=(),
            ref_noisy=None):
-        _no_ip(ip_context)
         use_depth = depth_images is not None and len(models.controlnets) > 1
         nets, conds, scales = [], [], []
         if use_depth:
@@ -173,19 +184,20 @@ def make_noise_pred_2pass(models: DenoiseModels):
             downs, mid = None, None
         if models.use_reference and ref_noisy is not None:
             eps, enc = _ref_split_run(latents, t, embeds, downs, mid,
-                                      ref_noisy, guidance_scale)
+                                      ref_noisy, guidance_scale, ip_context)
             return eps, enc, (downs, mid)
         mode = models.attn_mode()
-        enc = unet(latents, t, embeds, part="enc", mode=mode)
+        enc = unet(latents, t, embeds, part="enc", mode=mode,
+                   ip_context=ip_context)
         eps = unet(None, None, None, part="dec", enc_state=enc, mode=mode,
-                   down_block_res=downs, mid_block_res=mid)
+                   ip_context=ip_context, down_block_res=downs,
+                   mid_block_res=mid)
         return _cfg_combine(eps, guidance_scale), enc, (downs, mid)
 
     @torch.inference_mode()
     def p2(latents, enc_state, p1_residuals, t, embeds, tile_images,
            depth_images, tile_scale, depth_scale, guidance_scale,
            ip_context=None, ref_noisy=None):
-        _no_ip(ip_context)
         if depth_images is not None:
             nets = models.controlnets[:2]
             conds, scales = [tile_images, depth_images], [tile_scale,
@@ -201,12 +213,12 @@ def make_noise_pred_2pass(models: DenoiseModels):
             mid = mid + p1_mid
         if models.use_reference and ref_noisy is not None:
             eps, _ = _ref_split_run(latents, t, embeds, downs, mid,
-                                    ref_noisy, guidance_scale,
+                                    ref_noisy, guidance_scale, ip_context,
                                     enc_state=enc_state)
             return eps
         eps = unet(None, None, None, part="dec", enc_state=enc_state,
-                   mode=models.attn_mode(), down_block_res=downs,
-                   mid_block_res=mid)
+                   mode=models.attn_mode(), ip_context=ip_context,
+                   down_block_res=downs, mid_block_res=mid)
         return _cfg_combine(eps, guidance_scale)
 
     return p1, p2
@@ -239,6 +251,10 @@ def _take_pairs(x, N, i, b):
     """(2N, ...) pair-interleaved [r0, t0, r1, t1, ...] -> (2b, ...)."""
     y = x.reshape(N, 2, *x.shape[1:])
     return _take_views(y, N, i, b).reshape(2 * b, *x.shape[1:])
+
+
+def _take_ip(ip_context, N, i, b):
+    return None if ip_context is None else _take_cfg(ip_context, N, i, b)
 
 
 def _cat_views(chunks, N):
@@ -303,14 +319,14 @@ def make_chunked_noise_pred_1pass(models: DenoiseModels, diff_bs: int):
             return full(latents, t, embeds, cond_images, cn_scales,
                         guidance_scale, ip_context=ip_context,
                         ref_noisy=ref_noisy)
-        _no_ip(ip_context)
         outs = []
         for i in range(0, N, b):
             outs.append(full(
                 _take_cfg(latents, N, i, b), _take_cfg(t, N, i, b),
                 _take_cfg(embeds, N, i, b),
                 [_take_cfg(ci, N, i, b) for ci in cond_images], cn_scales,
-                guidance_scale, ref_noisy=_take_views(ref_noisy, N, i, b)))
+                guidance_scale, ip_context=_take_ip(ip_context, N, i, b),
+                ref_noisy=_take_views(ref_noisy, N, i, b)))
         return _cat_views(outs, N)
 
     return noise_pred
@@ -332,7 +348,6 @@ def make_chunked_noise_pred_2pass(models: DenoiseModels, diff_bs: int):
                            guidance_scale, ip_context=ip_context,
                            extra_images=extra_images,
                            extra_scales=extra_scales, ref_noisy=ref_noisy)
-        _no_ip(ip_context)
         eps_ch, enc_u_ch, enc_c_ch, downs_ch, mid_ch = [], [], [], [], []
         for i in range(0, N, b):
             eps_i, (enc_u, enc_c), (downs, mid) = p1_full(
@@ -341,6 +356,7 @@ def make_chunked_noise_pred_2pass(models: DenoiseModels, diff_bs: int):
                 None if depth_images is None
                 else _take_cfg(depth_images, N, i, b),
                 depth_scale, guidance_scale,
+                ip_context=_take_ip(ip_context, N, i, b),
                 extra_images=tuple(_take_cfg(e, N, i, b)
                                    for e in extra_images),
                 extra_scales=extra_scales,
@@ -366,7 +382,6 @@ def make_chunked_noise_pred_2pass(models: DenoiseModels, diff_bs: int):
                            tile_images, depth_images, tile_scale,
                            depth_scale, guidance_scale,
                            ip_context=ip_context, ref_noisy=ref_noisy)
-        _no_ip(ip_context)
         enc_u, enc_c = enc_state
         downs, mid = p1_residuals
         outs = []
@@ -382,6 +397,7 @@ def make_chunked_noise_pred_2pass(models: DenoiseModels, diff_bs: int):
                 None if depth_images is None
                 else _take_cfg(depth_images, N, i, b),
                 tile_scale, depth_scale, guidance_scale,
+                ip_context=_take_ip(ip_context, N, i, b),
                 ref_noisy=_take_views(ref_noisy, N, i, b)))
         return _cat_views(outs, N)
 

@@ -172,9 +172,10 @@ def _ingp_color(params, xyz, ingp_cfg):
 
 
 class GeneratorDraws:
-    """The pipeline's random draws, all from one `torch.Generator`: the
-    field init, the latent noise, and the draws of every fit chunk and of
-    the texture refinement (each fit's own `draw`)."""
+    """The pipelines' random draws, all from one `torch.Generator`: the
+    field init, the latent noise, and the draws of every fit chunk, of the
+    texture refinement and of the re-texturing fits (each fit's own
+    `draw`)."""
 
     def __init__(self, generator=None):
         self.generator = generator
@@ -195,6 +196,10 @@ class GeneratorDraws:
 
     def refine(self, refine, targets, n_steps):
         return refine.draw(targets, n_steps, self.generator)
+
+    def texture_fit(self, fit, targets):
+        """The view draws of one `pipelines.texture` albedo fit."""
+        return fit.draw(targets, self.generator)
 
 
 def _take(x, ids):

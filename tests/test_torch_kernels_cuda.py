@@ -22,6 +22,17 @@ Tolerances:
   version's order with IEEE rounding and no FMA contraction, and its
   rejects are exact for those rounded tests, so winners and keys are
   bit-equal.
+- raster selection at 32 x 32 tiles (texture superres's 2048^2 bake):
+  exact as well, at the bake's config and on the edge cases.
+- segment sum (`kernels/segment_sum.py`): the same bits on every run, the
+  bits of `segment_sum_ordered` (the kernel's order in plain PyTorch,
+  long rows' strided partials and tree included), and within
+  `rounding_bound` of a float64 sum (k u sum|x|, k = n for a row of n <=
+  `LONG`, ceil(n / 256) + 8 beyond); rows of one contribution to 10^5.
+- determinism: two tiny NeRF-fit chunks, and two mesh-fit chunks, from one
+  seed give bit-equal parameters, without and with
+  `torch.use_deterministic_algorithms(True)` (which raises at any op with
+  no deterministic algorithm on the card).
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
@@ -334,3 +345,149 @@ def test_flash_fwd_matches_plain(cuda, shape, scale):
     assert out4.shape == q4.shape
     with pytest.raises(ValueError):
         OF.flash_fwd(q[:, :100], k, v, s)
+
+
+@pytest.mark.parametrize("tile_case", ["bake_2048", "slivers", "pixel_grid",
+                                       "duplicates", "empty"])
+def test_raster_select_tile_32_matches_plain(cuda, tile_case):
+    """32 x 32 tiles: the superres bake's 2048^2 grid atlas (K 64 + 32,
+    span 4) and the edge cases at 256^2, bit-equal to the plain version."""
+    import numpy as np
+    from mvedit_tpu_torch.models.mesh import Mesh, RasterConfig
+    if tile_case == "bake_2048":
+        n = 60000
+        m = Mesh(v=np.zeros((3 * n, 3), np.float32),
+                 f=np.arange(3 * n, dtype=np.int32).reshape(n, 3))
+        m.auto_uv()
+        cfg = RasterConfig(height=2048, width=2048, tile=32, span=4,
+                           k_per_tile=64, k_big=32)
+        uv = torch.as_tensor(m.vt, device=cuda)
+        pts = torch.stack([uv[:, 0] * 2048, uv[:, 1] * 2048,
+                           torch.ones_like(uv[:, 0])], -1)
+        faces = torch.as_tensor(m.ft, device=cuda).long()
+        fv = torch.ones(n, dtype=torch.bool, device=cuda)
+    else:
+        pts, faces, fv, cfg = _case(cuda, tile_case, 256)
+        cfg = RasterConfig(**{**cfg.__dict__, "tile": 32})
+    bp, kp = _select_both(pts, faces, fv, cfg)
+    assert bp.shape[1] == 1024
+    if tile_case != "empty":
+        assert float((kp < 1e38).float().mean()) > 0.01
+
+
+@pytest.mark.parametrize("rows,n,C,dtype,pile", [
+    (161 ** 3, 1 << 21, 8, torch.bfloat16, 0.0),  # the dense grid's level 1
+    (33 ** 3, 1 << 20, 8, torch.bfloat16, 0.0),   # level 0: rows of ~30
+    (40000, 240000, 4, torch.float32, 0.0),       # vertex sums
+    (180000, 1 << 18, 6, torch.float32, 0.7),     # a render's background
+    (1000, 5000, 3, torch.float32, 0.3),          # one row past LONG
+    (1000, 1 << 21, 8, torch.bfloat16, 0.0)])     # surface cells: ~2000 each
+def test_segment_sum_matches_plain(cuda, rows, n, C, dtype, pile):
+    """`pile`: the share of contributions that go to row 0 (one long row,
+    summed by the block kernel)."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    g = torch.Generator(device=cuda).manual_seed(rows % 97)
+    idx = torch.randint(-2, rows + 2, (n,), generator=g, device=cuda)
+    idx = torch.where(torch.rand((n,), generator=g, device=cuda) < pile,
+                      torch.zeros_like(idx), idx)
+    vals = torch.randn((n, C), generator=g, device=cuda).to(dtype)
+    before, staged = KS.segment_sum.launches, KS.segment_sum.staged
+    a = KS.segment_sum(idx, vals, rows)
+    b = KS.segment_sum(idx, vals, rows)
+    torch.cuda.synchronize()
+    assert KS.segment_sum.launches == before + 2
+    assert KS.segment_sum.staged == staged
+    assert a.dtype == torch.float32 and a.shape == (rows, C)
+    assert torch.equal(a, b)
+    assert torch.equal(a, KS.segment_sum_ordered(idx, vals, rows))
+    exact = KS.segment_sum_reference(idx, vals, rows, torch.float64)
+    bound = KS.rounding_bound(idx, vals, rows)
+    assert bool(((a.double() - exact).abs() <= bound).all())
+
+
+def _fit_pipe(cuda):
+    import types
+    from mvedit_tpu_torch.models.fields import INGPConfig
+    from mvedit_tpu_torch.models.losses import lpips_init
+    from mvedit_tpu_torch.ops.dense_grid import DenseGridConfig
+    from mvedit_tpu_torch.pipelines.mvedit_3d import (MVEdit3DConfig,
+                                                      MVEdit3DPipeline)
+    lp = lpips_init(torch.Generator(device=cuda).manual_seed(1), cuda)
+    cfg = MVEdit3DConfig(num_views=4, render_size=128, tet_resolution=32,
+                         patch_size=32, use_lpips=True,
+                         fit_steps_per_program=2,
+                         ingp=INGPConfig(backend="dense",
+                                         dense=DenseGridConfig(
+                                             resolutions=(16, 64))))
+    return MVEdit3DPipeline(types.SimpleNamespace(lpips_params=lp), cfg), lp
+
+
+def _fit_targets(cuda, size):
+    import numpy as np
+    from mvedit_tpu_torch.apis.cameras import surround_rig
+    from mvedit_tpu_torch.utils import camera as cam_utils
+    rng = np.random.default_rng(0)
+    poses, intr = surround_rig(4, 2.6, 40, -0.3, 0.6, size, rng=rng)
+    lights, _ = cam_utils.light_sampling(poses, rng=rng)
+    yy, xx = np.mgrid[:size, :size] / size
+    masks = np.stack([((xx - 0.5 - 0.05 * i) ** 2 + (yy - 0.5) ** 2 < 0.08)
+                      for i in range(4)]).astype(np.float32)[..., None]
+    images = np.stack([np.stack([xx, yy, 0.5 + 0.3 * np.sin(6 * xx + i)], -1)
+                       for i in range(4)]).astype(np.float32)
+    t = {"images": images * masks + (1 - masks), "masks": masks,
+         "poses": poses, "intrinsics": intr,
+         "cam_weights": np.ones(4), "cam_lights": lights}
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+            for k, v in t.items()}
+
+
+def _two_chunks(cuda, kind):
+    """Two fit chunks from seed 0 (field init, the chunks' draws); returns
+    the parameters after them."""
+    from mvedit_tpu_torch.models.fields import field_leaves, ingp_init
+    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    pipe, lp = _fit_pipe(cuda)
+    targets = _fit_targets(cuda, 128)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    field = ingp_init(pipe.cfg.ingp, gen, cuda)
+    if kind == "nerf":
+        run, make_opt = pipe._nerf_fit_fns(64, 4)
+        opt = make_opt(field)
+        grid = OccupancyGrid.create(pipe.cfg.render.grid_size, device=cuda)
+        tgt = pipe._resize_targets(targets, 64)
+        field, opt, grid, _ = run(field, opt, grid, tgt,
+                                  sched=pipe._sched_weights(0.5, "nerf"),
+                                  lpips_params=lp, generator=gen)
+        return field_leaves(field) + [grid.density]
+    with torch.no_grad():
+        field["mlp"][-1]["b"][0] = 10.0
+    tet_grid, state, opt = pipe._init_mesh_phase(field, device=cuda)
+    run, _, _ = pipe._mesh_fit_fns(tet_grid, 4)
+    state, opt, _ = run(state, opt, targets,
+                        sched=pipe._sched_weights(0.6, "mesh"),
+                        generator=gen, lpips_params=lp)
+    return [state["sdf"], state["deform"]] + field_leaves(state["field"])
+
+
+@pytest.mark.parametrize("flag", [False, True])
+@pytest.mark.parametrize("kind", ["nerf", "mesh"])
+def test_one_seed_gives_one_fit(cuda, monkeypatch, kind, flag):
+    """The fits' gradients accumulate in a fixed order (the segment sum,
+    deterministic cuDNN for LPIPS's backward, the volume renderer's cumsum
+    as a log-step scan): two runs from one seed are bit-equal, and no op
+    on the path lacks a deterministic algorithm."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    if flag:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(flag)
+    try:
+        before = KS.segment_sum.launches
+        a = _two_chunks(cuda, kind)
+        b = _two_chunks(cuda, kind)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert KS.segment_sum.launches > before
+    assert all(torch.isfinite(x).all() for x in a)
+    assert [torch.equal(x, y) for x, y in zip(a, b)] == [True] * len(a)

@@ -146,7 +146,8 @@ def test_run_3d_to_3d_matches_jax(tmp_path, monkeypatch):
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports with `jax`, `jaxlib`, `flax`,
     `optax` and `mvedit_tpu` blocked; the tiny request then runs to its
-    GLB, decimation included."""
+    GLB, decimation included, and so does a tiny `run_retex` with the front
+    view and IP-Adapter."""
     code = r'''
 import importlib, pkgutil, sys
 class Block:
@@ -177,6 +178,12 @@ out = Adapter3DRunner(tiny_models=True, device="cpu").run_3d_to_3d(
     os.path.join(d, "in.glb"), "a torus", seed=0, tet_resolution=32,
     out_path=os.path.join(d, "out.glb"))
 assert len(Mesh.load(os.path.join(d, "out.glb")).f) > 0
+img = np.random.default_rng(0).random((32, 32, 3)).astype(np.float32)
+rt = Adapter3DRunner(tiny_models=True, device="cpu").run_retex(
+    os.path.join(d, "in.glb"), "a torus", seed=0, steps=4,
+    n_inverse_steps=2, front_view_id=0, in_image=img,
+    out_path=os.path.join(d, "retex.glb"))
+assert Mesh.load(os.path.join(d, "retex.glb")).albedo is not None
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "mvedit_tpu"))
 assert not bad, bad

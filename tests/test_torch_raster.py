@@ -123,6 +123,38 @@ def test_select_reference_matches_select_pallas():
     np.testing.assert_array_equal(f2.numpy(), want)
 
 
+@pytest.mark.parametrize("tile", [8, 32])
+def test_select_reference_other_tiles_match_select_pallas(tile):
+    """Tiles other than 16 (32 is superres's 2048^2 bake, 8 one the kernel
+    does not take): the plain version on the CPU, through the wrapper,
+    against `select_pallas(interpret=True)` on the same candidates; the
+    winners exactly, the keys within 1e-5 relative."""
+    verts, faces, fvalid = _soup(5)
+    jc, tc = _cfgs(tile=tile)
+    pts = JR.project_mesh(jnp.asarray(verts), jnp.asarray(POSE),
+                          jnp.asarray(INTR))
+    tt, tv, bt, bv = JR._bin_triangles(pts, jnp.asarray(faces),
+                                       jnp.asarray(fvalid), jc)
+    T = jc.num_tiles
+    cand = jnp.concatenate([tt, jnp.broadcast_to(bt, (T, jc.k_big))], 1)
+    cval = jnp.concatenate([tv, jnp.broadcast_to(bv, (T, jc.k_big))], 1)
+    coef = prepare_coeffs(pts[jnp.asarray(faces)], cand, cval, False)
+    best, key = (np.asarray(x) for x in select_pallas(
+        coef, tile, jc.tiles_x, interpret=True))
+    before = KS.raster_select.launches
+    tb, tk, tf = KS.raster_select(_t(pts), _t(faces), _t(tt), _t(tv), tile,
+                                  jc.tiles_x, False, _t(bt), _t(bv))
+    assert KS.raster_select.launches == before
+    assert tb.shape == (T, tile * tile)
+    np.testing.assert_array_equal(tb.numpy(), best)
+    hit = key < 1e38
+    assert hit.sum() > 500
+    np.testing.assert_array_equal(tk.numpy() < 1e38, hit)
+    np.testing.assert_allclose(tk.numpy()[hit], key[hit], rtol=1e-5)
+    want = np.where(hit, np.take_along_axis(np.asarray(cand), best, 1), -1)
+    np.testing.assert_array_equal(tf.numpy(), want)
+
+
 def _raster_both(verts, faces, fvalid, **kw):
     jc, tc = _cfgs(**kw)
     jp = JR.project_mesh(jnp.asarray(verts), jnp.asarray(POSE),

@@ -5,7 +5,8 @@ reject.
 - `plan` says "direct" for what `rasterize` hands the kernel (float32 pts,
   int64 faces and ids, bool masks, contiguous, the bin lists and the big
   list apart), "staged" for any other dtype or layout, and raises on bad
-  shapes, a tile other than 16, non-integer ids or mixed devices. It looks
+  shapes, a tile the kernel does not take off the CPU (it takes 16 and
+  32), non-integer ids or mixed devices. It looks
   at shapes, dtypes and layouts only, so `meta` tensors exercise it too.
 - `raster_select_reference` (the plain version of `raster_select`: split
   lists in, (best, key, face) out) against `select_reference` on the
@@ -122,13 +123,24 @@ def test_unsupported_inputs_raise(name, edit, exc):
         _plan(a)
 
 
-def test_tile_other_than_16_raises():
-    a = _path_inputs()
+@pytest.mark.parametrize("tile", [8, 24, 64])
+def test_tile_other_than_16_raises(tile):
+    """A tile the kernel does not take (it takes 16 and 32) raises for a
+    tensor off the CPU, in `plan` and in `raster_select`; on the CPU the
+    plain version takes it, as the reference takes any tile."""
+    a = _path_inputs(device="meta")
     with pytest.raises(ValueError):
-        _plan(a, tile=8)
+        _plan(a, tile=tile)
     with pytest.raises(ValueError):
         RS.raster_select(a["pts"], a["faces"], a["tile_tris"],
-                         a["tile_valid"], 8, 4)
+                         a["tile_valid"], tile, 4)
+    for t in RS.TILES:
+        assert _plan(a, tile=t) == "direct"
+    a = _path_inputs()
+    assert _plan(a, tile=tile) == "direct"
+    best, key, face = RS.raster_select(a["pts"], a["faces"], a["tile_tris"],
+                                       a["tile_valid"], tile, 4)
+    assert best.shape == key.shape == face.shape == (16, tile * tile)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -246,6 +258,31 @@ def test_interface_matches_select_pallas(name, cull):
     assert (err <= 1e-5 * scale.numpy()[hit]).all(), err.max()
     want = np.where(hit, np.take_along_axis(cand.numpy(), jb, 1), -1)
     np.testing.assert_array_equal(f.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["slivers", "pixel_grid", "duplicates"])
+def test_block_masks_are_conservative_at_tile_32(name):
+    """The 32 x 32 tile's reject (4 x 8 warp blocks) keeps every covered
+    (pixel, candidate) pair too."""
+    pts, faces, fv, kw = CASES[name](0, SIZE)
+    pts, faces, fv = (torch.from_numpy(x) for x in (pts, faces, fv))
+    cfg = RasterConfig(**{**kw, "tile": 32})
+    cand, cval = candidates(pts, faces, fv, cfg)
+    co = RS.prepare_coeffs(pts, faces, cand, cval)            # (T, K, 12)
+    keep = RS.block_masks(co, cfg.tiles_x, tile=32)           # (T, K, 32)
+    T = cand.shape[0]
+    pid, t = torch.arange(1024), torch.arange(T)[:, None]
+    qx = (((t % cfg.tiles_x) * 32 + pid % 32).float() + 0.5)[:, :, None]
+    qy = (((t // cfg.tiles_x) * 32 + pid // 32).float() + 0.5)[:, :, None]
+
+    def aff(i):
+        return co[:, None, :, i] * qx + co[:, None, :, i + 1] * qy \
+            + co[:, None, :, i + 2]
+    covered = (aff(0) >= 0) & (aff(3) >= 0) & (aff(6) >= 0)  # (T, P, K)
+    blk = (pid % 32) // 8 + 4 * ((pid // 32) // 4)            # (P,)
+    kept = keep[:, :, blk].permute(0, 2, 1)
+    assert covered.any()
+    assert not (covered & ~kept).any()
 
 
 @pytest.mark.parametrize("name,cull", CASE_PARAMS)

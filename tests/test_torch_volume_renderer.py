@@ -8,6 +8,11 @@ magnitude for the gradients of `composite` (f32 sums in another order).
 The composite case includes alphas that reach 1 (sigma * delta up to
 ~60), where the reference's log-space cumsum with its 1e-10 clip and
 `torch.cumprod` part ways in the gradient.
+
+`scan_sum`, the fixed-order cumsum the port's `composite` takes on every
+device (the card's float cumsum has no deterministic algorithm), gives
+`torch.cumsum`'s bits on the CPU, values and gradients, at the fits' and
+the renders' (rays, samples) shapes.
 """
 import jax
 import jax.numpy as jnp
@@ -198,3 +203,19 @@ def test_multiview_renderer_matches_jax(with_grid):
             assert (d > TOL).mean() <= 5e-3 and d.max() <= 1e-3, k
         else:
             assert d.max() <= TOL, k
+
+
+@pytest.mark.parametrize("shape", [(4096, 128), (96, 16), (7, 3, 64)])
+def test_scan_sum_is_the_cpu_cumsum(shape):
+    g = torch.Generator().manual_seed(sum(shape))
+    # log transmittances: <= 0, from ~0 to the 1e-10 clip's -23
+    x = torch.log(torch.rand(shape, generator=g).clamp(min=1e-10)) \
+        * torch.rand(shape, generator=g) ** 3
+    w = torch.randn(shape, generator=g)
+    a = x.clone().requires_grad_(True)
+    b = x.clone().requires_grad_(True)
+    ya, yb = TV.scan_sum(a), torch.cumsum(b, -1)
+    (ya * w).sum().backward()
+    (yb * w).sum().backward()
+    assert ya.dtype == torch.float32
+    assert torch.equal(ya, yb) and torch.equal(a.grad, b.grad)

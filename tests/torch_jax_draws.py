@@ -1,7 +1,7 @@
 """The JAX package's random draws, made as its fits make them and handed to
 the port as its `draws=` inputs (torch cannot reproduce threefry). Shared
-by the parity tests of the NeRF fit, the texture refinement and the whole
-pipeline.
+by the parity tests of the NeRF fit, the texture refinement, the whole
+pipeline and the re-texturing pipeline.
 
 Each helper makes the same `jax.random` calls in the same order as the
 JAX function named in its docstring.
@@ -93,6 +93,28 @@ def mesh_fit_draws(key, n_steps, cam_weights, cfg, face_cap, lpips=False):
     return _stack(out)
 
 
+def texture_fit_draws(cam_weights, cfg, key=None):
+    """`pipelines/texture.py::make_texture_fit`'s `fit(..., key)`: chained
+    programs of at most 64 steps, one split of the key per program, then
+    one key per step and `views_per_step` categorical draws over the views
+    with weight > 0. The texture pipeline passes no key, so every fit draws
+    from PRNGKey(0)."""
+    key = jax.random.PRNGKey(0) if key is None else key
+    n = cfg.n_inverse_steps
+    vps = min(cfg.views_per_step, len(cam_weights))
+    Lp = min(64, n)
+    programs = [Lp] * (n // Lp) + ([n % Lp] if n % Lp else []) if n else []
+    if not programs:                 # no fit step (the port's n = 0)
+        return {"view_ids": torch.zeros((0, vps), dtype=torch.int64)}
+    ids = []
+    for steps in programs:
+        key, kc = jax.random.split(key)
+        for k in jax.random.split(kc, steps):
+            ids.append(np.asarray(jax.random.categorical(
+                k, _logits(cam_weights, vps))))
+    return {"view_ids": _t(np.stack(ids))}
+
+
 def refine_draws(key, n_steps, cam_weights, cfg, lpips=False):
     """`make_texture_refine`'s `refine(..., key)`: per step (k1, k2); the
     views from k1, the LPIPS patch origins from k2."""
@@ -109,10 +131,11 @@ def refine_draws(key, n_steps, cam_weights, cfg, lpips=False):
 
 
 class JaxDraws:
-    """A draw source for the port's `MVEdit3DPipeline` (the methods of
-    `GeneratorDraws`) that replays `mvedit_tpu`'s `MVEdit3DPipeline.
-    __call__` from `key`: the same splits of the same key in the same
-    order. jax_ingp: the JAX field config (for the field init)."""
+    """A draw source for the port's `MVEdit3DPipeline` and
+    `TexturePipeline` (the methods of `GeneratorDraws`) that replays
+    `mvedit_tpu`'s pipeline `__call__` from `key`: the same splits of the
+    same key in the same order. jax_ingp: the JAX field config (for the
+    field init)."""
 
     def __init__(self, key, jax_ingp, lpips=False):
         self.key, self.jax_ingp, self.lpips = key, jax_ingp, lpips
@@ -153,3 +176,9 @@ class JaxDraws:
         (kb,) = self._split()
         return refine_draws(kb, n_steps, targets["cam_weights"].cpu().numpy(),
                             refine.cfg, self.lpips)
+
+    def texture_fit(self, fit, targets):
+        """The texture pipeline's fits take no key of the request's: each
+        replays PRNGKey(0)."""
+        return texture_fit_draws(targets["cam_weights"].cpu().numpy(),
+                                 fit.cfg)
