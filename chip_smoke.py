@@ -11,6 +11,8 @@
     python3 chip_smoke.py --ab A.cu B.cu     # kernel sources timed in turns
     python3 chip_smoke.py --time-fits        # NeRF and mesh fit chunks and
                                              # a render-all, timed
+    python3 chip_smoke.py --time-retex       # retex requests timed, one
+                                             # with its segment sums traced
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
@@ -35,9 +37,12 @@ requests with IP-Adapter.
    kernel API (`ops/flash_attention.py`); the fixed-order segment sum at
    the path's shapes (the dense grid's corner gathers at a NeRF chunk's
    sample count and at retex's albedo fit, the mesh fit's vertex sums, a
-   render's corner gather): the same bits on two runs, the bits of its
-   order rebuilt in plain PyTorch, and within the rounding of that order
-   of a float64 sum; LPIPS in bf16 against
+   render's corner gather) and at a NeRF-fit step's own sample points
+   (rays of the rig, those that miss the box included): the same bits on
+   two runs, the bits of its order rebuilt in plain PyTorch, the bf16
+   output the f32 sum rounded once, and within the rounding of that order
+   of a float64 sum, timed whole, replayed from a CUDA graph, ordering
+   alone and sums alone; LPIPS in bf16 against
    f32 (within 5e-2). Beside each time: the bound computed from the call's
    inputs (bytes at 3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s
    and, for attention, 3.9e12 exponentials/s, the exp floor) and, for
@@ -101,6 +106,12 @@ render-all and a warm mesh-fit chunk of the `mvedit_tpu_torch` beside the
 script. To time an earlier commit, unpack it into a directory of the
 checkout that `.gitignore` lists, copy this script into it and run that
 copy in the same call.
+
+`--time-retex` does phase 1 and then only three `run_retex` requests of
+the `mvedit_tpu_torch` beside the script (cold and warm timed, the third
+under `torch.profiler` with every segment sum on a stream of its own:
+the device time of that stream's kernels); with `--time-fits`, both. An
+earlier commit's package is timed the same way as with `--time-fits`.
 
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
@@ -195,6 +206,11 @@ SEGMENT_CASES = [("grid_level1", 161 ** 3, 16384 * 128 * 8, 8, "bf16"),
                  ("render_gather", 180000, 512 * 512, 6, "f32"),
                  ("retex_level0", 33 ** 3, 6 * 512 * 512 * 8, 8, "bf16"),
                  ("retex_level1", 161 ** 3, 6 * 512 * 512 * 8, 8, "bf16")]
+# the path's own targets: a NeRF-fit step's 16384 x 128 samples at the
+# dense grid's level 1 (161^3 rows), from the rig's rays (those that miss
+# the box clipped to its faces, as the grid clips them)
+SEGMENT_PATH_CASE = ("nerf_chunk_level1", 161 ** 3, 16384 * 128 * 8, 8,
+                     "bf16")
 SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
@@ -899,82 +915,141 @@ def grid_corners(x, res):
         for ox in (0, 1) for oy in (0, 1) for oz in (0, 1)], 1).reshape(-1)
 
 
+def nerf_chunk_points(gen, size=256, rays=16384):
+    """A NeRF-fit step's sample points as the dense grid takes them: the
+    rig's view whose frame has the most rays that miss the box (at 256^2,
+    0-0.8% of a view's rays do), `rays` rays on a strided grid over its
+    whole frame, 128 stratified samples each (`sample_rays`, no occupancy
+    grid), mapped to [0, 1] and clipped as `ops/dense_grid.py` clips them.
+    Returns the (rays * 128, 3) points and the share of rays that miss
+    the box."""
+    from mvedit_tpu_torch.models.volume_renderer import (RenderConfig,
+                                                         ray_aabb,
+                                                         sample_rays)
+    from mvedit_tpu_torch.ops.clip import clip
+    from mvedit_tpu_torch.utils.geometry import (get_ray_directions,
+                                                 get_rays)
+    cfg = RenderConfig()
+    poses, intr, _ = _rig(size)
+    poses = torch.as_tensor(poses, device=DEV)
+    intr = torch.as_tensor(intr, device=DEV)
+    o, d = get_rays(get_ray_directions(size, size, intr), poses, norm=True)
+    near, far = ray_aabb(o, d, cfg.bound)
+    view = int((far <= near).float().mean((1, 2)).argmax())
+    step = size // int(round(rays ** 0.5))
+    rays_o = o[view, ::step, ::step].reshape(-1, 3)
+    rays_d = d[view, ::step, ::step].reshape(-1, 3)
+    jitter = torch.rand((rays_o.shape[0], cfg.num_samples), generator=gen,
+                        device=DEV)
+    xyz = sample_rays(rays_o, rays_d, cfg, jitter)[0]
+    near, far = ray_aabb(rays_o, rays_d, cfg.bound)
+    x01 = clip((xyz.reshape(-1, 3) + cfg.bound) / (2 * cfg.bound), 0.0, 1.0)
+    return x01, float((far <= near).float().mean())
+
+
+def segment_indices(name, R, n, gen):
+    """The targets of a SEGMENT_CASES row (or of SEGMENT_PATH_CASE)."""
+    if name.startswith("retex"):
+        # a sphere of radius 0.3 in the unit cube; the background's
+        # pixels (65%) all on one point
+        m = n // 8
+        d = torch.randn((m, 3), generator=gen, device=DEV)
+        x = 0.5 + 0.3 * d / d.norm(dim=-1, keepdim=True)
+        bg = torch.rand((m, 1), generator=gen, device=DEV) < 0.65
+        x = torch.where(bg, torch.full_like(x, 0.37), x)
+        return grid_corners(x, round(R ** (1 / 3)) - 1), {}
+    if name.startswith("nerf"):
+        x, miss = nerf_chunk_points(gen)
+        assert 8 * x.shape[0] == n
+        return grid_corners(x, round(R ** (1 / 3)) - 1), dict(miss=miss)
+    if name.startswith("grid"):
+        # samples along rays: runs of neighbouring cells, 8 corners each
+        base = torch.randint(0, R - 200, (n // 64,), generator=gen,
+                             device=DEV)
+        return (base[:, None] + torch.arange(64, device=DEV)).reshape(-1), {}
+    idx = torch.randint(0, R, (n,), generator=gen, device=DEV)
+    if name == "render_gather":
+        # a 512^2 view's corner gather: the background pixels (70%)
+        # all gather the dummy face's corner, row 0
+        idx = torch.where(torch.rand((n,), generator=gen, device=DEV)
+                          < 0.7, torch.zeros_like(idx), idx)
+    return idx, {}
+
+
+def segment_check(SS, idx, vals, R):
+    """Two runs' bits equal, equal to `segment_sum_ordered`'s, the bf16
+    output the f32 sum rounded once, every row within `rounding_bound` of
+    a float64 sum. Returns (ok, max |d|, the largest share of the bound,
+    the longest row, bit-equal run to run, equal to the plain order)."""
+    a = SS.segment_sum(idx, vals, R)
+    b = SS.segment_sum(idx, vals, R)
+    h = SS.segment_sum(idx, vals, R, out_dtype=torch.bfloat16)
+    same = bool(torch.equal(a, b)) and bool(torch.equal(h, a.bfloat16()))
+    kernel_order = bool(torch.equal(a, SS.segment_sum_ordered(idx, vals,
+                                                              R)))
+    exact = SS.segment_sum_reference(idx, vals, R, torch.float64)
+    bound = SS.rounding_bound(idx, vals, R)
+    d = (a.double() - exact).abs()
+    slack = float((d / bound.clamp(min=1e-300)).max())
+    ok = same and kernel_order and bool((d <= bound).all())
+    longest = int(torch.bincount(idx[(idx >= 0) & (idx < R)],
+                                 minlength=R).max())
+    return ok, float(d.max()), slack, longest, same, kernel_order
+
+
 def phase_segment_sum():
-    """The fixed-order segment sum at SEGMENT_CASES against its plain
-    versions: two runs give the same bits; they are the bits of
-    `segment_sum_ordered` (the kernel's order in plain PyTorch: rows added
-    in order, long rows as 256 strided partials and a fixed tree); each row
-    lies within `rounding_bound` of a float64 sum (k u sum|x|, k = n for a
-    row of n <= LONG, ceil(n / 256) + 8 beyond). Timed: the wrapper's whole
-    call (the stable sort of the targets, the offsets and the kernel), the
-    kernel alone on a kept order, the plain version (an atomic float32
-    `index_add` into zeros), and one `index_add_` (the library call; the
-    port never calls it)."""
+    """The fixed-order segment sum at SEGMENT_CASES and SEGMENT_PATH_CASE
+    against its plain versions: two runs give the same bits; they are the
+    bits of `segment_sum_ordered` (the kernel's order in plain PyTorch:
+    rows of at most LONG added in order, longer ones in slices of SLICE,
+    strided partials and fixed trees); the bf16 output is the f32 sum
+    rounded once; each row lies within `rounding_bound` of a float64 sum.
+    Timed: the wrapper's whole call (the ordering and the sums), the
+    ordering alone (keys, CUB's radix sort over the row bits, offsets),
+    the sum kernels alone on a kept order, the plain version (an atomic
+    float32 `index_add` into zeros), and one `index_add_` (the library
+    call; the port never calls it)."""
     from mvedit_tpu_torch.kernels import segment_sum as SS
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     rows, failed, worst = [], [], 0.0
-    for name, R, n, C, dt in SEGMENT_CASES:
+    for name, R, n, C, dt in SEGMENT_CASES + [SEGMENT_PATH_CASE]:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        if name.startswith("retex"):
-            # a sphere of radius 0.3 in the unit cube; the background's
-            # pixels (65%) all on one point
-            m = n // 8
-            d = torch.randn((m, 3), generator=gen, device=DEV)
-            x = 0.5 + 0.3 * d / d.norm(dim=-1, keepdim=True)
-            bg = torch.rand((m, 1), generator=gen, device=DEV) < 0.65
-            x = torch.where(bg, torch.full_like(x, 0.37), x)
-            idx = grid_corners(x, round(R ** (1 / 3)) - 1)
-        elif name.startswith("grid"):
-            # samples along rays: runs of neighbouring cells, 8 corners each
-            base = torch.randint(0, R - 200, (n // 64,), generator=gen,
-                                 device=DEV)
-            idx = (base[:, None] + torch.arange(64, device=DEV)).reshape(-1)
-        elif name == "render_gather":
-            # a 512^2 view's corner gather: the background pixels (70%)
-            # all gather the dummy face's corner, row 0
-            idx = torch.randint(0, R, (n,), generator=gen, device=DEV)
-            idx = torch.where(torch.rand((n,), generator=gen, device=DEV)
-                              < 0.7, torch.zeros_like(idx), idx)
-        else:
-            idx = torch.randint(0, R, (n,), generator=gen, device=DEV)
+        idx, info = segment_indices(name, R, n, gen)
         vals = torch.randn((n, C), generator=gen, device=DEV).to(dtype)
-        a = SS.segment_sum(idx, vals, R)
-        b = SS.segment_sum(idx, vals, R)
-        same = bool(torch.equal(a, b))
-        kernel_order = bool(torch.equal(a, SS.segment_sum_ordered(idx, vals,
-                                                                  R)))
-        exact = SS.segment_sum_reference(idx, vals, R, torch.float64)
-        bound = SS.rounding_bound(idx, vals, R)
-        d = (a.double() - exact).abs()
-        err = float(d.max())
-        slack = float((d / bound.clamp(min=1e-300)).max())
-        ok = same and kernel_order and bool((d <= bound).all())
-        longest = int(torch.bincount(idx[(idx >= 0) & (idx < R)],
-                                     minlength=R).max())
-        del exact, d
+        ok, err, slack, longest, same, kernel_order = segment_check(
+            SS, idx, vals, R)
         order = SS.segment_order(idx, R)
         ms = median_ms(lambda: SS.segment_sum(idx, vals, R))
+        graphed_ms = median_ms(lambda: SS.segment_sum(idx, vals, R),
+                               batch=AB_BATCH, graph=True)
+        order_ms = median_ms(lambda: SS.segment_order(idx, R))
         kernel_ms = median_ms(lambda: SS.launch(vals, *order, R))
         plain_ms = median_ms(lambda: SS.segment_sum_reference(idx, vals, R))
         vf = vals.float()
         lib_ms = median_ms(lambda: torch.zeros(
             (R, C), device=DEV).index_add_(0, idx, vf))
         bd = segment_bound(n, R, C, vals.element_size())
+        extra = "".join(f", {k} {v:.4f}" for k, v in info.items())
         log(f"[segment_sum] {name}: {n} contributions into {R} rows x {C} "
-            f"{dt}, the longest row {longest}; bit-equal run to run {same}, "
-            f"to the kernel's order in plain PyTorch {kernel_order}; max "
-            f"|d| to the float64 sum {err:.3e}, at most {slack:.3f} of "
-            f"its rounding bound; {ms:.4f} ms (sort + offsets "
-            f"+ kernel), kernel alone {kernel_ms:.4f} ms; bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['nbytes']:.3e} "
-            f"bytes) library {lib_ms:.4f} ms (index_add_) plain "
-            f"{plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
-        rows.append(dict(case=name, ms=ms, kernel_ms=kernel_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, **bd))
+            f"{dt}, the longest row {longest}{extra}; bit-equal run to run "
+            f"{same}, to the kernel's order in plain PyTorch "
+            f"{kernel_order}; max |d| to the float64 sum {err:.3e}, at most "
+            f"{slack:.3f} of its rounding bound; {ms:.4f} ms (ordering + "
+            f"sums; {graphed_ms:.4f} ms replayed from a CUDA graph, "
+            f"the device's time alone), ordering alone {order_ms:.4f} ms, "
+            f"sum kernels alone "
+            f"{kernel_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}: {bd['nbytes']:.3e} bytes) library "
+            f"{lib_ms:.4f} ms (index_add_) plain {plain_ms:.4f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        rows.append(dict(case=name, ms=ms, graphed_ms=graphed_ms,
+                         order_ms=order_ms,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **bd))
         worst = max(worst, err)
         if not ok:
             failed.append(name)
-        del idx, vals, a, b, bound, order, vf
+        del idx, vals, order, vf
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"segment_sum disagrees with its plain version "
@@ -1284,24 +1359,31 @@ def phase_lpips():
 
 
 class _PartCounter:
-    """Counts the raster kernel's launches in named parts of a request by
-    wrapping the pipeline's methods (the launches themselves are counted
-    by the kernel's wrapper) and keeps the fits' loss histories."""
+    """Counts the raster kernel's and the segment sum's launches in named
+    parts of a request by wrapping the pipeline's methods (the launches
+    themselves are counted by the kernels' wrappers) and keeps the fits'
+    loss histories."""
 
     def __init__(self, runner):
         from mvedit_tpu_torch.kernels import raster_select as RS
+        from mvedit_tpu_torch.kernels import segment_sum as SS
         from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
-        self.RS, self.P, self.runner = RS, MVEdit3DPipeline, runner
-        self.parts, self.losses, self._saved = {}, [], []
+        self.RS, self.SS, self.P = RS, SS, MVEdit3DPipeline
+        self.runner = runner
+        self.parts, self.seg_parts, self.losses = {}, {}, []
+        self._saved = []
 
     def _count(self, part, fn):
         def wrapped(*a, **k):
             before = self.RS.raster_select.launches
+            seg = self.SS.segment_sum.launches
             try:
                 return fn(*a, **k)
             finally:
                 self.parts[part] = self.parts.get(part, 0) + (
                     self.RS.raster_select.launches - before)
+                self.seg_parts[part] = self.seg_parts.get(part, 0) + (
+                    self.SS.segment_sum.launches - seg)
         return wrapped
 
     def _patch(self, obj, name, new):
@@ -1349,6 +1431,7 @@ def phase_request(runner, tmp):
     raster kernel's launches per part and the flash kernel's, summed over
     both requests, and what the tet-256 phase reuses."""
     import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.kernels import segment_sum as SS
     from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
                                                           launch)
     from mvedit_tpu_torch.models.mesh import Mesh
@@ -1374,7 +1457,7 @@ def phase_request(runner, tmp):
         PR.set_phase_timer(pt)
         TA.flash_attention = recording
         flash_attention.launches = 0
-        staged = launch.staged
+        staged, seg0 = launch.staged, SS.segment_sum.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1415,6 +1498,11 @@ def phase_request(runner, tmp):
         log(f"[launches] {run} request: flash_attention {fa} (staged "
             f"copies {launch.staged - staged}); raster_select "
             + ", ".join(f"{v} in {k}" for k, v in parts.parts.items()))
+        seg = SS.segment_sum.launches - seg0
+        log(f"[launches] {run} request: segment_sum {seg}: "
+            + ", ".join(f"{v} in {k}" for k, v in parts.seg_parts.items())
+            + f", {seg - sum(parts.seg_parts.values())} outside these "
+            f"parts")
         if not ok:
             raise AssertionError("the run_3d_to_3d request failed its checks")
         total_fa += fa
@@ -1958,6 +2046,103 @@ def phase_time_fits(runs=5):
         f"tet {cfg.tet_resolution}, 512^2, LPIPS) {fmt(mesh)}")
 
 
+def phase_time_retex():
+    """Three `run_retex` requests of one seed at the defaults (phase 10's
+    inputs) on the `mvedit_tpu_torch` beside the script: a cold and a warm
+    one timed on the host clock, then one under `torch.profiler` (CUDA
+    activity only) with every segment sum run on a stream of its own, so
+    that the kernels on that stream are the sums' (their ordering, sorts
+    and offsets included, in whatever form the tree has them): their
+    device time summed from the trace, beside the stream's span per call
+    from CUDA events (which also counts waits for the host's launches).
+    Only APIs that every tree of the port with `run_retex` has are used,
+    so that a copy of this script beside an earlier checkout's package
+    times that one in the same call."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    import mvedit_tpu_torch
+    import mvedit_tpu_torch.ops.segment as OS
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.models.mesh import Mesh
+    runner = Adapter3DRunner(seed=SEED, device=DEV)
+    tmp = tempfile.mkdtemp()
+    src = os.path.join(tmp, "retex_knot.glb")
+    knot = torus_knot()
+    Mesh(v=knot.v, f=knot.f).write_glb(src)
+    img = np.random.default_rng(SEED + 13).random(
+        (SIZE, SIZE, 3)).astype(np.float32)
+
+    def request():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run_retex(
+            src, "a golden torus knot, studio light", seed=SEED,
+            steps=RETEX_STEPS, n_inverse_steps=RETEX_N_INV,
+            num_views=RETEX_VIEWS, front_view_id=0, in_image=img,
+            out_path=os.path.join(tmp, "retex.glb"))
+        torch.cuda.synchronize()
+        return out["mesh"].albedo, time.perf_counter() - t0
+    albedo, cold = request()
+    albedo2, warm = request()
+    orig, side, spans = OS.segment_sum, torch.cuda.Stream(), []
+
+    def on_side(*a, **k):
+        main = torch.cuda.current_stream()
+        side.wait_stream(main)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            e0.record()
+            out = orig(*a, **k)
+            e1.record()
+        main.wait_stream(side)
+        spans.append((e0, e1))
+        return out
+    OS.segment_sum = on_side
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            albedo3, traced_wall = request()
+    finally:
+        OS.segment_sum = orig
+    span_ms = sum(a.elapsed_time(b) for a, b in spans)
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda]
+    # the stream that ran the sums' own kernels (`segment_*` in the
+    # kernel source's anonymous namespace, in this tree and earlier ones)
+    own = "(anonymous namespace)::segment_"
+    streams = {e.device_resource_id() for e in evs if own in e.name()}
+    mine = [e for e in evs if e.device_resource_id() in streams]
+    dev_ms = sum(e.duration_ns() for e in mine) / 1e6
+    all_ms = sum(e.duration_ns() for e in evs) / 1e6
+    top = {}
+    for e in mine:
+        k = re.split(r"[<(]", e.name().split("namespace)::", 1)[-1])[0][:60]
+        top[k] = top.get(k, 0.0) + e.duration_ns() / 1e6
+    log("[retex-time] the sums' stream by kernel (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in sorted(top.items(),
+                                          key=lambda kv: -kv[1])[:8]))
+    same = bool(np.array_equal(albedo, albedo2)) and bool(
+        np.array_equal(albedo, albedo3))
+    log(f"[retex-time] package {os.path.dirname(mvedit_tpu_torch.__file__)}:"
+        f" cold {cold:.3f} s, warm {warm:.3f} s; traced request "
+        f"({traced_wall:.3f} s under the profiler): {len(spans)} segment "
+        f"sums, {dev_ms:.3f} ms device time in {len(mine)} kernels on "
+        f"their stream ({len(streams)} stream), of {all_ms:.3f} ms for "
+        f"all {len(evs)} device events; the sums' stream span "
+        f"{span_ms:.3f} ms; three albedos bit-equal {same}")
+    if not same or not mine:
+        raise AssertionError("retex timing: albedos differ or no segment "
+                             "kernel was traced")
+    # the sums' kernels on more than one stream, or the request's other
+    # kernels on theirs, would read the whole request as the sums' time
+    if len(streams) != 1 or len(mine) == len(evs):
+        raise AssertionError(f"retex timing: the sums' kernels ran on "
+                             f"{len(streams)} streams, {len(mine)} of "
+                             f"{len(evs)} device events on them: not a "
+                             f"stream of their own")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1978,12 +2163,18 @@ def main():
     ap.add_argument("--time-fits", action="store_true",
                     help="only time a warm NeRF-fit chunk and a render-all "
                          "(host clock, median of several)")
+    ap.add_argument("--time-retex", action="store_true",
+                    help="only time retex requests and trace one "
+                         "request's segment sums (with --time-fits: both)")
     args = ap.parse_args()
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
     smi = phase_device()
-    if args.time_fits:
-        phase_time_fits()
+    if args.time_fits or args.time_retex:
+        if args.time_fits:
+            phase_time_fits()
+        if args.time_retex:
+            phase_time_retex()
         return
     if args.ab:
         def raster(src):
@@ -2079,7 +2270,8 @@ def main():
     log(f"[kernels] times and bounds below at {HOT_SHAPE} "
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
         f"{FWD_HOT} (flash_fwd), {SEGMENT_HOT} (segment_sum: ms the whole "
-        f"call, sort included, kernel_ms the kernel alone); library_ms is "
+        f"call, order_ms the ordering alone, kernel_ms the sum kernels "
+        f"alone); library_ms is "
         f"one scaled_dot_product_attention call, one index_add_ for "
         f"segment_sum (none computes raster_select); errors over all "
         f"checked cases (raster_select: max |key| error where both cover, "
@@ -2120,7 +2312,8 @@ def main():
                      "the gathers' gradients; on the TPU XLA scatter-adds, "
                      "mvedit_tpu/ops/segment.py:29)",
          "launches": seg_launches, "max_abs_err": seg_worst,
-         "ms": shot["ms"], "kernel_ms": shot["kernel_ms"],
+         "ms": shot["ms"], "order_ms": shot["order_ms"],
+         "kernel_ms": shot["kernel_ms"],
          "plain_ms": shot["plain_ms"], "bound_ms": shot["bound_ms"],
          "bound_by": shot["bound_by"],
          "library_ms": shot["library_ms"]}]}))

@@ -3,12 +3,13 @@ the row gather the mesh and field paths differentiate through, both
 accumulating in a fixed order.
 
 The sums go through `kernels.segment_sum` (one stable sort of the targets,
-then each row summed in the contributions' order in float32), so that one
+then each row summed in float32 in an order fixed by the data), so that one
 seed gives one result on the card: `index_add`, and the backward of
 `index_select` or of advanced indexing, add atomically there and round in
 arrival order. `segment_add`'s backward is a gather of the output
-gradient; `gather_rows`' backward is a `segment_sum` of it, cast once to
-the gathered tensor's dtype (the dense grid's bf16 table sums in f32).
+gradient; `gather_rows`' backward is a `segment_sum` of it, rounded once
+to the gathered tensor's dtype (the dense grid's bf16 table sums in f32;
+the kernel writes the bf16 gradient itself).
 Advanced indexing's own backward is a sorted, serialised accumulate that
 took 21 ms per dense-grid corner gather and ~1 s per mesh-fit step on an
 H100 (PERF.md, Findings), which is why none of these use it.
@@ -30,8 +31,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        gx = segment_sum(idx, g.reshape(idx.shape[0], -1), ctx.rows)
-        return gx.reshape(ctx.rows, *g.shape[1:]).to(ctx.dtype), None
+        gx = segment_sum(idx, g.reshape(idx.shape[0], -1), ctx.rows,
+                         out_dtype=ctx.dtype)
+        return gx.reshape(ctx.rows, *g.shape[1:]), None
 
 
 class _SegmentAdd(torch.autograd.Function):

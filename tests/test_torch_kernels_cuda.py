@@ -25,10 +25,13 @@ Tolerances:
 - raster selection at 32 x 32 tiles (texture superres's 2048^2 bake):
   exact as well, at the bake's config and on the edge cases.
 - segment sum (`kernels/segment_sum.py`): the same bits on every run, the
-  bits of `segment_sum_ordered` (the kernel's order in plain PyTorch,
-  long rows' strided partials and tree included), and within
+  bits of `segment_sum_ordered` (the kernel's order in plain PyTorch, long
+  rows' slices, strided partials and trees included), and within
   `rounding_bound` of a float64 sum (k u sum|x|, k = n for a row of n <=
-  `LONG`, ceil(n / 256) + 8 beyond); rows of one contribution to 10^5.
+  `LONG`; beyond, the partials' terms and the trees' depths); rows of
+  one contribution to 10^6 and at the slice edges; the bf16 output is the
+  float32 sum rounded once. Its ordering equals `torch.sort(stable=True)`
+  of the keys and `searchsorted` offsets exactly.
 - determinism: two tiny NeRF-fit chunks, and two mesh-fit chunks, from one
   seed give bit-equal parameters, without and with
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
@@ -380,29 +383,88 @@ def test_raster_select_tile_32_matches_plain(cuda, tile_case):
     (33 ** 3, 1 << 20, 8, torch.bfloat16, 0.0),   # level 0: rows of ~30
     (40000, 240000, 4, torch.float32, 0.0),       # vertex sums
     (180000, 1 << 18, 6, torch.float32, 0.7),     # a render's background
-    (1000, 5000, 3, torch.float32, 0.3),          # one row past LONG
-    (1000, 1 << 21, 8, torch.bfloat16, 0.0)])     # surface cells: ~2000 each
+    (1000, 5000, 3, torch.float32, 0.3),          # one row past WARP
+    (1000, 1 << 21, 8, torch.bfloat16, 0.0),      # surface cells: ~2000 each
+    (50000, 300000, 6, torch.float32, 0.7),       # one row of ~2 10^5
+    (33 ** 3, 1 << 21, 8, torch.bfloat16, 0.5)])  # one row of ~10^6
 def test_segment_sum_matches_plain(cuda, rows, n, C, dtype, pile):
     """`pile`: the share of contributions that go to row 0 (one long row,
-    summed by the block kernel)."""
+    cut into slices)."""
     from mvedit_tpu_torch.kernels import segment_sum as KS
     g = torch.Generator(device=cuda).manual_seed(rows % 97)
     idx = torch.randint(-2, rows + 2, (n,), generator=g, device=cuda)
     idx = torch.where(torch.rand((n,), generator=g, device=cuda) < pile,
                       torch.zeros_like(idx), idx)
     vals = torch.randn((n, C), generator=g, device=cuda).to(dtype)
+    _check_segment_sum(KS, idx, vals, rows)
+    # the targets as a strided column: read in place, the same bits
+    col = torch.stack([idx, idx], 1)[:, 1]
+    staged = KS.segment_sum.staged
+    assert torch.equal(KS.segment_sum(col, vals, rows),
+                       KS.segment_sum(idx, vals, rows))
+    assert KS.segment_sum.staged == staged
+
+
+def _check_segment_sum(KS, idx, vals, rows):
+    """Two launches give the same bits, `segment_sum_ordered`'s bits,
+    within `rounding_bound` of a float64 sum; the bf16 output is the f32
+    sum rounded once."""
     before, staged = KS.segment_sum.launches, KS.segment_sum.staged
     a = KS.segment_sum(idx, vals, rows)
     b = KS.segment_sum(idx, vals, rows)
+    h = KS.segment_sum(idx, vals, rows, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert KS.segment_sum.launches == before + 2
+    assert KS.segment_sum.launches == before + 3
     assert KS.segment_sum.staged == staged
-    assert a.dtype == torch.float32 and a.shape == (rows, C)
+    assert a.dtype == torch.float32 and a.shape == (rows, vals.shape[1])
     assert torch.equal(a, b)
+    assert torch.equal(h, a.to(torch.bfloat16))
     assert torch.equal(a, KS.segment_sum_ordered(idx, vals, rows))
     exact = KS.segment_sum_reference(idx, vals, rows, torch.float64)
     bound = KS.rounding_bound(idx, vals, rows)
     assert bool(((a.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("extra", [0, 1, 2])
+@pytest.mark.parametrize("edge", ["long", "warp", "slice", "3slice"])
+def test_segment_sum_slice_edges(cuda, edge, extra):
+    """Row 0 of LONG, WARP, SLICE or 3 SLICE contributions, + 0, 1, 2,
+    among short rows."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    length = {"long": KS.LONG, "warp": KS.WARP, "slice": KS.SLICE,
+              "3slice": 3 * KS.SLICE}[edge] + extra
+    g = torch.Generator(device=cuda).manual_seed(length)
+    other = torch.randint(1, 700, (20000,), generator=g, device=cuda)
+    idx = torch.cat([torch.zeros(length, dtype=torch.int64, device=cuda),
+                     other])
+    idx = idx[torch.randperm(idx.shape[0], generator=g, device=cuda)]
+    vals = torch.randn((idx.shape[0], 3), generator=g, device=cuda)
+    _check_segment_sum(KS, idx, vals, 700)
+
+
+@pytest.mark.parametrize("size", [1, 40000, 100000, 161 ** 3])
+def test_segment_order_matches_a_stable_sort(cuda, size):
+    """The kernel's ordering (CUB over the row bits, offsets from the
+    sorted keys) against `torch.sort(stable=True)` of the int32 keys and
+    `searchsorted`: int64, int32 and strided targets, dropped ones
+    included."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    g = torch.Generator(device=cuda).manual_seed(size % 1009)
+    n = 1 << 20
+    idx = torch.randint(-3, size + 3, (n,), generator=g, device=cuda)
+    idx = torch.where(torch.rand((n,), generator=g, device=cuda) < 0.3,
+                      idx % 7, idx)
+    key = torch.where((idx >= 0) & (idx < size), idx,
+                      torch.full_like(idx, size)).int()
+    skey, want = torch.sort(key, stable=True)
+    want_off = torch.searchsorted(skey, torch.arange(
+        size + 1, dtype=torch.int32, device=cuda))
+    # int64, int32, and a strided column (as the mesh's faces give)
+    for targets in (idx, idx.int(), torch.stack([idx, -idx], 1)[:, 0]):
+        perm, off = KS.segment_order(targets, size)
+        assert perm.dtype == off.dtype == torch.int32
+        assert torch.equal(perm.long(), want)
+        assert torch.equal(off.long(), want_off)
 
 
 def _fit_pipe(cuda):

@@ -1,30 +1,49 @@
 """The fixed-order segment sum (`kernels/segment_sum.py`) and the ops built
 on it (`ops/segment.py`), on the CPU.
 
-The kernel sums each target row's contributions one after another in the
-order of a stable sort of the targets. On the CPU the wrapper takes the
-plain version, a float32 `index_add` into zeros, which adds in the same
-order; these tests hold both descriptions to each other exactly:
+The kernel sums a row of at most `LONG` contributions one after another
+in the order of a stable sort of the targets, a row of at most `WARP` by
+one warp (32 strided partials, a fixed tree), and a longer row in slices
+of `SLICE` (strided partials and a fixed tree in each, then the slices'
+partials the same way). On the CPU the wrapper takes the plain version, a
+float32 `index_add` into zeros, which adds in order; these tests hold the
+descriptions to each other exactly:
 - the plain version against `index_add`, dropped targets included;
-- `segment_order`'s permutation and offsets against a sequential,
-  row-by-row float32 sum in that order (what the kernel computes for rows
-  of at most `LONG`): equal bits;
+- `segment_order` (on the CPU the plain ordering, which the card's CUB
+  sort over the row bits is held to by the gpu tests) against
+  `torch.sort(stable=True)` of the int32 keys, at sizes whose bit_length
+  is 1, 16, 17 and 22: int32, dropped targets past the last row, equal
+  permutation and offsets;
+- its permutation and offsets against a sequential, row-by-row float32 sum
+  (what the kernel computes for rows of at most `LONG`): equal bits;
 - `segment_sum_ordered` (the kernel's order in plain PyTorch, what the
   card's checks require equal bits to): the plain version's bits on rows
-  of at most `LONG`, a longer row's blocked order emulated here entry by
-  entry; every row within `rounding_bound` of a float64 sum, a bound
-  tight enough that a block sum which loses one partial, stops its tree
-  early or drops half the row falls outside it;
-- `gather_rows`' backward (a segment sum cast once to the table's dtype)
-  and `segment_add`'s (a gather) against autograd of `index_select` /
-  `index_add` in float32;
+  of at most `LONG`; a longer row's warp or slice order emulated here
+  entry by entry in numpy float32, equal bits at rows of `LONG`, `LONG +
+  1`, `WARP`, `WARP + 1`, `SLICE`, `SLICE + 1` and 3 `SLICE` + 1; every
+  row within
+  `rounding_bound` of a float64 sum, a bound tight enough that a slice
+  dropped or counted twice, a partial lost, a tree stopped early or half
+  a row dropped falls outside it;
+- `segment_add` and `gather_rows`' backward against the JAX package's
+  `segment_add` and `jax.grad` of a `jnp.take`, on one row longer than a
+  slice: JAX's CPU scatter adds in order, so the port's CPU bits equal
+  JAX's; the kernel's order and JAX's each within their order's rounding
+  of a float64 sum;
+- `gather_rows`' backward (a segment sum rounded once to the table's
+  dtype) and `segment_add`'s (a gather) against autograd of `index_select`
+  / `index_add` in float32;
 - the mesh fit's normal-consistency and Laplacian sums, now one
   `segment_add` each, against the sequential `index_add`s they replace:
   equal values and gradients;
 - the bare `launch` refuses tensors off the card.
 """
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+from mvedit_tpu.ops import segment as jax_segment
 
 from mvedit_tpu_torch.kernels import segment_sum as KS
 from mvedit_tpu_torch.models import mesh_fit as MF
@@ -58,8 +77,9 @@ def test_order_gives_the_kernels_sums(dtype):
     idx, vals, size = _data(2, N=800, size=23, C=3)
     vals = vals.to(dtype)
     perm, off = KS.segment_order(idx, size)
-    assert perm.dtype == off.dtype == torch.int64
+    assert perm.dtype == off.dtype == torch.int32
     assert off.shape == (size + 1,) and int(off[0]) == 0
+    perm = perm.long()
     ks = idx[perm]
     # stable: within a row the original order
     for r in range(size):
@@ -78,6 +98,36 @@ def test_order_gives_the_kernels_sums(dtype):
         idx.shape[0] - int(off[size])
 
 
+@pytest.mark.parametrize("size", [1, 40000, 100000, 161 ** 3])
+def test_order_matches_a_stable_sort(size):
+    """bit_length(size) = 1, 16, 17, 22: `segment_order` keys dropped
+    targets `size` and gives `torch.sort(stable=True)`'s permutation of
+    the int32 keys and its offsets, as int32 (the gpu test holds CUB's
+    sort over the row bits only to the same)."""
+    assert {1: 1, 40000: 16, 100000: 17, 161 ** 3: 22}[size] == \
+        size.bit_length()
+    g = torch.Generator().manual_seed(size % 1009)
+    n = 20000
+    idx = torch.randint(0, size, (n,), generator=g)
+    # dropped targets: negative, the mask convention (== size), beyond
+    drop = torch.rand((n,), generator=g)
+    idx = torch.where(drop < 0.05, torch.full_like(idx, -1), idx)
+    idx = torch.where((drop >= 0.05) & (drop < 0.1),
+                      torch.full_like(idx, size), idx)
+    idx = torch.where((drop >= 0.1) & (drop < 0.12), idx + size + 7, idx)
+    # a few rows with many contributions, so that runs of one key occur
+    idx = torch.where(drop > 0.9, idx % 5, idx)
+    perm, off = KS.segment_order(idx, size)
+    assert perm.dtype == off.dtype == torch.int32
+    key = torch.where((idx >= 0) & (idx < size), idx,
+                      torch.full_like(idx, size)).int()
+    skey, want = torch.sort(key, stable=True)
+    assert torch.equal(perm.long(), want)
+    want_off = torch.searchsorted(skey, torch.arange(
+        size + 1, dtype=torch.int32))
+    assert torch.equal(off.long(), want_off)
+
+
 def _long_row(seed=3, n=5000, C=2):
     g = torch.Generator().manual_seed(seed)
     idx = torch.where(torch.rand((n,), generator=g) < 0.6,
@@ -87,32 +137,90 @@ def _long_row(seed=3, n=5000, C=2):
     return idx, vals, 9
 
 
-def _block_sum(row, tree_stop=1, skip=None):
-    """A long row as the block kernel sums it: 256 strided partials in
-    order, then the tree down to w = tree_stop; `skip` drops a partial."""
-    part = torch.zeros((256, row.shape[1]))
-    for t in range(256):
-        if t == skip:
-            continue
-        for j in range(t, row.shape[0], 256):
-            part[t] = part[t] + row[j]
-    w = 128
-    while w >= tree_stop:
-        part[:w] = part[:w] + part[w:2 * w]
+def _tree(lanes, stop=1):
+    w = lanes.shape[0] // 2
+    while w >= stop:
+        lanes[:w] = lanes[:w] + lanes[w:2 * w]
         w //= 2
-    return part[0]
+    return lanes[0]
+
+
+def _kernel_row(row, skip_lane=None, slice_tree_stop=1, skip_slice=None,
+                twice_slice=None, finish_tree_stop=1):
+    """A row (n, C) in its sorted order as the kernel sums it, entry by
+    entry in numpy float32: in order for n <= LONG; for n <= WARP lane
+    j % 32 adds entry j in order, then the tree over 32 lanes; else per
+    slice of SLICE entries, lane j % BLOCK adds entry j in order, then the
+    tree; then lane s % BLOCK adds slice s's sum in order, then the tree.
+    The keywords break the slice tier: a lane of every slice lost, a
+    slice's tree stopped early, a slice dropped or counted twice, the
+    last tree stopped early."""
+    row = np.asarray(row, np.float32)
+    n, C = row.shape
+    if n <= KS.LONG:
+        acc = np.zeros(C, np.float32)
+        for x in row:
+            acc = acc + x
+        return acc
+    if n <= KS.WARP:
+        lanes = np.zeros((32, C), np.float32)
+        for j, x in enumerate(row):
+            lanes[j % 32] = lanes[j % 32] + x
+        return _tree(lanes)
+    sums = []
+    for s0 in range(0, n, KS.SLICE):
+        lanes = np.zeros((KS.BLOCK, C), np.float32)
+        for j, x in enumerate(row[s0:s0 + KS.SLICE]):
+            if j % KS.BLOCK != skip_lane:
+                lanes[j % KS.BLOCK] = lanes[j % KS.BLOCK] + x
+        sums.append(_tree(lanes, slice_tree_stop))
+    if skip_slice is not None:
+        sums[skip_slice] = np.zeros(C, np.float32)
+    if twice_slice is not None:
+        sums.append(sums[twice_slice])
+    lanes = np.zeros((KS.BLOCK, C), np.float32)
+    for s, x in enumerate(sums):
+        lanes[s % KS.BLOCK] = lanes[s % KS.BLOCK] + x
+    return _tree(lanes, finish_tree_stop)
+
+
+@pytest.mark.parametrize("length", [
+    KS.LONG, KS.LONG + 1, KS.WARP, KS.WARP + 1, KS.SLICE, KS.SLICE + 1,
+    3 * KS.SLICE + 1])
+def test_ordered_sum_at_the_slice_edges(length):
+    """Row 0 of `length` contributions (among short rows and dropped
+    targets): `segment_sum_ordered` has the entry-by-entry emulation's
+    bits there and the plain version's on the short rows."""
+    g = torch.Generator().manual_seed(length)
+    n_other = 3000
+    other = torch.randint(1, 400, (n_other,), generator=g)
+    other[::13] = 400                                 # dropped
+    idx = torch.cat([torch.zeros(length, dtype=torch.int64), other])
+    idx = idx[torch.randperm(idx.shape[0], generator=g)]
+    vals = torch.randn((idx.shape[0], 3), generator=g)
+    out = KS.segment_sum_ordered(idx, vals, 400, budget=1 << 14)
+    row = vals[idx == 0].numpy()                      # in their order
+    assert row.shape[0] == length
+    assert np.array_equal(out[0].numpy(), _kernel_row(row))
+    ref = KS.segment_sum_reference(idx, vals, 400)
+    assert int(torch.bincount(other[other < 400]).max()) <= KS.LONG
+    assert torch.equal(out[1:], ref[1:])
+    if length <= KS.LONG:
+        assert torch.equal(out[0], ref[0])
+    exact = KS.segment_sum_reference(idx, vals, 400, torch.float64)
+    assert bool(((out.double() - exact).abs()
+                 <= KS.rounding_bound(idx, vals, 400)).all())
 
 
 def test_long_row_order_within_rounding():
-    """A row longer than `LONG` (the block kernel's): 256 strided partial
-    sums in order, then a fixed tree over them, emulated here entry by
-    entry: `segment_sum_ordered`'s bits, within `rounding_bound` of a
-    float64 sum, and another order than the plain version's."""
-    idx, vals, size = _long_row()
+    """A row of two slices: `segment_sum_ordered`'s bits are the
+    emulation's, within `rounding_bound` of a float64 sum, and another
+    order than the plain version's."""
+    idx, vals, size = _long_row(n=16000)
     perm, off = KS.segment_order(idx, size)
-    row = vals[perm[off[0]:off[1]]]
-    assert row.shape[0] > KS.LONG
-    part = _block_sum(row)
+    row = vals[perm[off[0]:off[1]].long()]
+    assert KS.SLICE < row.shape[0] <= 2 * KS.SLICE
+    part = torch.from_numpy(_kernel_row(row))
     assert torch.equal(part, KS.segment_sum_ordered(idx, vals, size)[0])
     exact = KS.segment_sum_reference(idx, vals, size, torch.float64)
     bound = KS.rounding_bound(idx, vals, size)
@@ -128,7 +236,7 @@ def test_ordered_sum_is_the_plain_sum_on_short_rows(dtype, pile):
     sequential `index_add`; every row (a long one with `pile`) lies within
     `rounding_bound` of the float64 sum."""
     g = torch.Generator().manual_seed(11)
-    n, size = 6000, 40
+    n, size = 6000, 400
     idx = torch.randint(-2, size + 2, (n,), generator=g)
     idx = torch.where(torch.rand((n,), generator=g) < pile,
                       torch.zeros_like(idx), idx)
@@ -144,26 +252,111 @@ def test_ordered_sum_is_the_plain_sum_on_short_rows(dtype, pile):
                  <= KS.rounding_bound(idx, vals, size)).all())
 
 
-@pytest.mark.parametrize("fault", ["one_partial", "short_tree", "half_row"])
+@pytest.mark.parametrize("fault", ["one_partial", "short_tree", "half_row",
+                                   "slice_dropped", "slice_twice",
+                                   "last_tree_short"])
 def test_rounding_bound_catches_a_broken_block_sum(fault):
-    """The check the card holds the block kernel to: a long row's sum that
-    loses one partial (one thread's strided entries), stops the tree a
-    level early, or drops half the row, lies outside `rounding_bound` of
-    the float64 sum."""
-    idx, vals, size = _long_row(seed=5, n=60000, C=3)
+    """The check the card holds the slice kernels to: a long row's sum
+    that loses one partial (one lane of every slice), stops a slice's tree
+    a level early, drops half the row, drops a slice, counts a slice
+    twice, or stops the slices' tree a level early lies outside
+    `rounding_bound` of the float64 sum."""
+    idx, vals, size = _long_row(seed=5, n=80000, C=3)
     vals = vals / 10
     perm, off = KS.segment_order(idx, size)
-    row = vals[perm[off[0]:off[1]]]
-    if fault == "one_partial":
-        bad = _block_sum(row, skip=37)
-    elif fault == "short_tree":
-        bad = _block_sum(row, tree_stop=2)
-    else:
-        bad = _block_sum(row[: row.shape[0] // 2])
+    row = vals[perm[off[0]:off[1]].long()].numpy()
+    assert row.shape[0] > 5 * KS.SLICE
+    bad = {"one_partial": lambda: _kernel_row(row, skip_lane=37),
+           "short_tree": lambda: _kernel_row(row, slice_tree_stop=2),
+           "half_row": lambda: _kernel_row(row[: row.shape[0] // 2]),
+           "slice_dropped": lambda: _kernel_row(row, skip_slice=3),
+           "slice_twice": lambda: _kernel_row(row, twice_slice=3),
+           "last_tree_short": lambda: _kernel_row(row, finish_tree_stop=2),
+           }[fault]()
     exact = KS.segment_sum_reference(idx, vals, size, torch.float64)[0]
-    bound = KS.rounding_bound(idx, vals, size)[0]
-    assert bool(((_block_sum(row).double() - exact).abs() <= bound).all())
-    assert bool(((bad.double() - exact).abs() > bound).any())
+    bound = KS.rounding_bound(idx, vals, size)[0].numpy()
+    good = _kernel_row(row)
+    assert np.array_equal(good, KS.segment_sum_ordered(idx, vals,
+                                                       size)[0].numpy())
+    assert bool((np.abs(good - exact.numpy()) <= bound).all())
+    assert bool((np.abs(bad.astype(np.float64) - exact.numpy())
+                 > bound).any())
+
+
+def _in_order(idx, vals, size):
+    """The float32 sum of each row added in order (numpy's float32
+    `cumsum`, which adds one term after another) and that order's running
+    error bound: u / (1 - u) sum_k |s_k| over its partial sums s_k, plus
+    n 2^-53 sum|x| for the float64 reference. For a long row of random
+    signs this is far below the (n - 1) u sum|x| of an arbitrary order."""
+    idx, vals = idx.numpy(), vals.numpy()
+    out = np.zeros((size, vals.shape[1]), np.float32)
+    bound = np.zeros((size, vals.shape[1]))
+    u = 2.0 ** -24
+    for r in range(size):
+        row = vals[idx == r]
+        if row.shape[0] == 0:
+            continue
+        part = np.cumsum(row, axis=0, dtype=np.float32)
+        out[r] = part[-1]
+        bound[r] = (u / (1 - u) * np.abs(part.astype(np.float64)).sum(0)
+                    + row.shape[0] * 2.0 ** -53
+                    * np.abs(row.astype(np.float64)).sum(0))
+    return out, bound
+
+
+@pytest.mark.parametrize("C", [3, 8])
+def test_segment_sums_match_jax(C):
+    """`segment_add` and `gather_rows`' backward against the JAX package's
+    `segment_add` and `jax.grad` of a `jnp.take`, on the same numpy
+    inputs, with row 0 longer than one slice and dropped targets (==
+    size). XLA does not document the order of a scatter's adds; on the
+    CPU it adds in order, which the test asserts (JAX's bits equal an
+    in-order float32 sum, and so the port's CPU `segment_add`, a float32
+    `index_add`). JAX is then held to the float64 sum by that order's
+    running error bound (`_in_order`), the kernel's order
+    (`segment_sum_ordered`) by `rounding_bound`, and the two to each
+    other by the sum of the two bounds."""
+    rng = np.random.default_rng(C)
+    n, size = 20000, 50
+    idx = rng.integers(0, size + 1, n).astype(np.int32)
+    idx[rng.random(n) < 0.6] = 0
+    assert (idx == 0).sum() > KS.SLICE
+    vals = rng.standard_normal((n, C)).astype(np.float32)
+    ti, tv = torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(vals)
+    exact = KS.segment_sum_reference(ti, tv, size, torch.float64).numpy()
+    bound = KS.rounding_bound(ti, tv, size).numpy()
+    seq, seq_bound = _in_order(ti, tv, size)
+    want = np.asarray(jax_segment.segment_add(jnp.asarray(idx),
+                                              jnp.asarray(vals), size))
+    assert np.array_equal(want, seq)
+    assert (np.abs(want - exact) <= seq_bound).all()
+    assert np.array_equal(segment_add(ti, tv, size).numpy(), want)
+    got = KS.segment_sum_ordered(ti, tv, size).numpy()
+    assert (np.abs(got - exact) <= bound).all()
+    assert (np.abs(got - want) <= bound + seq_bound).all()
+    # gather_rows' backward: the gradient of sum(x[idx] * w) in x
+    keep = idx < size
+    gi, w = idx[keep], vals[keep]
+    table = rng.standard_normal((size, C)).astype(np.float32)
+    jgrad = np.asarray(jax.grad(lambda x: jnp.sum(
+        jnp.take(x, jnp.asarray(gi), axis=0) * jnp.asarray(w)))(
+            jnp.asarray(table)))
+    x = torch.from_numpy(table.copy()).requires_grad_(True)
+    (gather_rows(x, torch.from_numpy(gi.astype(np.int64)))
+     * torch.from_numpy(w)).sum().backward()
+    tgi = torch.from_numpy(gi.astype(np.int64))
+    tw = torch.from_numpy(w)
+    gexact = KS.segment_sum_reference(tgi, tw, size, torch.float64).numpy()
+    gseq, gseq_bound = _in_order(tgi, tw, size)
+    assert np.array_equal(jgrad, gseq)
+    assert (np.abs(jgrad - gexact) <= gseq_bound).all()
+    assert np.array_equal(x.grad.numpy(), jgrad)
+    gord = KS.segment_sum_ordered(tgi, tw, size).numpy()
+    assert (np.abs(gord - gexact)
+            <= KS.rounding_bound(tgi, tw, size).numpy()).all()
+    assert (np.abs(gord - jgrad)
+            <= KS.rounding_bound(tgi, tw, size).numpy() + gseq_bound).all()
 
 
 def test_gather_rows_backward():
