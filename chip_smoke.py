@@ -18,14 +18,15 @@ from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
 the shapes the main path gives it, then drives the port at full width with
 seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
-`run_3d_to_3d` requests, checkpoint loading, and whole `run_retex`
-requests with IP-Adapter.
+`run_3d_to_3d` requests, checkpoint loading, whole `run_retex`
+requests with IP-Adapter, and texture superres with an orbit video.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of every kernel source, all started together, with ptxas'
    report;
 3. kernels against their plain versions, timed with CUDA events:
-   flash attention (bf16) at every path shape; the raster selection at the
+   flash attention (bf16) at every path shape (superres's joint
+   attention over 8 views included); the raster selection at the
    fit's, `load_init_mesh`'s, the render-size ramp's, the UV bake's and
    (32 x 32 tiles) texture superres's 2048^2 bake's configs, timed as
    single launches, in batches of 20 launched from the
@@ -36,8 +37,9 @@ requests with IP-Adapter.
    bits must equal the plain version's); the JAX package's own flash
    kernel API (`ops/flash_attention.py`); the fixed-order segment sum at
    the path's shapes (the dense grid's corner gathers at a NeRF chunk's
-   sample count and at retex's albedo fit, the mesh fit's vertex sums, a
-   render's corner gather) and at a NeRF-fit step's own sample points
+   sample count and at the retex and superres albedo fits, the mesh fit's
+   vertex sums, a render's corner gather) and at a NeRF-fit step's own
+   sample points
    (rays of the rig, those that miss the box included): the same bits on
    two runs, the bits of its order rebuilt in plain PyTorch, the bf16
    output the f32 sum rounded once, and within the rounding of that order
@@ -83,16 +85,30 @@ requests with IP-Adapter.
    through IP-Adapter (the vision tower at `CLIPVisionConfig()` widths);
    the defaults' depth (steps 12 at strength 0.7: 9 timesteps,
    n_inverse_steps 24); the two albedos must be bit-equal, and flash
-   attention, the raster selection and the segment sum must each launch.
+   attention, the raster selection and the segment sum must each launch;
+11. texture superres at full width, on phase 10's GLB (the knot with its
+   1024^2 albedo, so the init views come from the atlas through
+   `_sample_level` and IP-Adapter prompts each view with its own): two
+   `run_texture_superres` requests of one seed at the endpoint's defaults
+   (no cut in depth: 6 + 2 views of 512^2, 24 steps at strength 0.4, the
+   2-pass denoise at 2N = 16, 512 fit steps with LPIPS, the 2048^2 bake at
+   32 x 32 raster tiles, K 64 + 32, whose overflowing tiles are counted
+   and printed), whose albedos must be bit-equal and finite; one
+   `run_retex(..., superres=True)` at phase 10's settings (the live field
+   handed over); one `run_mesh_to_video` of the superres GLB (24 frames,
+   finite, the file written). Wall time, phase times and peak memory of
+   each; flash attention, the raster selection (tile 32 counted apart: at
+   least one launch a request) and the segment sum must each launch.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
-phase 10; the segment sum over phases 6-10): a kernel of a path with
-no launch there fails the run, and so does an input that the flash or the
-raster wrapper had to stage (copy) for its kernel. Without a CUDA device
-the script exits non-zero and prints no result.
+phase 10; each request and the video in phase 11; the segment sum over
+phases 6-11): a kernel of a path with no launch there fails the run, and
+so does an input that the flash or the raster wrapper had to stage (copy)
+for its kernel. Without a CUDA device the script exits non-zero and prints
+no result.
 
 `--ab SRC...` does phase 1 and then only the A/B: edited copies of the
 flash source (`phase_ab_flash`, timed at the request's shapes) or of the
@@ -168,6 +184,9 @@ REQUEST_SHAPES = [(8, 8192, 8, 40),    # reference pairs, level 1
                   (16, 4096, 8, 40),   # ControlNets on the CFG chunk, level 1
                   (8, 2048, 8, 80)]    # reference pairs, level 2
 KERNEL_CASES += [(shape, 1.0) for shape in REQUEST_SHAPES]
+# texture superres: the UNet's joint attention over all 8 views of the
+# CFG batch at once (2N = 16 as 2 x 8 views), levels 1 and 2
+KERNEL_CASES += [((2, 32768, 8, 40), 1.0), ((2, 8192, 8, 80), 1.0)]
 # the shape whose times go into the JSON line: the request's hottest
 HOT_SHAPE = (8, 8192, 8, 40)
 # --ab: small ragged cases ((B, Lq, H, D), Lk) checked before the timing,
@@ -198,14 +217,19 @@ RASTER_HOT = "fit"
 # corner gather of the packed xyz + normal (the background's pixels all on
 # one dummy face: one row of ~180k), and retex's albedo fit (6 views of
 # 512^2 a step, every pixel a point on the surface or, for the background,
-# on one point: rows of thousands at level 0, ~10^6 on the background's 8)
+# on one point: rows of thousands at level 0, ~10^6 on the background's
+# 8), and texture superres's albedo fit (4 views of 512^2 a step, targets
+# of the same kind)
 SEGMENT_CASES = [("grid_level1", 161 ** 3, 16384 * 128 * 8, 8, "bf16"),
                  ("grid_level0", 33 ** 3, 16384 * 128 * 8, 8, "bf16"),
                  ("mesh_gather", 100000, 3 * 200000, 3, "f32"),
                  ("mesh_laplacian", 100000, 6 * 200000, 4, "f32"),
                  ("render_gather", 180000, 512 * 512, 6, "f32"),
                  ("retex_level0", 33 ** 3, 6 * 512 * 512 * 8, 8, "bf16"),
-                 ("retex_level1", 161 ** 3, 6 * 512 * 512 * 8, 8, "bf16")]
+                 ("retex_level1", 161 ** 3, 6 * 512 * 512 * 8, 8, "bf16"),
+                 ("superres_level0", 33 ** 3, 4 * 512 * 512 * 8, 8, "bf16"),
+                 ("superres_level1", 161 ** 3, 4 * 512 * 512 * 8, 8,
+                  "bf16")]
 # the path's own targets: a NeRF-fit step's 16384 x 128 samples at the
 # dense grid's level 1 (161^3 rows), from the rig's rays (those that miss
 # the box clipped to its faces, as the grid clips them)
@@ -234,6 +258,10 @@ REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
 RETEX_VIEWS = 12             # + the top view of front_view_id
 RETEX_STEPS = 12             # at strength 0.7: 9 timesteps
 RETEX_N_INV = 24
+# texture superres at the endpoint's defaults, and the orbit video
+SR_ATLAS = 2048
+SR_FIT_STEPS = 512
+VIDEO_FRAMES = 24
 LPIPS_BF16_RTOL = 5e-2       # bf16 LPIPS against f32, relative
 DEV = "cuda"
 TIMED_RUNS = 10
@@ -949,7 +977,7 @@ def nerf_chunk_points(gen, size=256, rays=16384):
 
 def segment_indices(name, R, n, gen):
     """The targets of a SEGMENT_CASES row (or of SEGMENT_PATH_CASE)."""
-    if name.startswith("retex"):
+    if name.startswith(("retex", "superres")):
         # a sphere of radius 0.3 in the unit cube; the background's
         # pixels (65%) all on one point
         m = n // 8
@@ -1426,6 +1454,31 @@ class _PartCounter:
                 setattr(obj, name, old)
 
 
+def check_shapes(tag, shapes):
+    """Prints the flash shapes a phase's path gave the kernel and fails
+    unless phase 3 checked each of them."""
+    log(f"[{tag}] flash_attention shapes over the requests (calls): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
+    missing = [k for k in shapes if (k, 1.0) not in
+               [(c[0], c[1]) for c in KERNEL_CASES]]
+    if missing:
+        raise AssertionError(f"{tag} shapes not checked in phase 3: "
+                             f"{missing}")
+
+
+def _record_shapes(TA, shapes):
+    """A stand-in for `attention.flash_attention` that records each call's
+    (B, L, H, D) (q's and k's when they differ) and calls the kernel."""
+    kernel = TA.flash_attention
+
+    def recording(q, k, v):
+        key = tuple(q.shape) if q.shape == k.shape else \
+            (tuple(q.shape), tuple(k.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+        return kernel(q, k, v)
+    return kernel, recording
+
+
 def phase_request(runner, tmp):
     """`run_3d_to_3d` at full width, twice (see the module doc). Returns the
     raster kernel's launches per part and the flash kernel's, summed over
@@ -1443,13 +1496,8 @@ def phase_request(runner, tmp):
         f"init_inverse_steps {REQ_INIT_INV} (of 256), n_inverse_steps "
         f"{REQ_N_INV} (of 80), tet_init_inverse_steps {REQ_TET_INIT} (of "
         f"120); {REQ_VIEWS} views, 512^2, tet {TET}, LPIPS and SRVGG on")
-    shapes, kernel = {}, TA.flash_attention
-
-    def recording(q, k, v):
-        key = tuple(q.shape) if q.shape == k.shape else \
-            (tuple(q.shape), tuple(k.shape))
-        shapes[key] = shapes.get(key, 0) + 1
-        return kernel(q, k, v)
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
     out, total_parts, total_fa = None, {}, 0
     for run in ("cold", "warm"):
         dst = os.path.join(tmp, f"out_{run}.glb")
@@ -1517,13 +1565,7 @@ def phase_request(runner, tmp):
     log(f"[request] cold and warm GLBs bit-equal (one seed): {same}")
     if not all(same.values()):
         raise AssertionError("two requests of one seed gave two GLBs")
-    log("[request] flash_attention shapes over both requests (calls): "
-        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
-    missing = [k for k in shapes if (k, 1.0) not in
-               [(c[0], c[1]) for c in KERNEL_CASES]]
-    if missing:
-        raise AssertionError(f"request shapes not checked in phase 3: "
-                             f"{missing}")
+    check_shapes("request", shapes)
     return total_parts, total_fa, dict(out=out, src=src)
 
 
@@ -1712,13 +1754,8 @@ def phase_retex(runner, tmp):
         f"{RETEX_N_INV} (the defaults; no cut in depth), tile + depth "
         f"ControlNets, 2-pass, LPIPS on, dense field (32, 160), a seeded "
         f"{SIZE}^2 in_image through IP-Adapter")
-    shapes, kernel = {}, TA.flash_attention
-
-    def recording(q, k, v):
-        key = tuple(q.shape) if q.shape == k.shape else \
-            (tuple(q.shape), tuple(k.shape))
-        shapes[key] = shapes.get(key, 0) + 1
-        return kernel(q, k, v)
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
     albedos, totals = [], dict(flash=0, raster=0, segment=0)
     for run in ("first", "second"):
         dst = os.path.join(tmp, f"retex_{run}.glb")
@@ -1771,15 +1808,167 @@ def phase_retex(runner, tmp):
     log(f"[retex] the two albedos of one seed bit-equal: {same}")
     if not same:
         raise AssertionError("two retex requests of one seed differ")
-    log("[retex] flash_attention shapes over both requests (calls): "
-        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
-    missing = [k for k in shapes if (k, 1.0) not in
-               [(c[0], c[1]) for c in KERNEL_CASES]]
-    if missing:
-        raise AssertionError(f"retex shapes not checked in phase 3: "
-                             f"{missing}")
+    check_shapes("retex", shapes)
     return totals
 
+
+def phase_superres(runner, tmp):
+    """Texture superres at full width (see the module doc): two standalone
+    `run_texture_superres` requests of one seed on phase 10's GLB, one
+    `run_retex(..., superres=True)` at phase 10's settings, and one
+    `run_mesh_to_video` of the superres GLB. Returns the flash, raster
+    (tile 32 apart) and segment-sum launches of the requests and the
+    video."""
+    import importlib
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    import mvedit_tpu_torch.utils.video as V
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.mesh import Mesh, RasterConfig
+    from mvedit_tpu_torch.utils import profiling as PR
+    RZ = importlib.import_module("mvedit_tpu_torch.models.mesh.rasterize")
+    src = os.path.join(tmp, "retex_first.glb")
+    prompt = "a golden torus knot, studio light"
+    # the bake's tile load on the input's atlas (the request's own
+    # normalisation moves no uv): faces past K are dropped, as in the
+    # reference
+    mesh = runner.run_mesh_preproc(src)["mesh"]
+    acfg = RasterConfig(height=SR_ATLAS, width=SR_ATLAS, tile=32,
+                        k_per_tile=64, k_big=32)
+    uv = torch.as_tensor(mesh.vt, device=DEV)
+    pairs, big = RZ.tile_load(
+        torch.stack([uv[:, 0] * SR_ATLAS, uv[:, 1] * SR_ATLAS,
+                     torch.ones_like(uv[:, 0])], -1),
+        torch.as_tensor(mesh.ft, device=DEV),
+        torch.ones(len(mesh.ft), dtype=torch.bool, device=DEV), acfg)
+    over = pairs > acfg.k_per_tile
+    dropped = int((pairs - acfg.k_per_tile).clamp(min=0).sum())
+    log(f"[superres] input: phase 10's GLB, {len(mesh.f)} faces, "
+        f"{len(mesh.v)} vertices with uvs, albedo "
+        f"{None if mesh.albedo is None else mesh.albedo.shape}; the "
+        f"{SR_ATLAS}^2 bake at tile 32, K 64 + 32: {int(over.sum())} of "
+        f"{acfg.num_tiles} tiles overflow ({dropped} pairs dropped; the "
+        f"most in a tile {int(pairs.max())}), {big} big triangles (K "
+        f"{acfg.k_big})")
+    log(f"[superres] the endpoint's defaults (no cut in depth): 8 views "
+        f"(6 + 2 polar) of {SIZE}^2, 24 steps at strength 0.4 (10 "
+        f"timesteps), 2-pass at 2N = 16, IP-Adapter on the input's "
+        f"albedo, 512 fit steps with LPIPS, dense field (32, 160), "
+        f"{SR_ATLAS}^2 bake")
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
+    totals = dict(flash=0, raster=0, tile32=0, segment=0)
+    staged = (launch.staged, RS.raster_select.staged, SS.segment_sum.staged)
+
+    def run(tag, fn):
+        pt = PR.PhaseTimer()
+        PR.set_phase_timer(pt)
+        TA.flash_attention = recording
+        flash_attention.launches = RS.raster_select.launches = 0
+        RS.raster_select.tile32_launches = SS.segment_sum.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            TA.flash_attention = kernel
+            PR.set_phase_timer(None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n = dict(flash=flash_attention.launches,
+                 raster=RS.raster_select.launches,
+                 tile32=RS.raster_select.tile32_launches,
+                 segment=SS.segment_sum.launches)
+        for k in totals:
+            totals[k] += n[k]
+        log(f"[superres] {tag}: {wall:.3f} s wall, peak memory allocated "
+            f"{peak / 2**30:.2f} GiB")
+        for name, sec in pt.report().items():
+            log(f"[superres] {tag}   phase {name}: {sec:.3f} s over "
+                f"{pt.counts[name]} ticks")
+        log(f"[launches] superres {tag}: flash_attention {n['flash']}, "
+            f"raster_select {n['raster']} ({n['raster'] - n['tile32']} at "
+            f"tile 16, {n['tile32']} at tile 32), segment_sum "
+            f"{n['segment']}")
+        return out, n
+
+    def check(tag, out, n, losses):
+        albedo = out["mesh"].albedo
+        ok = (albedo.shape == (SR_ATLAS, SR_ATLAS, 3)
+              and np.isfinite(albedo).all()
+              and losses.shape == (SR_FIT_STEPS,)
+              and bool(torch.isfinite(losses).all())
+              and n["flash"] > 0 and n["segment"] > 0 and n["tile32"] >= 1
+              and n["raster"] > n["tile32"]
+              and (launch.staged, RS.raster_select.staged,
+                   SS.segment_sum.staged) == staged)
+        log(f"[superres] {tag}: albedo {albedo.shape} mean "
+            f"{float(albedo.mean()):.4f}, {losses.numel()} fit losses "
+            f"(first {float(losses[0]):.4f}, last {float(losses[-1]):.4f}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the superres {tag} request failed its "
+                                 f"checks")
+
+    albedos = []
+    for tag in ("first", "second"):
+        dst = os.path.join(tmp, f"superres_{tag}.glb")
+        out, n = run(tag, lambda: runner.run_texture_superres(
+            src, prompt, seed=SEED, out_path=dst))
+        check(tag, out, n, out["fit_losses"].float())
+        if out["renders"].shape != (8, SIZE, SIZE, 3):
+            raise AssertionError("superres renders of another shape")
+        albedos.append(out["mesh"].albedo)
+        del out
+    same = bool(np.array_equal(albedos[0], albedos[1]))
+    log(f"[superres] the two {SR_ATLAS}^2 albedos of one seed bit-equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("two superres requests of one seed differ")
+    del albedos
+    # retex with its live field handed to superres, at phase 10's settings
+    img = np.random.default_rng(SEED + 13).random(
+        (SIZE, SIZE, 3)).astype(np.float32)
+    knot = os.path.join(tmp, "retex_knot.glb")
+    out, n = run("chained retex + superres", lambda: runner.run_retex(
+        knot, prompt, seed=SEED, steps=RETEX_STEPS,
+        n_inverse_steps=RETEX_N_INV, num_views=RETEX_VIEWS,
+        front_view_id=0, in_image=img, superres=True))
+    check("chained retex + superres", out, n,
+          out["superres_fit_losses"].float())
+    del out
+    # an orbit video of the superres GLB, its frames captured
+    frames = {}
+    write = V.write_video
+
+    def capture(fr, path, fps=30):
+        frames["f"] = np.asarray(fr)
+        return write(fr, path, fps)
+    V.write_video = capture
+    try:
+        path, n = run("video", lambda: runner.run_mesh_to_video(
+            os.path.join(tmp, "superres_first.glb"),
+            out_path=os.path.join(tmp, "superres.mp4"),
+            num_frames=VIDEO_FRAMES))
+    finally:
+        V.write_video = write
+    fr = frames["f"]
+    ok = (os.path.exists(path) and os.path.getsize(path) > 0
+          and fr.shape == (VIDEO_FRAMES, SIZE, SIZE, 3)
+          and np.isfinite(fr).all() and n["raster"] == VIDEO_FRAMES
+          and float(fr.std()) > 0.01)
+    log(f"[superres] video: {fr.shape[0]} frames of {fr.shape[1:3]}, "
+        f"written to {os.path.basename(path)} ({os.path.getsize(path)} "
+        f"bytes), frame mean {float(fr.mean()):.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("run_mesh_to_video failed its checks")
+    check_shapes("superres", shapes)
+    return totals
 
 # kernel families by name, first match wins
 _FAMILIES = [
@@ -2239,9 +2428,11 @@ def main():
         phase_checkpoint(tmp)
         retex = phase_retex(runner, tmp)
         seg_launches += retex["segment"]
+        superres = phase_superres(runner, tmp)
+        seg_launches += superres["segment"]
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
-        f"requests, tet 256 and the retex requests (staged copies "
-        f"{SS.segment_sum.staged})")
+        f"requests, tet 256, the retex and the superres requests (staged "
+        f"copies {SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
                              "staged its inputs")
@@ -2258,7 +2449,9 @@ def main():
     # the rasterizer hands the selection float32 pts, int64 faces and ids,
     # bool masks, contiguous: read as they are
     log(f"[launches] raster_select staged copies over the mesh phase, the "
-        f"requests and tet 256: {RS.raster_select.staged}")
+        f"requests, tet 256, retex and superres: "
+        f"{RS.raster_select.staged}; tile 32: {superres['tile32']} "
+        f"launches, all in phase 11")
     if RS.raster_select.staged:
         raise AssertionError("the raster wrapper staged path inputs")
     if args.profile:
@@ -2282,7 +2475,8 @@ def main():
         {"name": "flash_attention", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
-         "launches": launches + req_flash + retex["flash"],
+         "launches": launches + req_flash + retex["flash"]
+         + superres["flash"],
          "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
@@ -2291,7 +2485,8 @@ def main():
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
          "launches": sum(mesh_launches.values())
-         + sum(req_launches.values()) + retex["raster"],
+         + sum(req_launches.values()) + retex["raster"]
+         + superres["raster"], "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
          "key_bits_differing": sum(r["key_bits"] for r in raster_rows),

@@ -75,9 +75,10 @@ def zero123plus_v12_rig():
 
 def superres_cameras(camera_distance=None, fov=None, num_cameras=None,
                      min_elev=None, max_elev=None, begin_rad=0.0,
-                     ref_pose=None):
+                     ref_pose=None, rng=None):
     """6 linspace surround views + 2 polar regularization poses
-    (adapter3d.py:430-454)."""
+    (adapter3d.py:430-454). The elevations are drawn from `rng` (the
+    reference draws them from an unseeded generator)."""
     c = CONSTANTS
     camera_distance = camera_distance or c["superres_camera_distance"]
     fov = fov or c["superres_fov"]
@@ -86,7 +87,7 @@ def superres_cameras(camera_distance=None, fov=None, num_cameras=None,
     max_elev = c["superres_max_elev"] if max_elev is None else max_elev
     poses = random_surround_views(
         camera_distance, num_cameras, min_elev, max_elev,
-        use_linspace=True, begin_rad=begin_rad)[:, :3]
+        use_linspace=True, begin_rad=begin_rad, rng=rng)[:, :3]
     if ref_pose is not None:
         poses[0] = ref_pose
     focal = 512 / (2 * np.tan(np.radians(fov / 2)))

@@ -1,9 +1,9 @@
 """Endpoints (mixed into Adapter3DRunner).
 
 Counterpart of `mvedit_tpu/apis/endpoints.py`; so far `run_text_to_img`,
-`load_init_mesh` and `run_3d_to_3d` (mesh editing: init renders -> the
-MVEdit loop -> a textured GLB). Texture superres (`superres=True`) waits
-for its slice.
+`load_init_mesh`, `run_3d_to_3d` (mesh editing: init renders -> the MVEdit
+loop -> a textured GLB, optionally chained into texture superres) and
+texture superres (`proc_texture_superres`, `run_texture_superres`).
 """
 import numpy as np
 import torch
@@ -182,15 +182,15 @@ class EndpointsMixin:
         """Mesh editing: render the input mesh's views -> the MVEdit
         denoise <-> reconstruct loop -> a textured mesh (GLB at
         `out_path`). Extra kwargs follow the public nerf_mesh parameter
-        schema (`apis/parameters.py`). front_view_id (an index into the
+        schema (`apis/parameters.py`); `superres` (True or a dict of
+        `proc_texture_superres` overrides) chains texture superres on the
+        live field before the vertices are un-normalised. front_view_id (an index into the
         preprocessing turntable) weights the views by a von Mises pdf
         around its azimuth and appends per-view direction prompts. The
         random draws come from a generator seeded with `seed`, or from
         `draws` (see `pipelines.mvedit_3d.GeneratorDraws`)."""
         from ..pipelines.mvedit_3d import MVEdit3DPipeline
         from . import parameters as P
-        if kwargs.get("superres", False):
-            raise NotImplementedError("texture superres is not ported yet")
         dev = self.device
         num_views = num_views or (3 if self.tiny else 32)
         m = self.load_stable_diffusion()
@@ -246,8 +246,95 @@ class EndpointsMixin:
         gen.manual_seed(seed)
         out = pipe(targets, pos.clone(), neg.clone(), generator=gen,
                    draws=draws)
+        # superres before the un-normalisation: the field lives in the
+        # normalised space
+        out = self._chain_superres(out, "nerf_params", prompt,
+                                   negative_prompt, seed,
+                                   kwargs.get("superres", False))
         if out_path and out["mesh"] is not None:
             out["mesh"].v = (out["mesh"].v / pre["scale"]
                              + pre["center"]).astype(np.float32)
             out["mesh"].write(out_path, flip_yz=True)
+        return out
+
+    # ------------------------------------------------------------------
+    def proc_texture_superres(self, mesh, prompt="", negative_prompt="",
+                              seed=42, steps=None, use_ip_adapter=True,
+                              init_field_params=None, draws=None):
+        """Texture superres of a mesh in memory: 6 surround views and 2
+        polar regularization poses (`cameras.superres_cameras`), img2img
+        with the tile and depth ControlNets, the albedo field fitted at
+        the last step only (512 steps, LPIPS), baked at 2048^2. The dense
+        field is (32, 160); `init_field_params` is a preceding stage's live
+        albedo field, which the fit starts from. With `use_ip_adapter` and
+        an albedo, IP-Adapter prompts each view with its own init render.
+        The draws come from a generator seeded with `seed`, or from
+        `draws`. The reference also loads the SRVGG enhancer here, which
+        its pipeline never reads; the port does not."""
+        from ..models.fields import INGPConfig
+        from ..ops.dense_grid import DenseGridConfig
+        from ..pipelines.superres import (SuperResConfig,
+                                          TextureSuperResPipeline)
+        tiny, dev = self.tiny, self.device
+        m = self.load_stable_diffusion()
+        m.controlnets = self.load_controlnets()
+        m.lpips_params = self.load_lpips()
+        # the rig's elevations from the seed (the reference's are unseeded)
+        poses, intr, reg_poses = C.superres_cameras(
+            rng=np.random.default_rng(seed))
+        all_poses = np.concatenate([poses, reg_poses], axis=0)
+        size = 64 if tiny else 512
+        cfg = SuperResConfig(
+            num_views=len(all_poses), render_size=size,
+            atlas_size=128 if tiny else 2048,
+            diffusion_steps=steps or (2 if tiny else 24),
+            n_inverse_steps=8 if tiny else 512,
+            ingp=INGPConfig(backend="dense", dense=DenseGridConfig(
+                resolutions=(8, 32) if tiny else (32, 160))))
+        pos, neg = self.encode_prompt(
+            m, [prompt] * cfg.num_views, [negative_prompt] * cfg.num_views)
+        if use_ip_adapter and mesh.albedo is not None:
+            # installs m.ip_encode_fn: each view is prompted with its own
+            # init render; the atlas only gives the shared tokens
+            self.enable_ip_adapter(m, mesh.albedo)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return TextureSuperResPipeline(m, cfg)(
+            mesh, t(all_poses), t(intr * (size / 512.0)), pos.clone(),
+            neg.clone(), generator=gen, draws=draws,
+            init_field_params=init_field_params)
+
+    def run_texture_superres(self, mesh_path, prompt="", negative_prompt="",
+                             seed=42, steps=None, out_path=None,
+                             use_ip_adapter=True, draws=None):
+        """Texture superres of a mesh file: `run_mesh_preproc`, then
+        `proc_texture_superres`; the GLB at `out_path`."""
+        pre = self.run_mesh_preproc(mesh_path)
+        out = self.proc_texture_superres(
+            pre["mesh"], prompt=prompt, negative_prompt=negative_prompt,
+            seed=seed, steps=steps, use_ip_adapter=use_ip_adapter,
+            draws=draws)
+        if out_path:
+            out["mesh"].write(out_path, flip_yz=True)
+        return out
+
+    def _chain_superres(self, out, field_key, prompt, negative_prompt,
+                        seed, superres):
+        """`proc_texture_superres` on a pipeline's result, with its live
+        albedo field (`out[field_key]`) handed over in memory. `superres`
+        is True or a dict of `proc_texture_superres` overrides (steps,
+        use_ip_adapter, draws)."""
+        if not superres or out.get("mesh") is None:
+            return out
+        kw = dict(superres) if isinstance(superres, dict) else {}
+        sr = self.proc_texture_superres(
+            out["mesh"], prompt=prompt, negative_prompt=negative_prompt,
+            seed=seed, init_field_params=out.get(field_key), **kw)
+        out["mesh"] = sr["mesh"]
+        out["superres_renders"] = sr["renders"]
+        out["superres_fit_losses"] = sr["fit_losses"]
+        out["field_params"] = sr["field_params"]
         return out

@@ -1,11 +1,11 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
 Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`,
-`run_retex` and `run_text_to_img` need: the SD1.5 UNet, VAE and CLIP text
-encoder, the tile and depth (and ip2p) ControlNets, LPIPS, the SRVGG image
-enhancer, IP-Adapter with its CLIP vision tower, prompt encoding, the mesh
-preprocessing, and the rig constants (`constants`, with `apis/cameras.py`
-and `utils/camera.py`).
+`run_retex`, texture superres, `run_mesh_to_video` and `run_text_to_img`
+need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and depth (and
+ip2p) ControlNets, LPIPS, the SRVGG image enhancer, IP-Adapter with its
+CLIP vision tower, prompt encoding, the mesh preprocessing, and the rig
+constants (`constants`, with `apis/cameras.py` and `utils/camera.py`).
 
 Models are built on `device` with seeded random weights (drawn from a
 `torch.Generator`), then loaded from `checkpoint_dir` where it holds them,
@@ -355,14 +355,13 @@ class Adapter3DRunner(EndpointsMixin):
         through IP-Adapter. Extra kwargs follow `apis/parameters.py::
         retex_defaults`. The random draws come from a generator seeded
         with `seed`, or from `draws` (`pipelines.GeneratorDraws`' methods).
-        Texture superres (`superres=True`) is not ported yet and raises."""
+        `superres` (True or a dict of `proc_texture_superres` overrides)
+        chains texture superres on the live albedo field."""
         from ..models.fields import INGPConfig
         from ..ops.dense_grid import DenseGridConfig
         from ..pipelines.texture import TextureConfig, TexturePipeline
         from ..utils import camera as cam_utils
         from . import parameters as P
-        if kwargs.get("superres", False):
-            raise NotImplementedError("texture superres is not ported yet")
         nk = dict(P.retex_defaults)
         if instruct:
             nk.update(P.instruct_retex_params)
@@ -442,9 +441,55 @@ class Adapter3DRunner(EndpointsMixin):
         out = TexturePipeline(m, cfg)(
             mesh, t(poses), t(intr), pos_e.clone(), neg_e.clone(),
             generator=gen, draws=draws, cam_weights=cam_weights)
+        out = self._chain_superres(out, "field_params", prompt,
+                                   negative_prompt, seed,
+                                   kwargs.get("superres", False))
         if out_path:
             out["mesh"].write(out_path, flip_yz=True)
         return out
+
+    @torch.no_grad()
+    def run_mesh_to_video(self, mesh_path, out_path="out.mp4",
+                          num_frames=60, render_size=None, elev=0.2,
+                          distance=3.0, fov=40.0, seed=42):
+        """An orbit video of a mesh file: each frame rendered on the
+        runner's device, coloured from the albedo through per-vertex uvs
+        (else by its normals), on white; written by `utils.video.
+        write_video` (mp4 through ffmpeg where it is installed, else a
+        GIF). Returns the written path."""
+        from ..models.mesh import RasterConfig, render_views
+        from ..models.mesh.texture import _sample_level
+        from ..utils import camera as cam_utils
+        from ..utils.video import render_surround_video
+        dev = self.device
+        render_size = render_size or (64 if self.tiny else 512)
+        mesh = Mesh.load(mesh_path)
+        rc = RasterConfig(height=render_size, width=render_size)
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        verts, faces = t(mesh.v), t(mesh.f, torch.int64)
+        fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=dev)
+        tex = None if mesh.albedo is None else t(mesh.albedo)
+        # the albedo is sampled through per-vertex uvs only
+        uv_attr = t(mesh.vt) if tex is not None and mesh.vt is not None \
+            and len(mesh.vt) == len(mesh.v) else None
+        intr = cam_utils.intrinsics_from_fov(fov, render_size, render_size)
+        pose0 = cam_utils.get_pose_from_angles(
+            np.array([0.0]), np.array([elev]), distance)[0]
+
+        def render_frame(pose, intrinsics):
+            out = render_views(verts, faces, fmask, t(pose)[None],
+                               t(intrinsics)[None], rc,
+                               vert_attrs=None if uv_attr is None
+                               else {"uv": uv_attr})
+            a = out["alpha"][0]
+            rgb = out["normal"][0] * 0.5 + 0.5 if uv_attr is None \
+                else _sample_level(tex, out["uv"][0])
+            return (rgb * a + (1 - a)).clamp(0.0, 1.0).cpu().numpy()
+
+        return render_surround_video(render_frame, pose0, intr,
+                                     num_frames=num_frames, path=out_path)
 
     def run_mesh_preproc(self, mesh_path, out_path=None):
         """Load and normalise an input mesh: multi-material GLB scenes

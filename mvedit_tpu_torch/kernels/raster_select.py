@@ -35,7 +35,8 @@ kernel reads the inputs as they are ("direct": float32 pts, int64 faces
 and ids, bool masks, each contiguous: what `rasterize` hands it) or from
 converted copies ("staged"), and raises for what it does not take (on a
 CPU tensor, any tile).
-`raster_select.launches` counts kernel launches and `raster_select.staged`
+`raster_select.launches` counts kernel launches (`raster_select.
+tile32_launches` those at 32 x 32 tiles apart) and `raster_select.staged`
 the launches that needed the copies (0 on the paths). `block_masks` is the
 plain version of the kernel's per-warp reject, used to count its work.
 """
@@ -348,8 +349,11 @@ def raster_select(pts, faces, tile_tris, tile_valid, tile, tiles_x,
     out = launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
                  cull_backface, big_tris, big_valid)
     raster_select.launches += 1
+    if tile == 32:
+        raster_select.tile32_launches += 1
     return out
 
 
 raster_select.launches = 0
+raster_select.tile32_launches = 0
 raster_select.staged = 0

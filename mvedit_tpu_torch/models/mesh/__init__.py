@@ -1,14 +1,18 @@
 """Mesh stack of the port: structured marching tets, the tile rasterizer,
-the multi-view renderer and UV bake, and the host-side mesh container."""
+the multi-view renderer and UV bake, texture sampling, and the host-side
+mesh container."""
 from .rasterize import RasterConfig, interpolate, project_mesh, rasterize
 from .container import Mesh
-from .renderer import (bake_texture, pose_to_w2c, render_views,
-                       vertex_normals)
+from .renderer import (bake_texture, camera_weights_uv, pose_to_w2c,
+                       render_views, vertex_normals)
 from .structured_tets import (StructuredTetGrid, marching_tets_structured,
                               marching_tets_topology, marching_tets_verts)
+from .texture import (bake_multiview, build_mipmaps, sample_texture,
+                      uv_screen_derivatives)
 
 __all__ = ["RasterConfig", "project_mesh", "rasterize", "interpolate",
            "vertex_normals", "pose_to_w2c", "render_views", "bake_texture",
-           "Mesh",
+           "camera_weights_uv", "build_mipmaps", "sample_texture",
+           "uv_screen_derivatives", "bake_multiview", "Mesh",
            "StructuredTetGrid", "marching_tets_structured",
            "marching_tets_topology", "marching_tets_verts"]

@@ -31,8 +31,8 @@ from ...kernels.raster_select import raster_select
 from ...ops.clip import clip
 from ...ops.segment import gather_rows
 
-__all__ = ["RasterConfig", "project_mesh", "candidates", "rasterize",
-           "interpolate"]
+__all__ = ["RasterConfig", "project_mesh", "candidates", "tile_load",
+           "rasterize", "interpolate"]
 
 
 @dataclass(frozen=True)
@@ -76,11 +76,10 @@ def _edge(p, q, r):
 
 
 @torch.no_grad()
-def _bin_triangles(pts, faces, face_valid, cfg: RasterConfig):
-    """Per-tile candidate lists, "pairs" binning. Returns (tile_tris
-    (num_tiles, k_per_tile) int64, tile_valid, big_tris (k_big,),
-    big_valid)."""
-    F = faces.shape[0]
+def _pair_keys(pts, faces, face_valid, cfg: RasterConfig):
+    """The (tile, triangle) pairs of "pairs" binning: (keys (F * span^2,)
+    tile ids, num_tiles for no pair, is_big (F,) the live triangles that
+    span more than `span` tiles on an axis)."""
     dev = pts.device
     p = pts[faces]                                   # (F, 3, 3)
     fmin = p[..., :2].amin(1)
@@ -109,6 +108,27 @@ def _bin_triangles(pts, faces, face_valid, cfg: RasterConfig):
     pair_valid = is_small[:, None, None] & in_y[:, :, None] & in_x[:, None, :]
     keys = torch.where(pair_valid, tile_id,
                        torch.full_like(tile_id, cfg.num_tiles)).reshape(-1)
+    return keys, is_big
+
+
+@torch.no_grad()
+def tile_load(pts, faces, face_valid, cfg: RasterConfig):
+    """(pairs per tile (num_tiles,), big triangles): what binning would
+    list before the capacities `k_per_tile` and `k_big` drop the rest."""
+    keys, is_big = _pair_keys(pts, faces.long(), face_valid, cfg)
+    return (torch.bincount(keys, minlength=cfg.num_tiles + 1)[:-1],
+            int(is_big.sum()))
+
+
+@torch.no_grad()
+def _bin_triangles(pts, faces, face_valid, cfg: RasterConfig):
+    """Per-tile candidate lists, "pairs" binning. Returns (tile_tris
+    (num_tiles, k_per_tile) int64, tile_valid, big_tris (k_big,),
+    big_valid)."""
+    F = faces.shape[0]
+    dev = pts.device
+    S = cfg.span
+    keys, is_big = _pair_keys(pts, faces, face_valid, cfg)
     # sort by (tile, tri): pairs of one tile keep ascending tri order
     Fm = max(F, 1)
     packed, _ = torch.sort(

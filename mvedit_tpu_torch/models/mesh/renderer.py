@@ -1,6 +1,5 @@
 """Mesh renderer: rasterize + shade + bake (counterpart of
-`mvedit_tpu/models/mesh/renderer.py`; `camera_weights_uv` waits for the
-superres / retex slices).
+`mvedit_tpu/models/mesh/renderer.py`).
 
 `render_views` renders the views one after another, so the raster working
 set stays at one view (the role of the reference's `sequential=True`).
@@ -12,7 +11,7 @@ from ...ops.segment import gather_rows, segment_add
 from .rasterize import RasterConfig, interpolate, project_mesh, rasterize
 
 __all__ = ["vertex_normals", "pose_to_w2c", "render_views",
-           "bake_texture"]
+           "bake_texture", "camera_weights_uv"]
 
 
 def vertex_normals(verts, faces, face_mask=None):
@@ -129,3 +128,56 @@ def bake_texture(verts, faces, face_mask, uvs, uv_faces, field_fn,
     rgb = torch.where(mask[..., None] > 0, rgb,
                       torch.zeros((), device=rgb.device, dtype=rgb.dtype))
     return rgb, mask
+
+
+@torch.no_grad()
+def camera_weights_uv(verts, faces, face_mask, uvs, uv_faces, poses_c2w,
+                      intrinsics, cfg: RasterConfig, atlas_cfg: RasterConfig,
+                      cos_weight_pow=1.0):
+    """Per-view weight maps over the UV atlas: visibility (the texel's
+    view depth against the view's depth buffer) x max(cos(normal, view
+    direction), 0)^p. The mesh is rasterized once in UV space (`atlas_cfg`)
+    and once per view (`cfg`), both through `rasterize`. Returns (N, Ha,
+    Wa) weights."""
+    faces = faces.long()
+    vn = vertex_normals(verts, faces, face_mask.to(verts.dtype))
+    H, W = atlas_cfg.height, atlas_cfg.width
+    pts_uv = torch.stack([uvs[:, 0] * W, uvs[:, 1] * H,
+                          torch.ones_like(uvs[:, 0])], -1)
+    rast_uv = rasterize(pts_uv, uv_faces, face_mask, atlas_cfg)
+    f_world = faces[rast_uv["tri_id"].clamp(min=0)]           # (Ha, Wa, 3)
+    u, v = rast_uv["bary"][..., 0:1], rast_uv["bary"][..., 1:2]
+
+    def blend(a):
+        return (a[f_world[..., 0]] * (1 - u - v) + a[f_world[..., 1]] * u
+                + a[f_world[..., 2]] * v)
+    xyz = blend(verts)
+    nrm = blend(vn)
+    nrm = nrm / clip(torch.linalg.norm(nrm, dim=-1, keepdim=True), 1e-12)
+    valid = rast_uv["tri_id"] >= 0
+
+    def one_view(pose, intr):
+        w2c = pose_to_w2c(pose)
+        # the view-space depth and pixel of each atlas texel
+        pc = xyz @ w2c[:, :3].T + w2c[:, 3]
+        z = pc[..., 2]
+        zc = clip(z, cfg.near)
+        upix = intr[0] * pc[..., 0] / zc + intr[2]
+        vpix = intr[1] * pc[..., 1] / zc + intr[3]
+        rast = rasterize(project_mesh(verts, w2c, intr, cfg.near), faces,
+                         face_mask, cfg)
+        zbuf = rast["z"] + 1e9 * (rast["tri_id"] < 0)
+        gx = upix.clamp(0, cfg.width - 1).long()
+        gy = vpix.clamp(0, cfg.height - 1).long()
+        visible = (z <= zbuf[gy, gx] * 1.02 + 1e-3) & (upix >= 0) \
+            & (upix < cfg.width) & (vpix >= 0) & (vpix < cfg.height) \
+            & (z > cfg.near)
+        vd = pose[:3, 3] - xyz
+        vd = vd / clip(torch.linalg.norm(vd, dim=-1, keepdim=True), 1e-12)
+        cosw = clip((vd * nrm).sum(-1), 0.0)
+        return torch.where(visible & valid, cosw ** cos_weight_pow,
+                           torch.zeros((), dtype=cosw.dtype,
+                                       device=cosw.device))
+
+    return torch.stack([one_view(poses_c2w[i], intrinsics[i])
+                        for i in range(poses_c2w.shape[0])])

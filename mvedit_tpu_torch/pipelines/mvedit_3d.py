@@ -173,9 +173,9 @@ def _ingp_color(params, xyz, ingp_cfg):
 
 class GeneratorDraws:
     """The pipelines' random draws, all from one `torch.Generator`: the
-    field init, the latent noise, and the draws of every fit chunk, of the
-    texture refinement and of the re-texturing fits (each fit's own
-    `draw`)."""
+    field init, the latent noise (shared by the views, or per view for
+    texture superres), and the draws of every fit chunk, of the texture
+    refinement and of the re-texturing fits (each fit's own `draw`)."""
 
     def __init__(self, generator=None):
         self.generator = generator
@@ -188,6 +188,11 @@ class GeneratorDraws:
         latent: the noise is shared across the views)."""
         return tuple(torch.randn(shape, generator=self.generator,
                                  device=device) for _ in range(2))
+
+    def view_noise(self, shape, device):
+        """One noise draw of the whole `shape` (N, h, w, 4): texture
+        superres gives every view its own noise."""
+        return torch.randn(shape, generator=self.generator, device=device)
 
     def fit(self, run, targets):
         """The per-chunk draws of a chunked fit (`_nerf_fit_fns` or

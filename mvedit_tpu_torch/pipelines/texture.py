@@ -92,9 +92,10 @@ def make_texture_fit(color_fn, cfg: TextureConfig, lpips_params=None):
     0.99), eps 1e-15, as the reference's optax.adam). geom: per-view xyz
     (N, H, W, 3), alpha and weight (N, H, W, 1) of the frozen mesh, so a
     step evaluates the field and rasterizes nothing. targets: images and
-    cam_weights (N,); each step draws `views_per_step` views uniformly
-    among those with weight > 0 (`fit.draw(targets, generator)` ->
-    {"view_ids": (n_inverse_steps, views_per_step)})."""
+    optionally cam_weights (N,); each step draws `views_per_step` views
+    uniformly among those with weight > 0, or among all `cfg.num_views`
+    views when targets carry no cam_weights (`fit.draw(targets,
+    generator)` -> {"view_ids": (n_inverse_steps, views_per_step)})."""
 
     def make_optimizer(params):
         leaves = field_leaves(params)
@@ -115,7 +116,9 @@ def make_texture_fit(color_fn, cfg: TextureConfig, lpips_params=None):
         return total
 
     def draw(targets, generator):
-        p = (targets["cam_weights"] > 0).float().clamp(min=1e-9)
+        cw = targets.get("cam_weights")
+        p = torch.ones(cfg.num_views, device=targets["images"].device) \
+            if cw is None else (cw > 0).float().clamp(min=1e-9)
         n = cfg.n_inverse_steps
         vps = min(cfg.views_per_step, p.shape[0])
         ids = torch.multinomial(p, n * vps, replacement=True,

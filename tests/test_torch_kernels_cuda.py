@@ -23,7 +23,9 @@ Tolerances:
   rejects are exact for those rounded tests, so winners and keys are
   bit-equal.
 - raster selection at 32 x 32 tiles (texture superres's 2048^2 bake):
-  exact as well, at the bake's config and on the edge cases.
+  exact as well, at the bake's config and on the edge cases; and
+  `bake_texture` at that config through the kernel and through the
+  plain selection on the card: the same texel mask and colour bits.
 - segment sum (`kernels/segment_sum.py`): the same bits on every run, the
   bits of `segment_sum_ordered` (the kernel's order in plain PyTorch, long
   rows' slices, strided partials and trees included), and within
@@ -322,6 +324,53 @@ def test_rasterize_launches_kernel_and_cpu_takes_plain(cuda):
     assert torch.equal(r_gpu["tri_id"].cpu(), r_cpu["tri_id"])
     with pytest.raises(ValueError):
         RS.raster_select(pts[:, :2], faces, faces[:1], fv[:1, None], 16, 8)
+
+
+def test_bake_texture_tile_32_matches_plain(cuda, monkeypatch):
+    """Texture superres's bake (`TextureSuperResPipeline.bake`'s config:
+    2048^2, 32 x 32 tiles, K 64 + 32) of a 60k-face soup in its grid atlas,
+    through the kernel and, on the same card, through the plain selection
+    (`raster_select_reference` in `rasterize`): the same texel mask and
+    colour bits; one tile-32 launch, no staged copy."""
+    import importlib
+    import numpy as np
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import Mesh, RasterConfig, bake_texture
+    n = 60000
+    g = np.random.default_rng(4)
+    centres = g.uniform(-0.8, 0.8, (n, 1, 3))
+    m = Mesh(v=(centres + g.uniform(-0.02, 0.02, (n, 3, 3))).reshape(
+        -1, 3).astype(np.float32),
+        f=np.arange(3 * n, dtype=np.int32).reshape(n, 3))
+    m.auto_uv()
+    cfg = RasterConfig(height=2048, width=2048, tile=32, k_per_tile=64,
+                       k_big=32)
+
+    def field(xyz):
+        return torch.sigmoid(torch.stack([xyz.sum(-1), xyz[..., 0] * 3,
+                                          xyz[..., 1] - xyz[..., 2]], -1))
+
+    def t(x, d=torch.float32):
+        return torch.as_tensor(x, dtype=d, device=cuda)
+
+    def bake():
+        return bake_texture(t(m.v), t(m.f, torch.int64),
+                            torch.ones(n, dtype=torch.bool, device=cuda),
+                            t(m.vt), t(m.ft, torch.int64), field, cfg)
+    before = (RS.raster_select.launches, RS.raster_select.tile32_launches,
+              RS.raster_select.staged)
+    rgb, mask = bake()
+    torch.cuda.synchronize()
+    assert (RS.raster_select.launches, RS.raster_select.tile32_launches,
+            RS.raster_select.staged) == (before[0] + 1, before[1] + 1,
+                                         before[2])
+    monkeypatch.setattr(importlib.import_module(
+        "mvedit_tpu_torch.models.mesh.rasterize"), "raster_select",
+        RS.raster_select_reference)
+    rgb_p, mask_p = bake()
+    assert RS.raster_select.launches == before[0] + 1
+    assert torch.equal(mask, mask_p) and float(mask_p.mean()) > 0.2
+    assert torch.equal(rgb, rgb_p)
 
 
 # ---- the JAX package's own flash kernel API --------------------------------

@@ -1,7 +1,7 @@
 """The JAX package's random draws, made as its fits make them and handed to
 the port as its `draws=` inputs (torch cannot reproduce threefry). Shared
 by the parity tests of the NeRF fit, the texture refinement, the whole
-pipeline and the re-texturing pipeline.
+pipeline, the re-texturing pipeline and texture superres.
 
 Each helper makes the same `jax.random` calls in the same order as the
 JAX function named in its docstring.
@@ -181,4 +181,31 @@ class JaxDraws:
         """The texture pipeline's fits take no key of the request's: each
         replays PRNGKey(0)."""
         return texture_fit_draws(targets["cam_weights"].cpu().numpy(),
+                                 fit.cfg)
+
+
+class JaxSuperResDraws:
+    """A draw source for the port's `TextureSuperResPipeline` that replays
+    `mvedit_tpu`'s superres `__call__` from `key`: the per-view latent
+    noise from the first split, the field init from the second (split
+    and unused when a live field is handed over, and nothing is drawn
+    after it), and the albedo fit's views from PRNGKey(0) over all views
+    (the fit is called without a key or cam_weights)."""
+
+    def __init__(self, key, jax_ingp):
+        self.key, self.jax_ingp = key, jax_ingp
+
+    def _split(self):
+        self.key, k = jax.random.split(self.key)
+        return k
+
+    def view_noise(self, shape, device):
+        return _t(jax.random.normal(self._split(), tuple(shape))).to(device)
+
+    def field_init(self, cfg, device):
+        return field_params_from_flax(jax.tree_util.tree_map(
+            np.asarray, j_ingp_init(self._split(), self.jax_ingp)), device)
+
+    def texture_fit(self, fit, targets):
+        return texture_fit_draws(np.ones(fit.cfg.num_views, np.float32),
                                  fit.cfg)
