@@ -19,7 +19,8 @@ from the root of a checkout. It builds the hand-written kernels from
 the shapes the main path gives it, then drives the port at full width with
 seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
 `run_3d_to_3d` requests, checkpoint loading, whole `run_retex`
-requests with IP-Adapter, and texture superres with an orbit video.
+requests with IP-Adapter, texture superres with an orbit video, and
+whole image-to-3D requests.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of every kernel source, all started together, with ptxas'
@@ -98,17 +99,30 @@ requests with IP-Adapter, and texture superres with an orbit video.
    handed over); one `run_mesh_to_video` of the superres GLB (24 frames,
    finite, the file written). Wall time, phase times and peak memory of
    each; flash attention, the raster selection (tile 32 counted apart: at
-   least one launch a request) and the segment sum must each launch.
+   least one launch a request) and the segment sum must each launch;
+12. image-to-3D at full width, twice with one seed: `run_zero123plus_to_mesh`
+   (v1.1) on the knot rendered by the port at the front pose (512^2 on
+   white): Zero123++ at its 40 steps and 960 x 640 grid with reference
+   attention (flash at (2, 9600, 8, 40) for the write pass and Lk 19200
+   for the read pass, both in phase 3's cases), TRACER-B7 at 640^2 on the
+   initial views and every step's, DPT-hybrid at 384^2, LoFTR (4 layers)
+   at 256^2 and the elevation solve (or the front pose under 8 matches),
+   IP-Adapter, LPIPS and SRVGG; cut in depth only: 2 of 6 passes (1 + 12
+   views) and phase 7's cuts (init_inverse_steps 32 of 640). Per-call
+   times of the Zero123++ passes, segmentation, normals and pose, the
+   MVEdit phases, peak memory, the pose route and LoFTR's match count;
+   flash launches at both new shapes must be > 0, nothing staged, and the
+   two requests' views and GLBs bit-equal.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
-phase 10; each request and the video in phase 11; the segment sum over
-phases 6-11): a kernel of a path with no launch there fails the run, and
-so does an input that the flash or the raster wrapper had to stage (copy)
-for its kernel. Without a CUDA device the script exits non-zero and prints
-no result.
+phase 10; each request and the video in phase 11; each request in phase
+12; the segment sum over phases 6-12): a kernel of a path with no launch
+there fails the run, and so does an input that the flash or the raster
+wrapper had to stage (copy) for its kernel. Without a CUDA device the
+script exits non-zero and prints no result.
 
 `--ab SRC...` does phase 1 and then only the A/B: edited copies of the
 flash source (`phase_ab_flash`, timed at the request's shapes) or of the
@@ -187,6 +201,11 @@ KERNEL_CASES += [(shape, 1.0) for shape in REQUEST_SHAPES]
 # texture superres: the UNet's joint attention over all 8 views of the
 # CFG batch at once (2N = 16 as 2 x 8 views), levels 1 and 2
 KERNEL_CASES += [((2, 32768, 8, 40), 1.0), ((2, 8192, 8, 80), 1.0)]
+# Zero123++'s level-0 self-attention at its 960 x 640 grid, as
+# ((B, Lq, H, D), Lk): the write pass (Lk = Lq = 9600) and the read pass,
+# whose keys add the conditioning image's stored states (Lk = 19200)
+Z123_CASES = [(2, 9600, 8, 40), ((2, 9600, 8, 40), 19200)]
+KERNEL_CASES += [(shape, 1.0) for shape in Z123_CASES]
 # the shape whose times go into the JSON line: the request's hottest
 HOT_SHAPE = (8, 8192, 8, 40)
 # --ab: small ragged cases ((B, Lq, H, D), Lk) checked before the timing,
@@ -254,6 +273,11 @@ REQ_TET_INIT = 24            # tet_init_inverse_steps (120)
 TET_BIG = 256
 TET_BIG_FIT = 8              # the first fit at tet 256 (120)
 REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
+# image-to-3D (run_zero123plus_to_mesh, v1.1): 2 of 6 Zero123++ passes,
+# the MVEdit loop cut in depth as phase 7's (init_inverse_steps of 640)
+I23_PASSES = 2
+I23_INPUT = 512
+I23_VIEW = 320               # a view of the 960 x 640 grid
 # run_retex at full width, at the endpoint's defaults
 RETEX_VIEWS = 12             # + the top view of front_view_id
 RETEX_STEPS = 12             # at strength 0.7: 9 timesteps
@@ -467,6 +491,14 @@ def median_ms(fn, runs=TIMED_RUNS, batch=1, graph=False):
     return statistics.median(times)
 
 
+def case_dims(shape):
+    """A KERNEL_CASES shape, (B, L, H, D) or ((B, Lq, H, D), Lk) ->
+    ((B, Lq, H, D), Lk)."""
+    if isinstance(shape[0], tuple):
+        return shape
+    return shape, shape[1]
+
+
 def phase_kernel():
     from mvedit_tpu_torch.kernels.flash_attention import (
         MAX_REL_TOL, MEAN_REL_TOL, agreement, flash_attention)
@@ -475,9 +507,11 @@ def phase_kernel():
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     rows, failed, worst = [], [], 0.0
     for shape, qk in KERNEL_CASES:
-        B, L, H, D = shape
-        q, k, v = (torch.randn(shape, generator=gen, device=DEV,
-                               dtype=torch.bfloat16) for _ in range(3))
+        (B, L, H, D), Lk = case_dims(shape)
+        q = torch.randn((B, L, H, D), generator=gen, device=DEV,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((B, Lk, H, D), generator=gen, device=DEV,
+                            dtype=torch.bfloat16) for _ in range(2))
         q, k = q * qk, k * qk
         out = flash_attention(q, k, v)
         ref = plain_sliced(q, k, v)
@@ -491,8 +525,8 @@ def phase_kernel():
             ms = median_ms(lambda: flash_attention(q, k, v))
             plain_ms = median_ms(lambda: plain_sliced(q, k, v))
             lib_ms, backend = library_attention(q, k, v)
-            bd = flash_bound(B, L, L, H, D)
-            flops = 4.0 * B * H * L * L * D
+            bd = flash_bound(B, L, Lk, H, D)
+            flops = 4.0 * B * H * L * Lk * D
             line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
                      f"at the real D) {flash_bound_text(bd)} library "
                      f"{lib_ms:.3f} ms (sdpa, {backend}) plain "
@@ -1458,7 +1492,8 @@ def check_shapes(tag, shapes):
     """Prints the flash shapes a phase's path gave the kernel and fails
     unless phase 3 checked each of them."""
     log(f"[{tag}] flash_attention shapes over the requests (calls): "
-        + ", ".join(f"{k} x{v}" for k, v in sorted(shapes.items())))
+        + ", ".join(f"{k} x{v}" for k, v in sorted(
+            shapes.items(), key=lambda kv: str(kv[0]))))
     missing = [k for k in shapes if (k, 1.0) not in
                [(c[0], c[1]) for c in KERNEL_CASES]]
     if missing:
@@ -1468,12 +1503,13 @@ def check_shapes(tag, shapes):
 
 def _record_shapes(TA, shapes):
     """A stand-in for `attention.flash_attention` that records each call's
-    (B, L, H, D) (q's and k's when they differ) and calls the kernel."""
+    (B, L, H, D), or ((B, Lq, H, D), Lk) where the key length differs,
+    and calls the kernel."""
     kernel = TA.flash_attention
 
     def recording(q, k, v):
         key = tuple(q.shape) if q.shape == k.shape else \
-            (tuple(q.shape), tuple(k.shape))
+            (tuple(q.shape), k.shape[1])
         shapes[key] = shapes.get(key, 0) + 1
         return kernel(q, k, v)
     return kernel, recording
@@ -1971,6 +2007,164 @@ def phase_superres(runner, tmp):
     return totals
 
 # kernel families by name, first match wins
+def i23_input(runner):
+    """The image-to-3D input: the seeded torus knot rendered by the port
+    at the front pose (azimuth 0, elevation 0.3, the v1.1 rig's distance)
+    to I23_INPUT^2, Lambert-shaded, composited on white."""
+    from mvedit_tpu_torch.apis import cameras as C
+    from mvedit_tpu_torch.utils import camera as cam_utils
+    # 38k faces: few enough per raster tile that none overflows at 512^2
+    knot = torus_knot(nu=400, nv=48)
+    _, fov, dist = C.zero123plus_v11_rig()
+    pose = cam_utils.get_pose_from_angles(np.array([0.0]), np.array([0.3]),
+                                          dist)[:, :3]
+    intr = cam_utils.intrinsics_from_fov(fov, I23_INPUT, I23_INPUT)[None]
+    light = pose[:, :3, 3] / np.linalg.norm(pose[:, :3, 3], axis=-1,
+                                            keepdims=True)
+    init = runner.load_init_mesh(knot, pose, intr, I23_INPUT, light)
+    return init["images"][0].float().cpu().numpy()
+
+
+class _Timed:
+    """Wall time (after a device sync) and calls of named runner methods,
+    and of the MVEdit loop's per-step segmentation hook."""
+
+    def __init__(self, runner, names):
+        self.runner, self.names = runner, names
+        self.sec = {}
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.sec.setdefault(name, []).append(time.perf_counter() - t0)
+        return wrapped
+
+    def __enter__(self):
+        for name in self.names:
+            setattr(self.runner, name,
+                    self._wrap(name, getattr(self.runner, name)))
+        make = self.runner.make_segment_fn
+        self.runner.make_segment_fn = lambda: self._wrap(
+            "segment_fn (each step)", make())
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names + ["make_segment_fn"]:
+            del self.runner.__dict__[name]
+
+
+def phase_image_to_3d(runner, tmp):
+    """`run_zero123plus_to_mesh` (v1.1) at full width, twice with one seed
+    (see the module doc). Returns the flash, raster and segment-sum
+    launches of the two requests and the flash launches by shape."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.mesh import Mesh
+    from mvedit_tpu_torch.utils import profiling as PR
+    img = i23_input(runner)
+    log(f"[image_to_3d] input: the knot at the front pose, {I23_INPUT}^2 on "
+        f"white (foreground {float((img < 0.999).any(-1).mean()):.3f} of "
+        f"the pixels); Zero123++ v1.1 at 40 steps, 960 x 640 grid, "
+        f"{I23_PASSES} of 6 passes (one mirrored): 1 + {6 * I23_PASSES} "
+        f"views; TRACER-B7 at 640^2, DPT-hybrid at 384^2, LoFTR (4 layers) "
+        f"at 256^2, IP-Adapter, LPIPS and SRVGG on; cuts in depth: steps "
+        f"{REQ_STEPS} (of 24), init_inverse_steps {REQ_INIT_INV} (of 640), "
+        f"n_inverse_steps {REQ_N_INV} (of 80), tet_init_inverse_steps "
+        f"{REQ_TET_INIT} (of 120); superres off")
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
+    grids, glbs = [], []
+    totals = dict(flash=0, raster=0, segment=0)
+    for run in ("first", "second"):
+        dst = os.path.join(tmp, f"i23_{run}.glb")
+        pt = PR.PhaseTimer()
+        PR.set_phase_timer(pt)
+        TA.flash_attention = recording
+        flash_attention.launches = RS.raster_select.launches = 0
+        SS.segment_sum.launches = 0
+        staged = (launch.staged, RS.raster_select.staged,
+                  SS.segment_sum.staged)
+        run_shapes = dict(shapes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _Timed(runner, ["run_zero123plus", "run_segmentation",
+                                 "predict_normals", "estimate_input_pose",
+                                 "enable_ip_adapter"]) as tm:
+                out = runner.run_zero123plus_to_mesh(
+                    img, seed=SEED, passes=I23_PASSES, steps=REQ_STEPS,
+                    init_inverse_steps=REQ_INIT_INV,
+                    n_inverse_steps=REQ_N_INV,
+                    tet_init_inverse_steps=REQ_TET_INIT, out_path=dst)
+                torch.cuda.synchronize()
+        finally:
+            TA.flash_attention = kernel
+            PR.set_phase_timer(None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n = dict(flash=flash_attention.launches,
+                 raster=RS.raster_select.launches,
+                 segment=SS.segment_sum.launches)
+        for k in totals:
+            totals[k] += n[k]
+        z_shapes = {k: shapes.get(k, 0) - run_shapes.get(k, 0)
+                    for k in Z123_CASES}
+        mesh, views = out["mesh"], out["views"]
+        back = Mesh.load(dst)
+        ok = (mesh is not None and back.albedo is not None
+              and len(back.f) > 0 and np.isfinite(mesh.albedo).all()
+              and views.shape == (6 * I23_PASSES, I23_VIEW, I23_VIEW, 3)
+              and np.isfinite(views).all() and min(n.values()) > 0
+              and min(z_shapes.values()) > 0
+              and (launch.staged, RS.raster_select.staged,
+                   SS.segment_sum.staged) == staged)
+        log(f"[image_to_3d] {run}: {wall:.3f} s wall, peak memory "
+            f"allocated {peak / 2**30:.2f} GiB; views {views.shape} (mean "
+            f"{float(views.mean()):.4f}), GLB {len(back.f)} faces, albedo "
+            f"{mesh.albedo.shape if mesh is not None else None}; pose route "
+            f"{out['pose_route']} ({runner.last_match_count} LoFTR matches "
+            f"over the first 6 views; input pose centre "
+            f"{np.round(out['in_pose'][:3, 3], 4).tolist()}) "
+            f"{'ok' if ok else 'FAIL'}")
+        for name, secs in tm.sec.items():
+            log(f"[image_to_3d] {run}   {name}: {sum(secs):.3f} s over "
+                f"{len(secs)} calls (" + ", ".join(f"{x:.3f}" for x in secs)
+                + ")")
+        for name, sec in pt.report().items():
+            log(f"[image_to_3d] {run}   phase {name}: {sec:.3f} s over "
+                f"{pt.counts[name]} ticks")
+        log(f"[launches] image_to_3d {run}: flash_attention {n['flash']} "
+            f"(at {Z123_CASES[0]}: {z_shapes[Z123_CASES[0]]}, at "
+            f"{Z123_CASES[1]}: {z_shapes[Z123_CASES[1]]}; staged copies "
+            f"{launch.staged - staged[0]}), raster_select {n['raster']}, "
+            f"segment_sum {n['segment']}")
+        if not ok:
+            raise AssertionError("the run_zero123plus_to_mesh request "
+                                 "failed its checks")
+        grids.append(views)
+        glbs.append(back)
+        del out
+    same = dict(views=bool(np.array_equal(grids[0], grids[1])),
+                **{k: bool(np.array_equal(getattr(glbs[0], k),
+                                          getattr(glbs[1], k)))
+                   for k in ("v", "f", "albedo")})
+    log(f"[image_to_3d] the two requests of one seed bit-equal: {same}")
+    if not all(same.values()):
+        raise AssertionError("two image-to-3D requests of one seed differ")
+    check_shapes("image_to_3d", shapes)
+    totals["by_shape"] = {str(k): shapes.get(k, 0) for k in Z123_CASES}
+    return totals
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -2430,9 +2624,11 @@ def main():
         seg_launches += retex["segment"]
         superres = phase_superres(runner, tmp)
         seg_launches += superres["segment"]
+        i23 = phase_image_to_3d(runner, tmp)
+        seg_launches += i23["segment"]
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
-        f"requests, tet 256, the retex and the superres requests (staged "
-        f"copies {SS.segment_sum.staged})")
+        f"requests, tet 256, the retex, superres and image-to-3D requests "
+        f"(staged copies {SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
                              "staged its inputs")
@@ -2449,7 +2645,7 @@ def main():
     # the rasterizer hands the selection float32 pts, int64 faces and ids,
     # bool masks, contiguous: read as they are
     log(f"[launches] raster_select staged copies over the mesh phase, the "
-        f"requests, tet 256, retex and superres: "
+        f"requests, tet 256, retex, superres and image-to-3D: "
         f"{RS.raster_select.staged}; tile 32: {superres['tile32']} "
         f"launches, all in phase 11")
     if RS.raster_select.staged:
@@ -2457,6 +2653,12 @@ def main():
     if args.profile:
         phase_profile(runner, args.profile, mesh_ctx)
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
+    z123 = [dict({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+                 shape=list(case_dims(r["shape"])[0]),
+                 lk=case_dims(r["shape"])[1],
+                 launches=i23["by_shape"][str(r["shape"])])
+            for r in rows if r["shape"] in Z123_CASES]
     rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
     shot = next(r for r in seg_rows if r["case"] == SEGMENT_HOT)
@@ -2476,17 +2678,18 @@ def main():
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash + retex["flash"]
-         + superres["flash"],
+         + superres["flash"] + i23["flash"],
          "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
-         "library_ms": hot["library_ms"]},
+         "library_ms": hot["library_ms"], "image_to_3d": z123},
         {"name": "raster_select", "route": "cuda",
          "source": "mvedit_tpu_torch/csrc/raster_select.cu",
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
          "launches": sum(mesh_launches.values())
          + sum(req_launches.values()) + retex["raster"]
-         + superres["raster"], "tile32_launches": superres["tile32"],
+         + superres["raster"] + i23["raster"],
+         "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),
          "key_bits_differing": sum(r["key_bits"] for r in raster_rows),

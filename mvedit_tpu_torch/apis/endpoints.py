@@ -2,8 +2,13 @@
 
 Counterpart of `mvedit_tpu/apis/endpoints.py`; so far `run_text_to_img`,
 `load_init_mesh`, `run_3d_to_3d` (mesh editing: init renders -> the MVEdit
-loop -> a textured GLB, optionally chained into texture superres) and
-texture superres (`proc_texture_superres`, `run_texture_superres`).
+loop -> a textured GLB, optionally chained into texture superres),
+texture superres (`proc_texture_superres`, `run_texture_superres`) and
+image-to-3D (`load_zero123plus`, `run_zero123plus`, `proc_zero123plus`,
+`run_zero123plus1_2`, `run_zero123plus_to_mesh`,
+`run_zero123plus1_2_to_mesh`). Not ported yet (ROADMAP Queue 1, item 6):
+v1.2's normal-generation pass (`return_normal` / `return_normals`, and
+`run_zero123plus1_2_to_mesh` with its generated normals), which raises.
 """
 import numpy as np
 import torch
@@ -16,6 +21,10 @@ from ..utils import camera as cam_utils
 from ..utils.geometry import normalize_depth
 
 __all__ = ["EndpointsMixin"]
+
+_NORMAL_PASS = ("Zero123++ v1.2's normal-generation pass is not ported yet "
+                "(ROADMAP Queue 1, item 6: v1.2's normal pipe with "
+                "preproc.zero123plus_postprocess)")
 
 
 class EndpointsMixin:
@@ -337,4 +346,219 @@ class EndpointsMixin:
         out["superres_renders"] = sr["renders"]
         out["superres_fit_losses"] = sr["fit_losses"]
         out["field_params"] = sr["field_params"]
+        return out
+
+    # ------------------------------------------------------------------
+    def load_zero123plus(self, version="1.1"):
+        """The Zero123++ models on a fresh namespace: the SD1.5 stack (its
+        UNet as Zero123++'s, as the reference runs it), a CLIP ViT-L/14
+        vision tower with a 768 projection (`zero123plus_vision/` in
+        `checkpoint_dir`, else seeded), `ramping` linspace(0, 1, L),
+        `text_uncond` zeros (1, L, C) (L = 77, tiny 8) and the
+        v-prediction schedule. The namespace is new per call, so the MVEdit
+        pass that follows keeps the epsilon schedule."""
+        from ..models.diffusion.clip import CLIPVisionConfig, CLIPVisionModel
+        from ..models.diffusion.weights import convert_clip_vision
+        m = self.load_stable_diffusion()
+        if self.tiny:
+            vcfg = CLIPVisionConfig(image_size=32, patch_size=8,
+                                    hidden_size=32, intermediate_size=64,
+                                    num_layers=2, num_heads=4,
+                                    projection_dim=32)
+        else:
+            vcfg = CLIPVisionConfig(projection_dim=768)
+        m.vision = self._build(f"z123_vision:{version}",
+                               lambda: CLIPVisionModel(vcfg), seed_offset=3,
+                               subdir="zero123plus_vision",
+                               convert=convert_clip_vision)
+        L = 8 if self.tiny else 77
+        m.text_uncond = torch.zeros((1, L, m.text_cfg.hidden_size),
+                                    device=self.device)
+        m.ramping = np.linspace(0, 1, L).astype(np.float32)
+        m.schedule = S.sd_schedule(prediction_type="v_prediction")
+        return m
+
+    def run_zero123plus(self, image, seed=42, num_steps=None,
+                        version="1.1", return_normal=False, draws=None):
+        """Image (H, W, 3) in [0, 1] -> the 6-view grid (960, 640, 3)
+        float32 numpy in [0, 1] (tiny (48, 32)), 40 steps (tiny 2); v1.2
+        rolls the grid latents. The draws come from a generator seeded
+        with `seed`, or from `draws` (`Zero123PlusDraws`' methods)."""
+        from ..ops.image import resize_bilinear
+        from ..pipelines.zero123plus import (Zero123PlusConfig,
+                                             Zero123PlusPipeline)
+        if return_normal:
+            raise NotImplementedError(_NORMAL_PASS)
+        m = self.load_zero123plus(version)
+        cfg = Zero123PlusConfig(
+            num_steps=num_steps or (2 if self.tiny else 40),
+            grid_hw=(48, 32) if self.tiny else (960, 640),
+            shift_views=(version == "1.2"))
+        img = torch.as_tensor(np.asarray(image, np.float32),
+                              device=self.device)
+        if img.dim() == 3:
+            img = img[None]
+        H, W = cfg.grid_hw
+        s = m.vision.cfg.image_size
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        out = Zero123PlusPipeline(m, cfg)(
+            resize_bilinear(img, (H, W)), resize_bilinear(img, (s, s)),
+            generator=gen, draws=draws)
+        return out[0].float().cpu().numpy()
+
+    @staticmethod
+    def _split_grid(grid):
+        """(3h, 2w, 3) grid -> (6, h, w, 3) views, row-major (the rig's
+        order)."""
+        gh, gw = grid.shape[:2]
+        vh, vw = gh // 3, gw // 2
+        return np.stack([grid[r * vh:(r + 1) * vh, c * vw:(c + 1) * vw]
+                         for r in range(3) for c in range(2)])
+
+    def proc_zero123plus(self, image, seed=42, passes=None, num_steps=None,
+                         version="1.1", return_normals=False,
+                         z123_draws=None):
+        """`passes` Zero123++ runs (6, tiny 1) of seeds seed + p -> the
+        stacked views (6 passes, h, w, 3); odd passes mirror the input and
+        un-mirror their views. `z123_draws(pass_seed)` gives a pass's draw
+        source (default: its seeded generator)."""
+        if return_normals:
+            raise NotImplementedError(_NORMAL_PASS)
+        passes = passes or (1 if self.tiny else 6)
+        img = np.asarray(image, np.float32)
+        views = []
+        for p in range(passes):
+            mirrored = p % 2 == 1
+            src = np.ascontiguousarray(img[:, ::-1]) if mirrored else img
+            grid = self.run_zero123plus(
+                src, seed=seed + p, num_steps=num_steps, version=version,
+                draws=None if z123_draws is None else z123_draws(seed + p))
+            v6 = self._split_grid(grid)
+            views.append(v6[:, :, ::-1] if mirrored else v6)
+        return np.ascontiguousarray(np.concatenate(views, axis=0))
+
+    def run_zero123plus1_2(self, image, seed=42, num_steps=None):
+        """Zero123++ v1.2's 6-view grid (the latent roll; no normals)."""
+        return self.run_zero123plus(image, seed=seed, num_steps=num_steps,
+                                    version="1.2")
+
+    def run_zero123plus1_2_to_mesh(self, image, seed=42, out_path=None,
+                                   passes=None, in_pose=None, **kwargs):
+        """v1.2 image-to-3D on the v1.2 rig. The reference supervises the
+        generated views with v1.2's generated normals by default; that
+        pass is not ported, so it raises unless `use_normals=False` or
+        `gen_normals=False`."""
+        if kwargs.get("use_normals", True) and \
+                kwargs.get("gen_normals", True):
+            raise NotImplementedError(_NORMAL_PASS)
+        return self.run_zero123plus_to_mesh(
+            image, seed=seed, out_path=out_path, passes=passes,
+            in_pose=in_pose, version="1.2", **kwargs)
+
+    def run_zero123plus_to_mesh(self, image, seed=42, out_path=None,
+                                passes=None, in_pose=None, version="1.1",
+                                draws=None, z123_draws=None, **kwargs):
+        """Image-to-3D: Zero123++ passes (6, tiny 1; `proc_zero123plus`)
+        plus the input image as view 0 (weight 3.0; its pose from LoFTR +
+        the epipolar elevation solve, else the rig's front pose) -> the
+        MVEdit loop (view 0 never pruned, 640 init inverse steps for v1.1,
+        720 for v1.2), with TRACER masks of the initial views and of the
+        decoded views at every step, Omnidata normals supervising view 0,
+        IP-Adapter on the input image -> a GLB at `out_path`. Extra kwargs
+        follow the nerf_mesh schema (`apis/parameters.py`) and `segment`,
+        `use_normals`, `estimate_pose`, `use_ip_adapter` (all True by
+        default), `prompt`, `negative_prompt` and `superres`. The MVEdit
+        draws come from a generator seeded with `seed`, or from `draws`;
+        Zero123++'s from `z123_draws` (see `proc_zero123plus`). The result
+        adds "views" (the generated views), "in_pose" and "pose_route"
+        ("estimated", "given" or "front")."""
+        from ..ops.image import resize_bilinear
+        from ..pipelines.mvedit_3d import MVEdit3DPipeline
+        tiny, dev = self.tiny, self.device
+        passes = passes or (1 if tiny else 6)
+        views = self.proc_zero123plus(image, seed=seed, passes=passes,
+                                      version=version, z123_draws=z123_draws)
+        poses44, fov, dist = (C.zero123plus_v11_rig() if version == "1.1"
+                              else C.zero123plus_v12_rig())
+        n_gen = 6 * passes
+        gen_poses = poses44[:n_gen, :3]
+        route = "given" if in_pose is not None else "front"
+        if in_pose is None and kwargs.get("estimate_pose", True):
+            n_ref = min(6, len(views))
+            in_pose, _ = self.estimate_input_pose(
+                image, [views[i] for i in range(n_ref)], poses44[:n_ref],
+                fov)
+            route = "front" if in_pose is None else "estimated"
+        if in_pose is None:
+            in_pose = cam_utils.get_pose_from_angles(
+                np.asarray([0.0]), np.asarray([0.3]), dist)[0, :3]
+        poses = np.concatenate([np.asarray(in_pose)[None], gen_poses], 0)
+        num_views = 1 + n_gen
+
+        m = self.load_stable_diffusion()
+        m.controlnets = self.load_controlnets()
+        m.segment_fn = None
+        m.lpips_params = self.load_lpips()
+        m.enhance_fn = None if tiny else self.load_image_enhancer()
+        nk = self._parse_nerf_mesh(kwargs)
+        cfg = self._cfg_from_schema(
+            nk, num_views, keep_first_views=1,
+            default_init_steps=(8 if tiny
+                                else (640 if version == "1.1" else 720)))
+        size = cfg.render_size
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        views_r = torch.cat([resize_bilinear(t(image)[None], (size, size)),
+                             resize_bilinear(t(views), (size, size))], 0)
+        focal = size / (2 * np.tan(np.radians(fov / 2)))
+        intr = np.tile(np.asarray([focal, focal, size / 2, size / 2],
+                                  np.float32), (num_views, 1))
+        if kwargs.get("segment", True):
+            masks = self.run_segmentation(views_r)
+            m.segment_fn = self.make_segment_fn()
+        else:
+            masks = torch.ones((num_views, size, size, 1), device=dev)
+        targets = {"images": views_r, "masks": masks, "poses": t(poses),
+                   "intrinsics": t(intr)}
+        if kwargs.get("use_normals", True):
+            # Omnidata on the input view; the generated views get the
+            # normal TV only (weight 0)
+            n0 = self.predict_normals(views_r[:1])
+            targets["normals"] = torch.cat(
+                [n0, torch.zeros((num_views - 1, size, size, 3),
+                                 device=dev)], 0)
+            targets["normal_weights"] = t([1.0] + [0.0] * (num_views - 1))
+        rng = np.random.default_rng(seed)
+        lights, _ = cam_utils.light_sampling(poses, rng=rng)
+        wkey = ("zero123plus_cam_weights" if version == "1.1"
+                else "zero123plus1_2_cam_weights")
+        cam_w = np.asarray(self.constants[wkey][:num_views], np.float32)
+        if len(cam_w) < num_views:
+            cam_w = np.pad(cam_w, (0, num_views - len(cam_w)),
+                           constant_values=1.0)
+        targets["cam_weights"] = t(cam_w)
+        targets["cam_lights"] = t(lights)
+        prompt = self._join_prompts(kwargs.get("prompt", ""),
+                                    nk["aux_prompt"])
+        negp = self._join_prompts(kwargs.get("negative_prompt", ""),
+                                  nk["aux_negative_prompt"])
+        pos, neg = self.encode_prompt(m, [prompt] * num_views,
+                                      [negp] * num_views)
+        if kwargs.get("use_ip_adapter", True):
+            self.enable_ip_adapter(m, np.asarray(image, np.float32))
+        else:
+            m.ip_context = None
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out = MVEdit3DPipeline(m, cfg)(targets, pos.clone(), neg.clone(),
+                                       generator=gen, draws=draws)
+        out = self._chain_superres(out, "nerf_params", prompt,
+                                   kwargs.get("negative_prompt", ""), seed,
+                                   kwargs.get("superres", False))
+        out.update(views=views, in_pose=np.asarray(poses[0]),
+                   pose_route=route)
+        if out_path and out["mesh"] is not None:
+            out["mesh"].write(out_path, flip_yz=True)
         return out

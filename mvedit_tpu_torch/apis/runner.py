@@ -1,21 +1,25 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
 Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`,
-`run_retex`, texture superres, `run_mesh_to_video` and `run_text_to_img`
-need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and depth (and
-ip2p) ControlNets, LPIPS, the SRVGG image enhancer, IP-Adapter with its
-CLIP vision tower, prompt encoding, the mesh preprocessing, and the rig
-constants (`constants`, with `apis/cameras.py` and `utils/camera.py`).
+`run_retex`, texture superres, `run_mesh_to_video`, `run_text_to_img` and
+image-to-3D need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and
+depth (and ip2p) ControlNets, LPIPS, the SRVGG image enhancer, IP-Adapter
+with its CLIP vision tower, the perception nets (TRACER-B7 masks, DPT
+normals, LoFTR matches for the input view's pose), prompt encoding, the
+mesh preprocessing, and the rig constants (`constants`, with
+`apis/cameras.py` and `utils/camera.py`).
 
 Models are built on `device` with seeded random weights (drawn from a
 `torch.Generator`), then loaded from `checkpoint_dir` where it holds them,
 in the reference's search order: `<checkpoint_dir>/<subdir>/` with
 `diffusion_pytorch_model.{safetensors,bin}`, `model.safetensors`,
 `pytorch_model.bin` or `<subdir>.safetensors`, for the subdirs `unet`,
-`vae`, `text_encoder`, `controlnet_{tile,depth,ip2p}`, `image_enhancer`
-and `ip_adapter_vision`; LPIPS from `lpips/lpips_vgg.{safetensors,bin}`;
-the IP-Adapter projection and UNet branches from
-`ip_adapter/ip_adapter.npz` (the reference's converted flax tree). The
+`vae`, `text_encoder`, `controlnet_{tile,depth,ip2p}`, `image_enhancer`,
+`ip_adapter_vision`, `zero123plus_vision`, `tracer`, `omnidata` and
+`loftr` (those three in their reference checkpoints' own key layouts);
+LPIPS from `lpips/lpips_vgg.{safetensors,bin}`; the IP-Adapter
+projection and UNet branches from `ip_adapter/ip_adapter.npz` (the
+reference's converted flax tree). The
 files' keys are diffusers' / transformers' (SRVGG: Real-ESRGAN's), so they
 go in with `load_state_dict`; keys that match nothing are reported, and
 parameters a file lacks keep their seeded values. `checkpoint_dir` may be
@@ -340,6 +344,111 @@ class Adapter3DRunner(EndpointsMixin):
         m.ip_encode_fn = ip_encode_fn
         m.ip_context = ip_encode_fn(image)
         return m.ip_context
+
+    # ---- perception nets of image-to-3D -------------------------------
+
+    def load_tracer(self, seed=None):
+        """TRACER-B7 (`tracer/` in `checkpoint_dir`, else seeded with
+        `seed`, by default the runner's)."""
+        from ..models.segmentors import TracerDecoder, convert_tracer_state
+        return self._build("tracer", TracerDecoder,
+                           seed_offset=0 if seed is None else seed - self.seed,
+                           subdir="tracer", convert=convert_tracer_state)
+
+    def make_segment_fn(self):
+        """The MVEdit loop's per-step hook: (N, H, W, 3) decoded views in
+        [0, 1] -> (N, H, W, 1) TRACER masks at 640^2 (64^2 tiny), eight
+        views per net call."""
+        from ..models.segmentors import tracer_segment
+        net = self.load_tracer()
+        size = 64 if self.tiny else 640
+
+        @torch.inference_mode()
+        def segment_fn(images):
+            return tracer_segment(net, images, input_size=size, chunk=8)
+        return segment_fn
+
+    def run_segmentation(self, images, seed=42, refine_fn=None,
+                         use_sam=False, bg_color=None, erosion=0):
+        """TRACER foreground masks: images (N, H, W, 3) in [0, 1] (numpy
+        or a tensor) -> (N, H, W, 1) on the runner's device. The SAM
+        refiner, `refine_fn`, `bg_color` and `erosion` (the reference's
+        `preproc.do_segmentation`) are not ported yet (ROADMAP Queue 1,
+        item 6: SAM)."""
+        if use_sam or refine_fn is not None or bg_color is not None \
+                or erosion:
+            raise NotImplementedError(
+                "SAM refinement, bg_color and erosion of run_segmentation "
+                "are not ported yet (ROADMAP Queue 1, item 6: SAM and "
+                "preproc.do_segmentation)")
+        from ..models.segmentors import tracer_segment
+        net = self.load_tracer(seed=seed)
+        ims = torch.as_tensor(np.asarray(images, np.float32)
+                              if not torch.is_tensor(images) else images,
+                              dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            return tracer_segment(net, ims, 64 if self.tiny else 640,
+                                  chunk=8)
+
+    def load_normal_model(self):
+        """Omnidata's DPT-hybrid (`omnidata/` in `checkpoint_dir`, else
+        seeded) and its input size: (net, 384), tiny (net, 32)."""
+        from ..models.segmentors import DPTNormalModel, convert_dpt_state
+        if self.tiny:
+            net = self._build("dpt", lambda: DPTNormalModel(
+                vit_layers=2, readout_taps=(0, 1), resnet_layers=(1, 1, 1)),
+                subdir="omnidata", convert=convert_dpt_state)
+            return net, 32
+        return self._build("dpt", DPTNormalModel, subdir="omnidata",
+                           convert=convert_dpt_state), 384
+
+    @torch.inference_mode()
+    def predict_normals(self, images):
+        """(N, H, W, 3) in [0, 1] -> (N, H, W, 3) normal maps in [0, 1]:
+        the net at its input size (resized with the reference's
+        antialiased bilinear), clamped, resized back."""
+        from ..ops.image import resize_bilinear
+        net, s = self.load_normal_model()
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        h, w = x.shape[1:3]
+        out = net(resize_bilinear(x, (s, s))).clamp(0.0, 1.0)
+        return resize_bilinear(out, (h, w))
+
+    def load_matcher(self):
+        """LoFTR with 4 coarse layer pairs (1 tiny), `loftr/` in
+        `checkpoint_dir`, else seeded."""
+        from ..models.segmentors import LoFTR, convert_loftr_state
+        return self._build("loftr",
+                           lambda: LoFTR(layers=1 if self.tiny else 4),
+                           subdir="loftr", convert=convert_loftr_state)
+
+    def estimate_input_pose(self, image, views, view_poses, fov):
+        """The input image's elevation against generated views of known
+        pose: LoFTR matches at 256^2 (32^2 tiny) of the grey images, then
+        `elev_estimation`. Returns ((3, 4) pose at azimuth 0 and the
+        views' mean distance, elevation), or (None, 0.0) when the views
+        give fewer than 8 matches (the caller then takes the front
+        pose)."""
+        import math
+        from ..models.segmentors import match_images
+        from ..ops.image import resize_bilinear
+        from ..utils.pose_estimation import elev_estimation
+        net = self.load_matcher()
+        s = 32 if self.tiny else 256
+
+        def prep(im):
+            g = torch.as_tensor(np.asarray(im, np.float32),
+                                device=self.device).mean(-1, keepdim=True)
+            return resize_bilinear(g, (s, s))[None]
+        img0 = prep(image)
+        matches = [match_images(net, img0, prep(v)) for v in views]
+        self.last_match_count = sum(len(m[0]) for m in matches)
+        if self.last_match_count < 8:
+            return None, 0.0
+        focal = s / (2 * math.tan(math.radians(fov / 2)))
+        intr = np.asarray([focal, focal, s / 2, s / 2], np.float32)
+        elev, pose = elev_estimation(matches, np.asarray(view_poses), intr)
+        return np.asarray(pose)[:3], elev
 
     def run_retex(self, mesh_path, prompt, negative_prompt="", seed=42,
                   steps=12, denoising_strength=0.7, cfg_scale=None,

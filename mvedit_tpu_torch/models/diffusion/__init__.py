@@ -1,4 +1,4 @@
-from .attention import AttnMode
+from .attention import AttnMode, RefStates
 from .unet import UNetConfig, UNet2DCondition, SD15_UNET
 from .vae import VAEConfig, AutoencoderKL, SD_VAE
 from .clip import CLIPTextConfig, CLIPTextModel, SD15_TEXT
@@ -6,7 +6,7 @@ from .controlnet import ControlNet, apply_multi_controlnet
 from . import schedulers
 
 __all__ = [
-    "AttnMode", "UNetConfig", "UNet2DCondition", "SD15_UNET",
+    "AttnMode", "RefStates", "UNetConfig", "UNet2DCondition", "SD15_UNET",
     "VAEConfig", "AutoencoderKL", "SD_VAE",
     "CLIPTextConfig", "CLIPTextModel", "SD15_TEXT",
     "ControlNet", "apply_multi_controlnet", "schedulers",

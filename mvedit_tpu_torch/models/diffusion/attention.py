@@ -15,8 +15,12 @@ reference does:
 `AttnMode` keeps the reference's fields. This port implements joint
 (cross-view) self-attention and IP-Adapter's decoupled cross-attention
 (`ip_to_k` / `ip_to_v` over the image tokens, added with `ip_scale`; its 4
-or 16 keys route to the plain attention); zero123++ reference attention
-raises until its slice is ported.
+or 16 keys route to the plain attention) and Zero123++'s reference
+attention: a `reference="write"` pass stores each Transformer2D's
+self-attention input (the normed hidden state before `to_k` / `to_v`) in
+a `RefStates`, and a `reference="read"` pass concatenates the stored
+state onto that self-attention's context along the sequence axis, so Lk
+= 2 Lq (attention.py:174-206, :257-306).
 """
 from dataclasses import dataclass
 
@@ -29,7 +33,7 @@ from ...kernels.flash_attention import (MAX_HEAD_DIM, attention_reference,
 from .layers import Conv, Dense
 from .norm import GroupNorm, LayerNorm
 
-__all__ = ["AttnMode", "dot_product_attention", "uses_flash",
+__all__ = ["AttnMode", "RefStates", "dot_product_attention", "uses_flash",
            "CrossAttention", "FeedForward", "BasicTransformerBlock",
            "Transformer2D"]
 
@@ -41,6 +45,24 @@ class AttnMode:
     ip_tokens: int = 0          # >0 -> decoupled IP-Adapter cross-attn
     ip_scale: float = 1.0
     reference: str = "none"     # none | write | read (zero123++ ref attn)
+
+
+class RefStates:
+    """Reference attention's stored states, one per Transformer2D in the
+    UNet's order (down blocks, mid, up blocks): a write pass appends the
+    first block's self-attention input, a read pass takes them back in the
+    same order, across the UNet's encode / decode split. The reference
+    keeps the first block's entry of each (`w[0]`) and hands each
+    transformer's entry to all of its blocks."""
+
+    def __init__(self, states=None):
+        self.states = [] if states is None else list(states)
+        self._next = 0
+
+    def take(self):
+        s = self.states[self._next]
+        self._next += 1
+        return s
 
 
 _CHUNK_THRESHOLD = 1024
@@ -110,20 +132,22 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_out = nn.ModuleList([Dense(inner, query_dim, dtype=dtype)])
 
-    def forward(self, x, context=None, mode=AttnMode(), ip_context=None):
+    def forward(self, x, context=None, mode=AttnMode(), ip_context=None,
+                ref_kv=None):
         """x: (B, L, C); context: (B, Lc, Cc), or None for self-attention;
         ip_context: (B, T, Cc) image tokens for a cross-attention with
         IP branches (`ip_adapter.add_ip_branches`) when mode.ip_tokens >
-        0."""
-        if mode.reference != "none":
-            raise NotImplementedError(
-                "reference attention is not ported yet")
+        0; ref_kv: (B, Lr, C) stored reference state, concatenated onto a
+        self-attention's context in mode.reference == "read"."""
         B, L, C = x.shape
-        joint = context is None and mode.num_views > 1
-        if joint:
+        ctx = x if context is None else context
+        if context is None and mode.reference == "read" \
+                and ref_kv is not None:
+            ctx = torch.cat([ctx, ref_kv.to(ctx.dtype)], 1)
+        if context is None and mode.num_views > 1:
             # fold views into the sequence axis (attention.py:199-207)
             x = x.reshape(B // mode.num_views, mode.num_views * L, C)
-        ctx = x if context is None else context
+            ctx = ctx.reshape(x.shape[0], -1, ctx.shape[-1])
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
         def split(t):
@@ -175,8 +199,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.ff = FeedForward(dim, dtype=dtype)
 
-    def forward(self, x, context, mode=AttnMode(), ip_context=None):
-        x = x + self.attn1(self.norm1(x), None, mode)
+    def forward(self, x, context, mode=AttnMode(), ip_context=None,
+                ref_kv=None, writes=None):
+        """`writes`: a list the self-attention's input is appended to in
+        mode.reference == "write"."""
+        h = self.norm1(x)
+        if writes is not None and mode.reference == "write":
+            writes.append(h)
+        x = x + self.attn1(h, None, mode, ref_kv=ref_kv)
         x = x + self.attn2(self.norm2(x), context, mode, ip_context)
         return x + self.ff(self.norm3(x))
 
@@ -199,15 +229,20 @@ class Transformer2D(nn.Module):
             BasicTransformerBlock(channels, heads, dim_head, context_dim,
                                   dtype) for _ in range(depth)])
 
-    def forward(self, x, context, mode=AttnMode(), ip_context=None):
+    def forward(self, x, context, mode=AttnMode(), ip_context=None,
+                ref=None):
+        """x: NCHW; ref: the UNet's `RefStates` for reference attention."""
         B, C, H, W = x.shape
+        ref_kv = ref.take() if ref is not None \
+            and mode.reference == "read" else None
         h = self.norm(x)
         if self.use_linear:
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(B, H * W, C))
         else:
             h = self.proj_in(h).permute(0, 2, 3, 1).reshape(B, H * W, C)
-        for blk in self.transformer_blocks:
-            h = blk(h, context, mode, ip_context)
+        for i, blk in enumerate(self.transformer_blocks):
+            h = blk(h, context, mode, ip_context, ref_kv,
+                    ref.states if ref is not None and i == 0 else None)
         if self.use_linear:
             h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
         else:

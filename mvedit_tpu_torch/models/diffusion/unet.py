@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import AttnMode, Transformer2D
+from .attention import AttnMode, RefStates, Transformer2D
 from .layers import Conv, Dense
 from .norm import GroupNorm
 
@@ -174,21 +174,22 @@ class _MidBlock(nn.Module):
 
 
 def run_encoder(down_blocks, mid_block, h, temb, ehs, mode,
-                ip_context=None):
+                ip_context=None, ref=None):
     """Down blocks and mid block (shared by the UNet and the ControlNet,
-    which passes no image tokens). Returns (h, skip residuals)."""
+    which passes no image tokens). `ref`: the pass's `RefStates` for
+    reference attention. Returns (h, skip residuals)."""
     residuals = [h]
     for blk in down_blocks:
         for li, res in enumerate(blk.resnets):
             h = res(h, temb)
             if hasattr(blk, "attentions"):
-                h = blk.attentions[li](h, ehs, mode, ip_context)
+                h = blk.attentions[li](h, ehs, mode, ip_context, ref)
             residuals.append(h)
         if hasattr(blk, "downsamplers"):
             h = blk.downsamplers[0](h)
             residuals.append(h)
     h = mid_block.resnets[0](h, temb)
-    h = mid_block.attentions[0](h, ehs, mode, ip_context)
+    h = mid_block.attentions[0](h, ehs, mode, ip_context, ref)
     return mid_block.resnets[1](h, temb), residuals
 
 
@@ -203,7 +204,14 @@ class UNet2DCondition(nn.Module):
       (NHWC, added to the skips and the mid output);
     - ip_context (B, T, C): IP-Adapter image tokens for every
       cross-attention (given to both parts), with mode.ip_tokens > 0 and
-      the branches of `ip_adapter.add_ip_branches`.
+      the branches of `ip_adapter.add_ip_branches`;
+    - reference attention (Zero123++): with mode.reference == "write",
+      part='all' returns (out, writes), the list of every Transformer2D's
+      stored self-attention input in the order down blocks, mid, up blocks
+      (the reference's `[w[0] for w in ref_writes if w is not None]`);
+      with "read", `ref_kv` is such a list, consumed in the same order.
+      Across part='enc' / 'dec' the `RefStates` rides in the encoder
+      state, so both parts take from one list and append to one.
     """
 
     def __init__(self, cfg: UNetConfig = SD15_UNET):
@@ -229,7 +237,7 @@ class UNet2DCondition(nn.Module):
                              dtype=torch.float32)
 
     def encode(self, sample, timesteps, ehs, mode=AttnMode(),
-               ip_context=None):
+               ip_context=None, ref=None):
         cfg, dt = self.cfg, self.cfg.dtype
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dt))
@@ -238,8 +246,9 @@ class UNet2DCondition(nn.Module):
         if ip_context is not None:
             ip_context = ip_context.to(dt)
         h, residuals = run_encoder(self.down_blocks, self.mid_block, h, temb,
-                                   ehs, mode, ip_context)
-        return {"h": h, "residuals": residuals, "temb": temb, "ehs": ehs}
+                                   ehs, mode, ip_context, ref)
+        return {"h": h, "residuals": residuals, "temb": temb, "ehs": ehs,
+                "ref": ref}
 
     def decode(self, enc_state, mode=AttnMode(), down_block_res=None,
                mid_block_res=None, ip_context=None):
@@ -257,7 +266,8 @@ class UNet2DCondition(nn.Module):
             for li, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, residuals.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[li](h, ehs, mode, ip_context)
+                    h = blk.attentions[li](h, ehs, mode, ip_context,
+                                           enc_state.get("ref"))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
         h = F.silu(self.conv_norm_out(h))
@@ -265,14 +275,22 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, part="all",
                 mode=AttnMode(), down_block_res=None, mid_block_res=None,
-                enc_state=None, ip_context=None):
+                enc_state=None, ip_context=None, ref_kv=None):
         if part == "dec":
             if enc_state is None:
                 raise ValueError("part='dec' needs enc_state")
         else:
+            ref = None
+            if mode.reference == "write":
+                ref = RefStates()
+            elif mode.reference == "read" and ref_kv is not None:
+                ref = RefStates(ref_kv)
             enc_state = self.encode(sample, timesteps, encoder_hidden_states,
-                                    mode, ip_context)
+                                    mode, ip_context, ref)
             if part == "enc":
                 return enc_state
-        return self.decode(enc_state, mode, down_block_res, mid_block_res,
-                           ip_context)
+        out = self.decode(enc_state, mode, down_block_res, mid_block_res,
+                          ip_context)
+        if part == "all" and mode.reference == "write":
+            return out, enc_state["ref"].states
+        return out

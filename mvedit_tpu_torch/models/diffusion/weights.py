@@ -16,9 +16,12 @@ goes into them with `load_state_dict` as it is:
   `ip_to_k` / `ip_to_v` state, unmatched).
 - `torch_state_from_flax(tree, kind)`: the exact inverse of the reference's
   flax converters (`convert_unet`, `convert_controlnet`, `convert_vae`,
-  `convert_clip_text`, `convert_clip_vision`, and the IP-Adapter trees of
-  its `ip_adapter.npz`): applied to their output it gives the state dict
-  they were converted from, in the port's keys.
+  `convert_clip_text`, `convert_clip_vision`, the IP-Adapter trees of
+  its `ip_adapter.npz`, and the perception nets' `convert_tracer`,
+  `convert_dpt`, `convert_loftr`): applied to their output it gives the
+  state dict they were converted from, in the port's keys;
+  `tracer_state_from_flax`, `dpt_state_from_flax` and
+  `loftr_state_from_flax` name the last three.
 
 Layout rules (inverted): kernel (I, O) -> weight (O, I); kernel HWIO ->
 weight OIHW; scale -> weight; embedding -> weight.
@@ -29,8 +32,9 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["torch_state_from_flax", "flatten", "load_torch_state",
-           "read_safetensors", "convert_clip_vision", "convert_ip_adapter",
+__all__ = ["torch_state_from_flax", "tracer_state_from_flax",
+           "dpt_state_from_flax", "loftr_state_from_flax", "flatten",
+           "load_torch_state", "read_safetensors", "convert_clip_vision", "convert_ip_adapter",
            "attn2_keys"]
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
@@ -223,6 +227,68 @@ _CLIP_VISION = [
 
 _IMAGE_PROJ = [(r"(proj|norm)", r"\1")]
 
+# the perception nets: flax paths -> the reference checkpoints' own keys
+_TRACER = [
+    (r"encoder/stem_conv", r"encoder._conv_stem"),
+    (r"encoder/stem_bn", r"encoder._bn0"),
+    (r"encoder/blocks_(\d+)/(\w+)", r"encoder._blocks.\1._\2"),
+    (r"(rfb\d)/(branch\d)_(\d)/(conv|bn)", r"\1.\2.\3.\4"),
+    (r"(rfb\d)/(conv_cat|conv_res)/(conv|bn)", r"\1.\2.\3"),
+    (r"agg/UAM/norm_bn", r"agg.UAM.norm.0"),
+    (r"agg/UAM/(\w+)", r"agg.UAM.\1"),
+    (r"agg/(\w+)/(conv|bn)", r"agg.\1.\2"),
+    (r"(ObjectAttention\d)/DWSConv/depthwise", r"\1.DWSConv.DWConv"),
+    (r"(ObjectAttention\d)/DWSConv/bn1", r"\1.DWSConv.bn"),
+    (r"(ObjectAttention\d)/DWSConv/pointwise", r"\1.DWSConv.PWConv"),
+    (r"(ObjectAttention\d)/DWSConv/bn2", r"\1.DWSConv.bn2"),
+    (r"(ObjectAttention\d)/(DWConv\d)_0/conv", r"\1.\2.0.DWConv"),
+    (r"(ObjectAttention\d)/(DWConv\d)_(\d)/(conv|bn)", r"\1.\2.\3.\4"),
+    (r"(ObjectAttention\d)/conv1/(conv|bn)", r"\1.conv1.\2"),
+]
+
+_BB = "pretrained.model.patch_embed.backbone"
+_DPT = [
+    (r"backbone/stem_conv", _BB + ".stem.conv"),
+    (r"backbone/stem_norm/gn", _BB + ".stem.norm"),
+    (r"backbone/stage(\d)_(\d+)/downsample_(conv|norm)(/gn)?",
+     _BB + r".stages.\1.blocks.\2.downsample.\3"),
+    (r"backbone/stage(\d)_(\d+)/(\w+?)(/gn)?",
+     _BB + r".stages.\1.blocks.\2.\3"),
+    (r"patch_embed", r"pretrained.model.patch_embed.proj"),
+    (r"vit_(\d+)/(norm[12])", r"pretrained.model.blocks.\1.\2"),
+    (r"vit_(\d+)/(qkv|proj)", r"pretrained.model.blocks.\1.attn.\2"),
+    (r"vit_(\d+)/(fc[12])", r"pretrained.model.blocks.\1.mlp.\2"),
+    (r"readout(\d)", r"pretrained.act_postprocess\1.0.project.0"),
+    (r"postproc3", r"pretrained.act_postprocess3.3"),
+    (r"postproc4a", r"pretrained.act_postprocess4.3"),
+    (r"postproc4b", r"pretrained.act_postprocess4.4"),
+    (r"(layer\d_rn)", r"scratch.\1"),
+    (r"fusion(\d)/out_conv", r"scratch.refinenet\1.out_conv"),
+    (r"fusion(\d)/rcu(\d)/(conv\d)",
+     r"scratch.refinenet\1.resConfUnit\2.\3"),
+    (r"head1", r"scratch.output_conv.0"),
+    (r"head2", r"scratch.output_conv.2"),
+    (r"head3", r"scratch.output_conv.4"),
+]
+
+_LOFTR = [
+    (r"backbone/(conv1|bn1)", r"backbone.\1"),
+    (r"backbone/layer(\d)_(\d)/downsample_conv",
+     r"backbone.layer\1.\2.downsample.0"),
+    (r"backbone/layer(\d)_(\d)/downsample_bn",
+     r"backbone.layer\1.\2.downsample.1"),
+    (r"backbone/layer(\d)_(\d)/(\w+)", r"backbone.layer\1.\2.\3"),
+    (r"backbone/(layer\d_outconv)", r"backbone.\1"),
+    (r"backbone/(layer\d_outconv2)/conv1", r"backbone.\1.0"),
+    (r"backbone/(layer\d_outconv2)/bn", r"backbone.\1.1"),
+    (r"backbone/(layer\d_outconv2)/conv2", r"backbone.\1.3"),
+    (r"coarse_(\d+)/mlp([02])", r"loftr_coarse.layers.\1.mlp.\2"),
+    (r"coarse_(\d+)/(\w+)", r"loftr_coarse.layers.\1.\2"),
+    (r"fine_(\d+)/mlp([02])", r"loftr_fine.layers.\1.mlp.\2"),
+    (r"fine_(\d+)/(\w+)", r"loftr_fine.layers.\1.\2"),
+    (r"(down_proj|merge_feat)", r"fine_preprocess.\1"),
+]
+
 _RESAMPLER = [
     (r"layers_(\d+)_attn/(norm1|norm2|to_q|to_kv|to_out)",
      r"layers.\1.attn.\2"),
@@ -239,6 +305,8 @@ _RAW = {
                     "class_embedding":
                     "vision_model.embeddings.class_embedding"},
     "resampler": {"latents": "latents"},
+    "dpt": {"cls_token": "pretrained.model.cls_token",
+            "pos_embed": "pretrained.model.pos_embed"},
 }
 
 _RULES = {
@@ -249,6 +317,9 @@ _RULES = {
     "clip_vision": _CLIP_VISION,
     "image_proj": _IMAGE_PROJ,
     "resampler": _RESAMPLER,
+    "tracer": _TRACER,
+    "dpt": _DPT,
+    "loftr": _LOFTR,
 }
 
 
@@ -286,13 +357,19 @@ def _leaf(name, arr):
         return "weight", arr
     if name == "bias":
         return "bias", arr
+    if name in ("mean", "var"):        # inference BatchNorm statistics
+        return f"running_{name}", arr
     raise KeyError(f"unexpected flax leaf {name!r} of shape {arr.shape}")
 
 
 def torch_state_from_flax(tree, kind):
     """Flax params tree (numpy-convertible leaves) of `kind` in {'unet',
     'controlnet', 'vae', 'clip_text', 'clip_vision', 'image_proj',
-    'resampler'} -> {port key: torch.Tensor}."""
+    'resampler', 'tracer', 'dpt', 'loftr'} -> {port key: torch.Tensor}.
+    The perception nets' keys are their reference checkpoints' (what
+    `convert_tracer` / `convert_dpt` / `convert_loftr` read); the DPT's
+    unused `refinenet4.resConfUnit1` and final ViT norm, which the flax
+    tree lacks, are absent."""
     rules = _RULES[kind]
     raw = _RAW.get(kind, {})
     state = {}
@@ -307,3 +384,18 @@ def torch_state_from_flax(tree, kind):
         # np.array copies: the leaves may be read-only views of JAX arrays
         state[key] = torch.from_numpy(np.array(arr))
     return state
+
+
+def tracer_state_from_flax(tree):
+    """TRACER-B7's flax params -> the port's (the checkpoint's) keys."""
+    return torch_state_from_flax(tree, "tracer")
+
+
+def dpt_state_from_flax(tree):
+    """The DPT normal model's flax params -> the port's keys."""
+    return torch_state_from_flax(tree, "dpt")
+
+
+def loftr_state_from_flax(tree):
+    """LoFTR's flax params -> the port's keys."""
+    return torch_state_from_flax(tree, "loftr")

@@ -27,12 +27,23 @@ def gaussian_kernel1d(sigma, radius=None, device=None):
     return k / k.sum()
 
 
+def _reflect(x, r, dim):
+    """Reflect padding of r along `dim` (the edge not repeated), built
+    from flipped slices: its backward adds at most two terms per element,
+    in a fixed order, where `F.pad(mode="reflect")`'s CUDA backward adds
+    atomically (one seed gave two normal-supervised fits)."""
+    n = x.shape[dim]
+    lo = x.narrow(dim, 1, r).flip(dim)
+    hi = x.narrow(dim, n - 1 - r, r).flip(dim)
+    return torch.cat([lo, x, hi], dim)
+
+
 def gaussian_blur(img, sigma):
     """img: (..., H, W). Separable blur with reflect padding."""
     k = gaussian_kernel1d(sigma, device=img.device).to(img.dtype)
     r = (k.shape[0] - 1) // 2
     h, w = img.shape[-2:]
-    x = F.pad(img.reshape(-1, 1, h, w), (r, r, r, r), mode="reflect")
+    x = _reflect(_reflect(img.reshape(-1, 1, h, w), r, 3), r, 2)
     x = F.conv2d(x, k.reshape(1, 1, -1, 1))
     x = F.conv2d(x, k.reshape(1, 1, 1, -1))
     return x.reshape(img.shape)

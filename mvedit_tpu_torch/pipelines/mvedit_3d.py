@@ -216,8 +216,9 @@ class MVEdit3DPipeline:
 
     `models` holds the modules: unet, controlnets (tile, depth[,
     extra...]), vae, schedule; optionally lpips_params, enhance_fn (SRVGG
-    upsampler), segment_fn. The mesh-phase helpers also run with
-    models=None.
+    upsampler), segment_fn and ip_context (IP-Adapter [uncond; cond]
+    tokens (2, T, C), with the UNet's IP branches). The mesh-phase helpers
+    also run with models=None.
     """
 
     def __init__(self, models, cfg: MVEdit3DConfig):
@@ -256,10 +257,13 @@ class MVEdit3DPipeline:
         chunked = cfg.use_reference and 0 < cfg.diff_bs < num_views
         key = ("denoise", "chunked" if chunked else num_views, cfg.mode)
         if key not in self._fit_cache:
+            ip_ctx = getattr(self.m, "ip_context", None)
             dm = DenoiseModels(unet=self.m.unet,
                                controlnets=tuple(self.m.controlnets),
                                num_views=num_views,
-                               use_reference=cfg.use_reference)
+                               use_reference=cfg.use_reference,
+                               ip_tokens=0 if ip_ctx is None
+                               else int(ip_ctx.shape[1]))
             if cfg.mode == "1-pass":
                 fns = (make_chunked_noise_pred_1pass(dm, cfg.diff_bs)
                        if chunked else make_noise_pred_1pass(dm)), None
@@ -571,6 +575,11 @@ class MVEdit3DPipeline:
                 else:
                     p1, p2 = self._denoise(N)
 
+            # IP-Adapter tokens [uncond x N; cond x N] (mvedit_3d.py:765)
+            ip_ctx = getattr(m, "ip_context", None)
+            ip2 = None if ip_ctx is None else torch.cat(
+                [ip_ctx[:1].expand(N, -1, -1),
+                 ip_ctx[1:2].expand(N, -1, -1)], 0)
             if t is not None:
                 # ---- P1 denoise + x0 decode
                 t_vec = torch.full((2 * N,), int(t), dtype=torch.int32,
@@ -586,11 +595,13 @@ class MVEdit3DPipeline:
                     scales = [cfg.tile_weight, cfg.depth_weight] + \
                         [cfg.extra_control_scale] * len(extras2)
                     eps = one_pass(cfg_lat, t_vec, embeds, conds, scales,
-                                   cfg.guidance_scale, ref_noisy=ref_noisy)
+                                   cfg.guidance_scale, ip_context=ip2,
+                                   ref_noisy=ref_noisy)
                 else:
                     eps, enc_state, p1_res = p1(
                         cfg_lat, t_vec, embeds, None, cfg.depth_weight,
-                        cfg.guidance_scale, extra_images=extras2,
+                        cfg.guidance_scale, ip_context=ip2,
+                        extra_images=extras2,
                         extra_scales=(cfg.extra_control_scale,)
                         * len(extras2), ref_noisy=ref_noisy)
                 eps = eps.float()
@@ -677,7 +688,8 @@ class MVEdit3DPipeline:
                         torch.cat([ctrl_images, ctrl_images], 0),
                         torch.cat([ctrl_depths, ctrl_depths], 0),
                         cfg.tile_weight, cfg.depth_weight,
-                        cfg.guidance_scale, ref_noisy=ref_noisy).float()
+                        cfg.guidance_scale, ip_context=ip2,
+                        ref_noisy=ref_noisy).float()
                 bw = (1.0 - sa) if cfg.blend_mode == "dynamic" else 0.5
                 eps_final = bw * eps_3d + (1 - bw) * eps_unet
                 t_prev = int(steps[i + 1]) if i + 1 < len(steps) else -1

@@ -16,6 +16,18 @@
   the file was made from, through the flax bridge.
 - LPIPS from `lpips/lpips_vgg.*` in both key layouts: the same bf16
   parameters in both packages.
+- The image-to-3D nets (`torch_checkpoints.write_image_to_3d_checkpoint`)
+  in their reference layouts: the Zero123++ vision tower from
+  `zero123plus_vision/`, TRACER-B7 from `tracer/`, the DPT from
+  `omnidata/`, LoFTR from `loftr/`, loaded by both runners (the JAX one
+  through `convert_tracer` / `convert_dpt` / `convert_loftr`): equal
+  outputs of `predict_normals` (1e-4) and of LoFTR (`conf` 1e-5, the same
+  ids); the vision tower, which the JAX runner does not load (no
+  converter), held against the JAX module on the file's params (rtol 1e-4
+  as above); TRACER's loaded
+  parameters equal, value for value, through the bridge (its forward is
+  held against JAX in `test_torch_segmentors.py`), with nothing left
+  unloaded but the BatchNorm step counters.
 - Keys that match nothing are reported, and parameters a file lacks keep
   their seeded values.
 """
@@ -33,7 +45,8 @@ from mvedit_tpu.models.image_enhancer import SRVGGNetCompact
 from mvedit_tpu_torch.apis import Adapter3DRunner as TRunner
 from mvedit_tpu_torch.models.diffusion.weights import (load_torch_state,
                                                        read_safetensors)
-from torch_checkpoints import write_tiny_checkpoint
+from torch_checkpoints import (write_image_to_3d_checkpoint,
+                               write_tiny_checkpoint)
 
 torch.set_num_threads(2)
 
@@ -161,6 +174,69 @@ def test_ip_adapter_loads_equal(loaded):
         out = tm.unet(_t(lat), _t(t), _t(ctx), mode=TMode(ip_tokens=4),
                       ip_context=tctx)
     _close(out, ref)
+
+
+@pytest.fixture(scope="module", params=["safetensors", "bin"])
+def loaded_i23(request, tmp_path_factory):
+    root = str(tmp_path_factory.mktemp(f"i23_{request.param}"))
+    trees = write_image_to_3d_checkpoint(root, request.param)
+    jr = JRunner(checkpoint_dir=root, seed=0, tiny_models=True)
+    tr = TRunner(checkpoint_dir=root, seed=0, tiny_models=True,
+                 device="cpu")
+    return trees, jr, tr
+
+
+def test_zero123plus_vision_loads_the_file(loaded_i23):
+    """The reference's `load_zero123plus` searches `zero123plus_vision/`
+    but passes no converter, so it keeps its seeded tower (ROADMAP,
+    reference behaviours); the port loads the file, held against the JAX
+    module on the params the file was made from."""
+    trees, jr, tr = loaded_i23
+    jm, tm = jr.load_zero123plus(), tr.load_zero123plus()
+    x = np.random.RandomState(6).random((2, 32, 32, 3)).astype(np.float32)
+    ref = jm.vision.apply({"params": trees["vision"]["params"]}, x)
+    with torch.no_grad():
+        _close(tm.vision(_t(x)), ref)
+    seeded = jm.vision.apply({"params": jm.vision_params}, x)
+    assert np.abs(np.asarray(seeded) - np.asarray(ref)).max() > 1e-2
+
+
+def test_tracer_loads_equal(loaded_i23, capsys):
+    from mvedit_tpu_torch.models.diffusion.weights import \
+        tracer_state_from_flax
+    _, jr, tr = loaded_i23
+    _, jparams = jr.load_tracer()
+    net = tr.load_tracer()
+    assert "unconverted" not in capsys.readouterr().out
+    ref = tracer_state_from_flax(jparams["params"])
+    state = net.state_dict()
+    assert sorted(ref) == sorted(k for k in state
+                                 if not k.endswith("num_batches_tracked"))
+    for k, v in ref.items():
+        assert torch.equal(state[k], v), k
+
+
+def test_omnidata_dpt_loads_equal(loaded_i23):
+    _, jr, tr = loaded_i23
+    img = np.random.RandomState(7).random((1, 40, 40, 3)).astype(np.float32)
+    ref = np.asarray(jr.predict_normals(jnp.asarray(img)))
+    assert ref.std() > 1e-2
+    np.testing.assert_allclose(tr.predict_normals(img).numpy(), ref,
+                               atol=1e-4, rtol=0)
+
+
+def test_loftr_loads_equal(loaded_i23):
+    _, jr, tr = loaded_i23
+    net_j, params = jr.load_matcher()
+    net_t = tr.load_matcher()
+    a = np.random.RandomState(8).random((1, 32, 32, 1)).astype(np.float32)
+    b = np.ascontiguousarray(a[:, ::-1])
+    jo = net_j.apply(params, jnp.asarray(a), jnp.asarray(b))
+    with torch.no_grad():
+        to = net_t(_t(a), _t(b))
+    np.testing.assert_allclose(to["conf"].numpy(), np.asarray(jo["conf"]),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(to["pts0"].numpy(), np.asarray(jo["pts0"]))
 
 
 def test_unmatched_keys_reported_and_missing_keep_seed(tmp_path, capsys):

@@ -602,3 +602,131 @@ def test_one_seed_gives_one_fit(cuda, monkeypatch, kind, flag):
     assert KS.segment_sum.launches > before
     assert all(torch.isfinite(x).all() for x in a)
     assert [torch.equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
+
+
+def _image_to_3d_targets(targets, variant):
+    """The fit targets of image-to-3D: view 0 weighted 3.0 and supervised
+    by a normal map (normal weights [1, 0, ...]); with "empty", masks of
+    zero everywhere (seeded TRACER weights trip its failure rule)."""
+    t = dict(targets)
+    n = t["images"].shape[0]
+    if variant in ("normals", "all"):
+        yy, xx = torch.meshgrid(torch.linspace(0, 1, t["images"].shape[1]),
+                                torch.linspace(0, 1, t["images"].shape[2]),
+                                indexing="ij")
+        nm = torch.stack([xx, yy, torch.full_like(xx, 0.8)], -1)
+        t["normals"] = torch.cat(
+            [nm[None], torch.zeros((n - 1,) + nm.shape)], 0).to(
+                t["images"].device)
+        t["normal_weights"] = torch.tensor([1.0] + [0.0] * (n - 1),
+                                           device=t["images"].device)
+        t["cam_weights"] = torch.tensor([3.0, 1.5, 0.95, 0.93][:n],
+                                        device=t["images"].device)
+    if variant in ("empty", "all"):
+        t["masks"] = torch.zeros_like(t["masks"])
+        t["images"] = torch.ones_like(t["images"])
+    return t
+
+
+@pytest.mark.parametrize("progress", [0.0, 0.5])
+@pytest.mark.parametrize("variant", ["normals", "empty", "all"])
+@pytest.mark.parametrize("flag", [False, True])
+def test_one_seed_gives_one_nerf_fit_image_to_3d(cuda, monkeypatch,
+                                                 variant, flag, progress):
+    """Two NeRF-fit chunks on image-to-3D's targets (a normal-supervised
+    view, unequal view weights, empty masks) from one seed, at the start of
+    the schedule and half way (the normals' patch LPIPS weighted): bit-equal
+    (compared as raw bits, so NaNs too), no op without a deterministic
+    algorithm."""
+    from mvedit_tpu_torch.models.fields import field_leaves, ingp_init
+    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    if flag:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+    def run_once():
+        pipe, lp = _fit_pipe(cuda)
+        targets = _image_to_3d_targets(_fit_targets(cuda, 128), variant)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        field = ingp_init(pipe.cfg.ingp, gen, cuda)
+        run, make_opt = pipe._nerf_fit_fns(64, 4)
+        opt = make_opt(field)
+        grid = OccupancyGrid.create(pipe.cfg.render.grid_size, device=cuda)
+        tgt = pipe._resize_targets(targets, 64)
+        field, opt, grid, _ = run(field, opt, grid, tgt,
+                                  sched=pipe._sched_weights(progress,
+                                                            "nerf"),
+                                  lpips_params=lp, generator=gen)
+        return field_leaves(field) + [grid.density]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(flag)
+    try:
+        a, b = run_once(), run_once()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+    def bits(x):
+        return x.contiguous().view(torch.uint8)
+    assert [torch.equal(bits(x), bits(y)) for x, y in zip(a, b)] == \
+        [True] * len(a)
+
+
+@pytest.mark.parametrize("Lk", [9600, 19200])
+def test_flash_attention_zero123plus_shapes(cuda, Lk):
+    """Zero123++'s level-0 self-attention at its 960 x 640 grid: the write
+    pass (Lk = Lq = 9600 = 75 x 128) and the read pass, whose keys are the
+    grid's and the conditioning image's (Lk = 19200): no tail tile, no
+    staged copy."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 9600, 8, 40), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((2, Lk, 8, 40), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    assert FA.plan(q, k, v, 40 ** -0.5) == "direct"
+    before, staged = FA.flash_attention.launches, FA.launch.staged
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert FA.launch.staged == staged
+    r = FA.agreement(out, FA.attention_reference(q, k, v))
+    assert r["ok"], r
+
+
+def test_reference_attention_unet_on_card(cuda):
+    """A tiny f32 UNet's reference-attention write and read passes on the
+    card (level 0 at 48 x 32 latents: 1536 tokens, the read pass's keys
+    3072, both through the flash kernel, which takes bf16) against the
+    same passes on the CPU (plain attention): relative L2 <= 2e-2, the
+    kernel's bf16 rounding of P and of its output."""
+    from mvedit_tpu_torch.apis.runner import init_random_
+    from mvedit_tpu_torch.models.diffusion import (AttnMode,
+                                                   UNet2DCondition,
+                                                   UNetConfig)
+    cfg = UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
+                     attn_down=(True, False), cross_attention_dim=32,
+                     num_heads=4, dtype=torch.float32)
+    unet = init_random_(UNet2DCondition(cfg),
+                        torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    cond, lat = (torch.randn((2, 48, 32, 4), generator=g) for _ in range(2))
+    emb = torch.randn((2, 8, 32), generator=g)
+    t2 = torch.tensor([500, 500], dtype=torch.int32)
+
+    def run(dev):
+        u = unet.to(dev)
+        with torch.no_grad():
+            _, w = u(cond.to(dev), t2.to(dev), emb.to(dev),
+                     mode=AttnMode(reference="write"))
+            out = u(lat.to(dev), t2.to(dev), emb.to(dev),
+                    mode=AttnMode(reference="read"), ref_kv=w)
+        return [x.cpu() for x in w], out.cpu()
+    w_cpu, out_cpu = run("cpu")
+    before = FA.flash_attention.launches
+    w_gpu, out_gpu = run(cuda)
+    torch.cuda.synchronize()
+    # level 0: the down block's transformer and the up block's two, each
+    # pass
+    assert FA.flash_attention.launches - before == 6
+    for a, b in zip(w_gpu, w_cpu):
+        assert ((a - b).norm() / b.norm()).item() <= 2e-2
+    assert ((out_gpu - out_cpu).norm() / out_cpu.norm()).item() <= 2e-2

@@ -209,3 +209,22 @@ class JaxSuperResDraws:
     def texture_fit(self, fit, targets):
         return texture_fit_draws(np.ones(fit.cfg.num_views, np.float32),
                                  fit.cfg)
+
+
+class JaxZero123PlusDraws:
+    """A draw source for the port's `Zero123PlusPipeline` that replays
+    `mvedit_tpu`'s `Zero123PlusPipeline.__call__` from `key`: key -> (key,
+    k0) for the initial latents, then per step key -> (key, kr, ks), the
+    reference noise from kr and the ancestral noise from ks."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def initial_latents(self, shape, device):
+        self.key, k0 = jax.random.split(self.key)
+        return _t(jax.random.normal(k0, tuple(shape))).to(device)
+
+    def step_noise(self, ref_shape, lat_shape, device):
+        self.key, kr, ks = jax.random.split(self.key, 3)
+        return (_t(jax.random.normal(kr, tuple(ref_shape))).to(device),
+                _t(jax.random.normal(ks, tuple(lat_shape))).to(device))
