@@ -19,8 +19,9 @@ from the root of a checkout. It builds the hand-written kernels from
 the shapes the main path gives it, then drives the port at full width with
 seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
 `run_3d_to_3d` requests, checkpoint loading, whole `run_retex`
-requests with IP-Adapter, texture superres with an orbit video, and
-whole image-to-3D requests.
+requests with IP-Adapter, texture superres with an orbit video, whole
+image-to-3D requests (v1.1, and v1.2 with its generated normals), SAM,
+legacy Zero123 and the unstructured tet grid.
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc of every kernel source, all started together, with ptxas'
@@ -112,14 +113,37 @@ whole image-to-3D requests.
    times of the Zero123++ passes, segmentation, normals and pose, the
    MVEdit phases, peak memory, the pose route and LoFTR's match count;
    flash launches at both new shapes must be > 0, nothing staged, and the
-   two requests' views and GLBs bit-equal.
+   two requests' views and GLBs bit-equal;
+13. image-to-3D v1.2 with its generated normals at full width, twice with
+   one seed: `run_zero123plus1_2_to_mesh` on phase 12's input, each
+   Zero123++ pass followed by its normal pass (a second SD1.5 UNet and
+   the normal ControlNet on the RGB grid, 40 steps, 960 x 640), each
+   generated view matted by `zero123plus_postprocess` and supervised by
+   its normals; phase 12's cuts in depth only. Wall per request and per
+   call (RGB pass, normal pass, postprocess, TRACER, DPT, LoFTR), the
+   MVEdit phases, peak memory, the flash / raster / segment-sum
+   launches; every flash shape in phase 3's cases; the two requests'
+   views, normals and GLBs bit-equal;
+14. SAM ViT-H (f32) through `run_segmentation(use_sam=True, bg_color=
+   (1, 1, 1), erosion=2)` on phase 12's input view and 4 of the knot's
+   512^2 renders, twice: one SAM call per view, bit-equal masks; wall per
+   image and peak memory;
+15. legacy Zero123 at SD1.5 widths (a seeded 8-channel UNet, CLIP
+   ViT-L/14 with a 768 projection, the SD VAE), 256^2, 50 DDIM steps,
+   twice with one seed: finite, bit-equal;
+16. the unstructured tet grid at tet 128 on phase 7's fitted field:
+   `build_grid_tets` on the host cold and cached, the switch with
+   `structured_tets=False`, 8 fit steps (of 120) through
+   `marching_tets_compact` and the extraction: a finite loss history,
+   raster and segment-sum launches > 0, the counts against the caps.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
-phase 10; each request and the video in phase 11; each request in phase
-12; the segment sum over phases 6-12): a kernel of a path with no launch
+phase 10; each request and the video in phase 11; each request in phases
+12 and 13; phase 16; the segment sum over phases 6-16): a kernel of a path
+with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -278,6 +302,9 @@ REFINE_STEPS = 4             # mesh_simplify_texture_steps (24)
 I23_PASSES = 2
 I23_INPUT = 512
 I23_VIEW = 320               # a view of the 960 x 640 grid
+SAM_VIEWS = 4                # the knot's renders beside the input view
+Z123_LEGACY_STEPS = 50       # legacy Zero123's DDIM steps (its default)
+UNSTRUCT_FIT_STEPS = 8       # on the unstructured tet grid (120)
 # run_retex at full width, at the endpoint's defaults
 RETEX_VIEWS = 12             # + the top view of front_view_id
 RETEX_STEPS = 12             # at strength 0.7: 9 timesteps
@@ -2165,6 +2192,336 @@ def phase_image_to_3d(runner, tmp):
     return totals
 
 
+class _TimedCalls:
+    """Wall time (after a device sync) of every call of named module or
+    class attributes, under names of the caller's choice; `name_of(args,
+    kwargs)` may pick the name per call."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(owner, attr, name_of)]
+        self.sec, self._saved = {}, []
+
+    def __enter__(self):
+        for owner, attr, name_of in self.targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+
+            def wrapped(*a, _fn=fn, _name=name_of, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.sec.setdefault(_name(a, k), []).append(
+                        time.perf_counter() - t0)
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+
+def phase_image_to_3d_v12(runner, tmp):
+    """`run_zero123plus1_2_to_mesh` at full width with its generated
+    normals, twice with one seed (see the module doc). Returns the flash,
+    raster and segment-sum launches of the two requests and the flash
+    launches at Zero123++'s shapes."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    import mvedit_tpu_torch.pipelines.preproc as PP
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.mesh import Mesh
+    from mvedit_tpu_torch.pipelines.zero123plus import Zero123PlusPipeline
+    from mvedit_tpu_torch.utils import profiling as PR
+    img = i23_input(runner)
+    log(f"[image_to_3d_v12] input: phase 12's; Zero123++ v1.2 at 40 steps "
+        f"on the 960 x 640 grid, then its normal pass (a second SD1.5 UNet "
+        f"and the normal ControlNet on the RGB grid, 40 steps), "
+        f"{I23_PASSES} of 6 passes: 1 + {6 * I23_PASSES} views, each "
+        f"generated view matted by its normals and supervised by them; "
+        f"phase 12's cuts in depth")
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
+    outs, glbs = [], []
+    totals = dict(flash=0, raster=0, segment=0)
+    for run in ("first", "second"):
+        dst = os.path.join(tmp, f"i23v12_{run}.glb")
+        pt = PR.PhaseTimer()
+        PR.set_phase_timer(pt)
+        TA.flash_attention = recording
+        flash_attention.launches = RS.raster_select.launches = 0
+        SS.segment_sum.launches = 0
+        staged = (launch.staged, RS.raster_select.staged,
+                  SS.segment_sum.staged)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _Timed(runner, ["run_segmentation", "predict_normals",
+                                 "estimate_input_pose",
+                                 "enable_ip_adapter"]) as tm, \
+                    _TimedCalls([
+                        (Zero123PlusPipeline, "__call__",
+                         lambda a, k: "Zero123++ normal pass"
+                         if k.get("normal_cond") is not None
+                         else "Zero123++ RGB pass"),
+                        (PP, "zero123plus_postprocess",
+                         lambda a, k: "postprocess (each view)")]) as tc:
+                out = runner.run_zero123plus1_2_to_mesh(
+                    img, seed=SEED, passes=I23_PASSES, steps=REQ_STEPS,
+                    init_inverse_steps=REQ_INIT_INV,
+                    n_inverse_steps=REQ_N_INV,
+                    tet_init_inverse_steps=REQ_TET_INIT, out_path=dst)
+                torch.cuda.synchronize()
+        finally:
+            TA.flash_attention = kernel
+            PR.set_phase_timer(None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n = dict(flash=flash_attention.launches,
+                 raster=RS.raster_select.launches,
+                 segment=SS.segment_sum.launches)
+        for k in totals:
+            totals[k] += n[k]
+        mesh, views, normals = out["mesh"], out["views"], out["normals"]
+        back = Mesh.load(dst)
+        shape = (6 * I23_PASSES, I23_VIEW, I23_VIEW, 3)
+        ok = (mesh is not None and back.albedo is not None
+              and len(back.f) > 0 and np.isfinite(mesh.albedo).all()
+              and views.shape == normals.shape == shape
+              and np.isfinite(views).all() and np.isfinite(normals).all()
+              and min(n.values()) > 0
+              and len(tc.sec.get("Zero123++ normal pass", [])) == I23_PASSES
+              and (launch.staged, RS.raster_select.staged,
+                   SS.segment_sum.staged) == staged)
+        log(f"[image_to_3d_v12] {run}: {wall:.3f} s wall, peak memory "
+            f"allocated {peak / 2**30:.2f} GiB; views {views.shape} (mean "
+            f"{float(views.mean()):.4f}), normals (mean "
+            f"{float(normals.mean()):.4f}), GLB {len(back.f)} faces; pose "
+            f"route {out['pose_route']} {'ok' if ok else 'FAIL'}")
+        for name, secs in list(tc.sec.items()) + list(tm.sec.items()):
+            log(f"[image_to_3d_v12] {run}   {name}: {sum(secs):.3f} s over "
+                f"{len(secs)} calls")
+        for name, sec in pt.report().items():
+            log(f"[image_to_3d_v12] {run}   phase {name}: {sec:.3f} s over "
+                f"{pt.counts[name]} ticks")
+        log(f"[launches] image_to_3d_v12 {run}: flash_attention "
+            f"{n['flash']}, raster_select {n['raster']}, segment_sum "
+            f"{n['segment']}")
+        if not ok:
+            raise AssertionError("the run_zero123plus1_2_to_mesh request "
+                                 "failed its checks")
+        outs.append((views, normals))
+        glbs.append(back)
+        del out
+    same = dict(views=bool(np.array_equal(outs[0][0], outs[1][0])),
+                normals=bool(np.array_equal(outs[0][1], outs[1][1])),
+                **{k: bool(np.array_equal(getattr(glbs[0], k),
+                                          getattr(glbs[1], k)))
+                   for k in ("v", "f", "albedo")})
+    log(f"[image_to_3d_v12] the two requests of one seed bit-equal: {same}")
+    if not all(same.values()):
+        raise AssertionError("two v1.2 image-to-3D requests of one seed "
+                             "differ")
+    check_shapes("image_to_3d_v12", shapes)
+    totals["by_shape"] = {str(k): shapes.get(k, 0) for k in Z123_CASES}
+    return totals
+
+
+def phase_sam(runner):
+    """`run_segmentation` with SAM ViT-H (f32), bg_color and erosion on
+    phase 12's input view and SAM_VIEWS of the knot's renders, twice."""
+    img = i23_input(runner)
+    poses, intr, lights = _rig(SIZE)
+    knot = runner.load_init_mesh(torus_knot(nu=400, nv=48),
+                                 poses[:SAM_VIEWS], intr[:SAM_VIEWS], SIZE,
+                                 lights[:SAM_VIEWS])["images"]
+    views = np.concatenate([img[None], knot.float().cpu().numpy()], 0)
+    calls = []
+    make = runner.make_sam_refine_fn
+
+    def counted():
+        refine = make()
+
+        def f(*a):
+            calls.append(a[1])
+            return refine(*a)
+        return f
+    runner.make_sam_refine_fn = counted
+    masks = []
+    try:
+        for run in ("first", "second"):
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = runner.run_segmentation(views, use_sam=True,
+                                        bg_color=(1.0, 1.0, 1.0),
+                                        erosion=2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            fg = m.reshape(len(views), -1).mean(1).tolist()
+            ok = (tuple(m.shape) == views.shape[:3] + (1,)
+                  and bool(torch.isfinite(m).all())
+                  and len(calls) == len(views))
+            log(f"[sam] {run}: {len(views)} views of {views.shape[1]}^2, "
+                f"{len(calls)} SAM calls, {wall:.3f} s wall "
+                f"({wall / len(views):.3f} s an image), peak memory "
+                f"allocated {peak / 2**30:.2f} GiB; foreground "
+                f"{[round(x, 4) for x in fg]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("SAM refinement failed its checks")
+            masks.append(m)
+    finally:
+        del runner.make_sam_refine_fn
+    same = bool(torch.equal(masks[0], masks[1]))
+    log(f"[sam] the two runs bit-equal: {same}")
+    if not same:
+        raise AssertionError("two SAM refinements of one input differ")
+
+
+def phase_zero123(runner):
+    """Legacy Zero123 at SD1.5 widths: a seeded 8-channel UNet, CLIP
+    ViT-L/14 with a 768 projection and `CLIPCameraProjection`, the SD VAE,
+    256^2, Z123_LEGACY_STEPS DDIM steps, twice with one seed."""
+    import dataclasses as dc
+    import types
+    from mvedit_tpu_torch.models.diffusion import (SD15_UNET,
+                                                   UNet2DCondition)
+    from mvedit_tpu_torch.models.diffusion import schedulers as S
+    from mvedit_tpu_torch.models.diffusion.clip import (CLIPVisionConfig,
+                                                        CLIPVisionModel)
+    from mvedit_tpu_torch.ops.image import resize_bilinear
+    from mvedit_tpu_torch.pipelines.zero123 import (CLIPCameraProjection,
+                                                    Zero123Config,
+                                                    Zero123Pipeline)
+    m = types.SimpleNamespace(schedule=S.sd_schedule(),
+                              vae=runner.load_stable_diffusion().vae)
+    m.unet = runner._build("zero123_unet", lambda: UNet2DCondition(
+        dc.replace(SD15_UNET, in_channels=8)), seed_offset=11)
+    vcfg = CLIPVisionConfig(projection_dim=768)
+    m.vision = runner._build("zero123_vision",
+                             lambda: CLIPVisionModel(vcfg), seed_offset=12)
+    m.ccp = runner._build("zero123_ccp", CLIPCameraProjection,
+                          seed_offset=13, cast=False)
+    img = torch.as_tensor(i23_input(runner), device=DEV)[None]
+    mean = torch.tensor([0.4815, 0.4578, 0.4082], device=DEV)
+    std = torch.tensor([0.2686, 0.2613, 0.2758], device=DEV)
+    clip_px = (resize_bilinear(img, (vcfg.image_size,) * 2) - mean) / std
+    pipe = Zero123Pipeline(m, Zero123Config(num_steps=Z123_LEGACY_STEPS))
+    outs = []
+    for run in ("first", "second"):
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pipe(resize_bilinear(img, (256, 256)), clip_px, 30.0, 45.0,
+                   1.5, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = (tuple(out.shape) == (1, 256, 256, 3)
+              and bool(torch.isfinite(out).all()))
+        log(f"[zero123] {run}: {Z123_LEGACY_STEPS} DDIM steps at 256^2, "
+            f"{wall:.3f} s wall, peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; image "
+            f"mean {float(out.mean()):.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("legacy Zero123 failed its checks")
+        outs.append(out)
+    same = bool(torch.equal(outs[0], outs[1]))
+    log(f"[zero123] the two runs bit-equal: {same}")
+    if not same:
+        raise AssertionError("two Zero123 runs of one seed differ")
+
+
+def phase_tet_unstructured(runner, ctx):
+    """The unstructured tet grid at TET on the request's fitted field:
+    `build_grid_tets` cold and cached, the switch with
+    `structured_tets=False`, UNSTRUCT_FIT_STEPS fit steps and the
+    extraction. Returns the raster and segment-sum launches."""
+    import tempfile
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.models.mesh import build_grid_tets
+    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+    m = runner.load_stable_diffusion()
+    m.lpips_params = runner.load_lpips()
+    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV,
+                             tet_resolution=TET, structured_tets=False)
+    pipe = MVEdit3DPipeline(m, cfg)
+    poses, intr, lights = _rig(SIZE)
+    init = runner.load_init_mesh(torus_knot(), poses, intr, SIZE, lights)
+    t = {k: torch.as_tensor(v, device=DEV) for k, v in
+         (("poses", poses), ("intrinsics", intr), ("cam_lights", lights))}
+    targets = {"images": init["images"], "masks": init["masks"],
+               "cam_weights": torch.ones(REQ_VIEWS, device=DEV), **t}
+    field = {"table": {k: v.detach().clone() for k, v in
+                       ctx["out"]["nerf_params"]["table"].items()},
+             "mlp": [{k: v.detach().clone() for k, v in l.items()}
+                     for l in ctx["out"]["nerf_params"]["mlp"]]}
+    saved = os.environ.get("MVEDIT_TORCH_TET_CACHE")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["MVEDIT_TORCH_TET_CACHE"] = cache
+        try:
+            t0 = time.perf_counter()
+            grid = build_grid_tets(TET)
+            t_cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            build_grid_tets(TET)
+            t_cached = time.perf_counter() - t0
+            RS.raster_select.launches = SS.segment_sum.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tet_grid, state, opt = pipe._init_mesh_phase(field, device=DEV)
+            torch.cuda.synchronize()
+            t_switch = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                del os.environ["MVEDIT_TORCH_TET_CACHE"]
+            else:
+                os.environ["MVEDIT_TORCH_TET_CACHE"] = saved
+    run, _, _ = pipe._mesh_fit_fns(tet_grid, UNSTRUCT_FIT_STEPS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    state, opt, out = run(state, opt, targets,
+                          sched=pipe._sched_weights(0.65, "mesh"),
+                          generator=gen, lpips_params=m.lpips_params)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mt = out["mt"]
+    # below tet 32 the fit keeps the full buffers, with no counts
+    vcap, fcap = len(mt["vert_mask"]), run.face_cap
+    nv = int(mt["n_verts"] if "n_verts" in mt else mt["vert_mask"].sum())
+    nf = int(mt["n_faces"] if "n_faces" in mt else mt["face_mask"].sum())
+    kept = int(mt["face_mask"].sum())
+    n = dict(raster=RS.raster_select.launches,
+             segment=SS.segment_sum.launches)
+    ok = (bool(torch.isfinite(out["loss"]).all()) and kept > 0
+          and min(n.values()) > 0 and len(tet_grid.tets) == len(grid.tets))
+    log(f"[tet_unstructured] build_grid_tets({TET}) on the host: "
+        f"{t_cold:.3f} s cold ({len(grid.verts)} verts, {len(grid.tets)} "
+        f"tets, {len(grid.unique_edges)} unique edges), {t_cached:.3f} s "
+        f"cached; the switch {t_switch:.3f} s; {UNSTRUCT_FIT_STEPS} fit steps "
+        f"{t_fit:.3f} s, loss {float(out['loss'][0]):.4f} -> "
+        f"{float(out['loss'][-1]):.4f}; {nv} crossings (vert cap {vcap}, "
+        f"overflow {max(nv - vcap, 0)}), {nf} faces (face cap {fcap}, "
+        f"overflow {max(nf - fcap, 0)}), {kept} kept; peak "
+        f"{peak / 2**30:.2f} GiB {'ok' if ok else 'FAIL'}")
+    log(f"[launches] tet_unstructured: raster_select {n['raster']}, "
+        f"segment_sum {n['segment']}")
+    if not ok:
+        raise AssertionError("the unstructured tet grid phase failed its "
+                             "checks")
+    return n
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -2626,9 +2983,16 @@ def main():
         seg_launches += superres["segment"]
         i23 = phase_image_to_3d(runner, tmp)
         seg_launches += i23["segment"]
+        v12 = phase_image_to_3d_v12(runner, tmp)
+        seg_launches += v12["segment"]
+    phase_sam(runner)
+    phase_zero123(runner)
+    unst = phase_tet_unstructured(runner, req_ctx)
+    seg_launches += unst["segment"]
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
         f"requests, tet 256, the retex, superres and image-to-3D requests "
-        f"(staged copies {SS.segment_sum.staged})")
+        f"(v1.1 and v1.2) and the unstructured tet grid (staged copies "
+        f"{SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
                              "staged its inputs")
@@ -2645,7 +3009,8 @@ def main():
     # the rasterizer hands the selection float32 pts, int64 faces and ids,
     # bool masks, contiguous: read as they are
     log(f"[launches] raster_select staged copies over the mesh phase, the "
-        f"requests, tet 256, retex, superres and image-to-3D: "
+        f"requests, tet 256, retex, superres, image-to-3D (v1.1 and v1.2) "
+        f"and the unstructured tet grid: "
         f"{RS.raster_select.staged}; tile 32: {superres['tile32']} "
         f"launches, all in phase 11")
     if RS.raster_select.staged:
@@ -2657,7 +3022,8 @@ def main():
                                     "bound_by", "library_ms")},
                  shape=list(case_dims(r["shape"])[0]),
                  lk=case_dims(r["shape"])[1],
-                 launches=i23["by_shape"][str(r["shape"])])
+                 launches=i23["by_shape"][str(r["shape"])]
+                 + v12["by_shape"][str(r["shape"])])
             for r in rows if r["shape"] in Z123_CASES]
     rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
@@ -2678,7 +3044,7 @@ def main():
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash + retex["flash"]
-         + superres["flash"] + i23["flash"],
+         + superres["flash"] + i23["flash"] + v12["flash"],
          "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
@@ -2688,7 +3054,8 @@ def main():
          "replaces": "mvedit_tpu/models/mesh/select_pallas.py:150",
          "launches": sum(mesh_launches.values())
          + sum(req_launches.values()) + retex["raster"]
-         + superres["raster"] + i23["raster"],
+         + superres["raster"] + i23["raster"] + v12["raster"]
+         + unst["raster"],
          "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),

@@ -4,16 +4,16 @@ Counterpart of `mvedit_tpu/apis/endpoints.py`; so far `run_text_to_img`,
 `load_init_mesh`, `run_3d_to_3d` (mesh editing: init renders -> the MVEdit
 loop -> a textured GLB, optionally chained into texture superres),
 texture superres (`proc_texture_superres`, `run_texture_superres`) and
-image-to-3D (`load_zero123plus`, `run_zero123plus`, `proc_zero123plus`,
-`run_zero123plus1_2`, `run_zero123plus_to_mesh`,
-`run_zero123plus1_2_to_mesh`). Not ported yet (ROADMAP Queue 1, item 6):
-v1.2's normal-generation pass (`return_normal` / `return_normals`, and
-`run_zero123plus1_2_to_mesh` with its generated normals), which raises.
+image-to-3D (`load_zero123plus`, `load_zero123plus_normal`,
+`run_zero123plus`, `proc_zero123plus`, `run_zero123plus1_2`,
+`run_zero123plus_to_mesh`, `run_zero123plus1_2_to_mesh`; v1.2 with its
+generated normals by default).
 """
 import numpy as np
 import torch
 
 from . import cameras as C
+from ..models.diffusion import SD15_UNET, UNet2DCondition
 from ..models.diffusion import schedulers as S
 from ..models.mesh import RasterConfig, render_views
 from ..ops.tonemapping import Tonemapping
@@ -21,10 +21,6 @@ from ..utils import camera as cam_utils
 from ..utils.geometry import normalize_depth
 
 __all__ = ["EndpointsMixin"]
-
-_NORMAL_PASS = ("Zero123++ v1.2's normal-generation pass is not ported yet "
-                "(ROADMAP Queue 1, item 6: v1.2's normal pipe with "
-                "preproc.zero123plus_postprocess)")
 
 
 class EndpointsMixin:
@@ -378,17 +374,35 @@ class EndpointsMixin:
         m.schedule = S.sd_schedule(prediction_type="v_prediction")
         return m
 
+    def load_zero123plus_normal(self, version="1.2"):
+        """The v1.2 normal-generation models on a fresh namespace: those of
+        `load_zero123plus` with a second SD1.5 UNet
+        (`zero123plus_normal_unet/` in `checkpoint_dir`, else seeded with
+        `seed + 7`) in place of the RGB pass's, and the normal ControlNet
+        (`controlnet_z123_normal/`), whose hint is the generated RGB
+        grid."""
+        m = self.load_zero123plus(version)
+        cfg = self._tiny_unet_cfg() if self.tiny else SD15_UNET
+        m.unet = self._build(f"z123_normal_unet:{version}",
+                             lambda: UNet2DCondition(cfg), seed_offset=7,
+                             subdir="zero123plus_normal_unet")
+        m.controlnet = self.load_controlnets(kinds=("z123_normal",))[0]
+        return m
+
     def run_zero123plus(self, image, seed=42, num_steps=None,
-                        version="1.1", return_normal=False, draws=None):
+                        version="1.1", return_normal=False, draws=None,
+                        normal_draws=None):
         """Image (H, W, 3) in [0, 1] -> the 6-view grid (960, 640, 3)
         float32 numpy in [0, 1] (tiny (48, 32)), 40 steps (tiny 2); v1.2
-        rolls the grid latents. The draws come from a generator seeded
-        with `seed`, or from `draws` (`Zero123PlusDraws`' methods)."""
+        rolls the grid latents. With `return_normal`, a second pass through
+        the normal models (`load_zero123plus_normal`) with the grid as the
+        ControlNet's hint returns (grid, normal_grid). The draws come from
+        a generator seeded with `seed` (the normal pass's with seed +
+        1000), or from `draws` / `normal_draws` (`Zero123PlusDraws`'
+        methods)."""
         from ..ops.image import resize_bilinear
         from ..pipelines.zero123plus import (Zero123PlusConfig,
                                              Zero123PlusPipeline)
-        if return_normal:
-            raise NotImplementedError(_NORMAL_PASS)
         m = self.load_zero123plus(version)
         cfg = Zero123PlusConfig(
             num_steps=num_steps or (2 if self.tiny else 40),
@@ -400,12 +414,24 @@ class EndpointsMixin:
             img = img[None]
         H, W = cfg.grid_hw
         s = m.vision.cfg.image_size
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        out = Zero123PlusPipeline(m, cfg)(
-            resize_bilinear(img, (H, W)), resize_bilinear(img, (s, s)),
-            generator=gen, draws=draws)
-        return out[0].float().cpu().numpy()
+        img_r, clip_px = resize_bilinear(img, (H, W)), \
+            resize_bilinear(img, (s, s))
+
+        def gen(seed_):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed_)
+            return g
+        out = Zero123PlusPipeline(m, cfg)(img_r, clip_px,
+                                          generator=gen(seed), draws=draws)
+        grid = out[0].float().cpu().numpy()
+        if not return_normal:
+            return grid
+        nout = Zero123PlusPipeline(self.load_zero123plus_normal(version),
+                                   cfg)(img_r, clip_px,
+                                        generator=gen(seed + 1000),
+                                        draws=normal_draws,
+                                        normal_cond=out)
+        return grid, nout[0].float().cpu().numpy()
 
     @staticmethod
     def _split_grid(grid):
@@ -421,22 +447,38 @@ class EndpointsMixin:
                          z123_draws=None):
         """`passes` Zero123++ runs (6, tiny 1) of seeds seed + p -> the
         stacked views (6 passes, h, w, 3); odd passes mirror the input and
-        un-mirror their views. `z123_draws(pass_seed)` gives a pass's draw
-        source (default: its seeded generator)."""
-        if return_normals:
-            raise NotImplementedError(_NORMAL_PASS)
+        un-mirror their views. With `return_normals`, also the normal
+        pass's views; a mirrored pass's normals get their x channel
+        inverted (1 - n) before the un-mirror. `z123_draws(pass_seed)`
+        gives a pass's draw source (default: its seeded generator), also
+        for the normal pass at pass_seed + 1000."""
         passes = passes or (1 if self.tiny else 6)
         img = np.asarray(image, np.float32)
-        views = []
+        views, normals = [], []
+
+        def draws(seed_):
+            return None if z123_draws is None else z123_draws(seed_)
         for p in range(passes):
             mirrored = p % 2 == 1
             src = np.ascontiguousarray(img[:, ::-1]) if mirrored else img
-            grid = self.run_zero123plus(
+            out = self.run_zero123plus(
                 src, seed=seed + p, num_steps=num_steps, version=version,
-                draws=None if z123_draws is None else z123_draws(seed + p))
+                return_normal=return_normals, draws=draws(seed + p),
+                normal_draws=(draws(seed + p + 1000) if return_normals
+                              else None))
+            grid, ngrid = out if return_normals else (out, None)
             v6 = self._split_grid(grid)
             views.append(v6[:, :, ::-1] if mirrored else v6)
-        return np.ascontiguousarray(np.concatenate(views, axis=0))
+            if ngrid is not None:
+                n6 = self._split_grid(ngrid).copy()
+                if mirrored:
+                    n6[..., 0] = 1.0 - n6[..., 0]
+                    n6 = n6[:, :, ::-1]
+                normals.append(n6)
+        views = np.ascontiguousarray(np.concatenate(views, axis=0))
+        if return_normals:
+            return views, np.ascontiguousarray(np.concatenate(normals, 0))
+        return views
 
     def run_zero123plus1_2(self, image, seed=42, num_steps=None):
         """Zero123++ v1.2's 6-view grid (the latent roll; no normals)."""
@@ -445,13 +487,9 @@ class EndpointsMixin:
 
     def run_zero123plus1_2_to_mesh(self, image, seed=42, out_path=None,
                                    passes=None, in_pose=None, **kwargs):
-        """v1.2 image-to-3D on the v1.2 rig. The reference supervises the
-        generated views with v1.2's generated normals by default; that
-        pass is not ported, so it raises unless `use_normals=False` or
-        `gen_normals=False`."""
-        if kwargs.get("use_normals", True) and \
-                kwargs.get("gen_normals", True):
-            raise NotImplementedError(_NORMAL_PASS)
+        """v1.2 image-to-3D on the v1.2 rig, with the generated normals
+        (unless `use_normals=False` or `gen_normals=False`); see
+        `run_zero123plus_to_mesh`."""
         return self.run_zero123plus_to_mesh(
             image, seed=seed, out_path=out_path, passes=passes,
             in_pose=in_pose, version="1.2", **kwargs)
@@ -465,20 +503,32 @@ class EndpointsMixin:
         MVEdit loop (view 0 never pruned, 640 init inverse steps for v1.1,
         720 for v1.2), with TRACER masks of the initial views and of the
         decoded views at every step, Omnidata normals supervising view 0,
-        IP-Adapter on the input image -> a GLB at `out_path`. Extra kwargs
-        follow the nerf_mesh schema (`apis/parameters.py`) and `segment`,
-        `use_normals`, `estimate_pose`, `use_ip_adapter` (all True by
+        IP-Adapter on the input image -> a GLB at `out_path`. v1.2 (with
+        `use_normals` and `gen_normals`) also runs the normal pass: each
+        generated view goes through `preproc.zero123plus_postprocess`, its
+        mask becomes min(TRACER, the normal-norm matte) (view 0 keeps
+        TRACER's), and its composited normals supervise it (all normal
+        weights 1). Extra kwargs follow the nerf_mesh schema
+        (`apis/parameters.py`) and `segment`, `use_normals`,
+        `gen_normals`, `estimate_pose`, `use_ip_adapter` (all True by
         default), `prompt`, `negative_prompt` and `superres`. The MVEdit
         draws come from a generator seeded with `seed`, or from `draws`;
         Zero123++'s from `z123_draws` (see `proc_zero123plus`). The result
-        adds "views" (the generated views), "in_pose" and "pose_route"
-        ("estimated", "given" or "front")."""
+        adds "views" (the generated views), "normals" (the generated
+        normals, or None), "in_pose" and "pose_route" ("estimated",
+        "given" or "front")."""
         from ..ops.image import resize_bilinear
         from ..pipelines.mvedit_3d import MVEdit3DPipeline
+        from ..pipelines.preproc import zero123plus_postprocess
         tiny, dev = self.tiny, self.device
         passes = passes or (1 if tiny else 6)
-        views = self.proc_zero123plus(image, seed=seed, passes=passes,
-                                      version=version, z123_draws=z123_draws)
+        gen_normal = (version == "1.2" and kwargs.get("use_normals", True)
+                      and kwargs.get("gen_normals", True))
+        out = self.proc_zero123plus(image, seed=seed, passes=passes,
+                                    version=version,
+                                    return_normals=gen_normal,
+                                    z123_draws=z123_draws)
+        views, gen_normals = out if gen_normal else (out, None)
         poses44, fov, dist = (C.zero123plus_v11_rig() if version == "1.1"
                               else C.zero123plus_v12_rig())
         n_gen = 6 * passes
@@ -515,21 +565,39 @@ class EndpointsMixin:
         focal = size / (2 * np.tan(np.radians(fov / 2)))
         intr = np.tile(np.asarray([focal, focal, size / 2, size / 2],
                                   np.float32), (num_views, 1))
+        matte = gen_n = None
+        if gen_normals is not None:
+            # the normal-norm matte of each view and its composited normals
+            posts = [zero123plus_postprocess(v, n)
+                     for v, n in zip(views, gen_normals)]
+            matte = resize_bilinear(t(np.stack([p[0][..., 3:]
+                                                for p in posts])),
+                                    (size, size))
+            gen_n = resize_bilinear(t(np.stack([p[1] for p in posts])),
+                                    (size, size))
         if kwargs.get("segment", True):
             masks = self.run_segmentation(views_r)
             m.segment_fn = self.make_segment_fn()
         else:
             masks = torch.ones((num_views, size, size, 1), device=dev)
+        if matte is not None:
+            masks = torch.cat([masks[:1], torch.minimum(masks[1:], matte)],
+                              0)
         targets = {"images": views_r, "masks": masks, "poses": t(poses),
                    "intrinsics": t(intr)}
         if kwargs.get("use_normals", True):
-            # Omnidata on the input view; the generated views get the
-            # normal TV only (weight 0)
+            # Omnidata on the input view; the generated views get their
+            # generated normals (v1.2), else the normal TV only (weight 0)
             n0 = self.predict_normals(views_r[:1])
-            targets["normals"] = torch.cat(
-                [n0, torch.zeros((num_views - 1, size, size, 3),
-                                 device=dev)], 0)
-            targets["normal_weights"] = t([1.0] + [0.0] * (num_views - 1))
+            if gen_n is not None:
+                targets["normals"] = torch.cat([n0, gen_n], 0)
+                targets["normal_weights"] = t(np.ones(num_views))
+            else:
+                targets["normals"] = torch.cat(
+                    [n0, torch.zeros((num_views - 1, size, size, 3),
+                                     device=dev)], 0)
+                targets["normal_weights"] = t([1.0]
+                                              + [0.0] * (num_views - 1))
         rng = np.random.default_rng(seed)
         lights, _ = cam_utils.light_sampling(poses, rng=rng)
         wkey = ("zero123plus_cam_weights" if version == "1.1"
@@ -557,8 +625,8 @@ class EndpointsMixin:
         out = self._chain_superres(out, "nerf_params", prompt,
                                    kwargs.get("negative_prompt", ""), seed,
                                    kwargs.get("superres", False))
-        out.update(views=views, in_pose=np.asarray(poses[0]),
-                   pose_route=route)
+        out.update(views=views, normals=gen_normals,
+                   in_pose=np.asarray(poses[0]), pose_route=route)
         if out_path and out["mesh"] is not None:
             out["mesh"].write(out_path, flip_yz=True)
         return out

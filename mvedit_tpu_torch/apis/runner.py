@@ -3,8 +3,9 @@
 Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`,
 `run_retex`, texture superres, `run_mesh_to_video`, `run_text_to_img` and
 image-to-3D need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and
-depth (and ip2p) ControlNets, LPIPS, the SRVGG image enhancer, IP-Adapter
-with its CLIP vision tower, the perception nets (TRACER-B7 masks, DPT
+depth (and ip2p, and Zero123++ v1.2's normal) ControlNets, LPIPS, the
+SRVGG image enhancer, IP-Adapter with its CLIP vision tower, the
+perception nets (TRACER-B7 masks with SAM's box-prompted refinement, DPT
 normals, LoFTR matches for the input view's pose), prompt encoding, the
 mesh preprocessing, and the rig constants (`constants`, with
 `apis/cameras.py` and `utils/camera.py`).
@@ -14,9 +15,10 @@ Models are built on `device` with seeded random weights (drawn from a
 in the reference's search order: `<checkpoint_dir>/<subdir>/` with
 `diffusion_pytorch_model.{safetensors,bin}`, `model.safetensors`,
 `pytorch_model.bin` or `<subdir>.safetensors`, for the subdirs `unet`,
-`vae`, `text_encoder`, `controlnet_{tile,depth,ip2p}`, `image_enhancer`,
-`ip_adapter_vision`, `zero123plus_vision`, `tracer`, `omnidata` and
-`loftr` (those three in their reference checkpoints' own key layouts);
+`vae`, `text_encoder`, `controlnet_{tile,depth,ip2p,z123_normal}`,
+`image_enhancer`, `ip_adapter_vision`, `zero123plus_vision`,
+`zero123plus_normal_unet`, `tracer`, `omnidata`, `loftr` and `sam` (those
+four in their reference checkpoints' own key layouts);
 LPIPS from `lpips/lpips_vgg.{safetensors,bin}`; the IP-Adapter
 projection and UNet branches from `ip_adapter/ip_adapter.npz` (the
 reference's converted flax tree). The
@@ -25,7 +27,7 @@ go in with `load_state_dict`; keys that match nothing are reported, and
 parameters a file lacks keep their seeded values. `checkpoint_dir` may be
 a `huggingface://org/repo` reference into the local cache. Full-size
 models store bf16 weights, as the reference casts them; the f32 layers
-compute in f32 all the same.
+compute in f32 all the same; SAM stays f32, as the reference runs it.
 """
 import os
 import types
@@ -127,10 +129,11 @@ class Adapter3DRunner(EndpointsMixin):
                   f"seeded values, e.g. {list(missing)[:4]}")
 
     def _build(self, name, make, seed_offset=0, subdir=None, convert=None,
-               post_init=None):
+               post_init=None, cast=True):
         """Builds, seeds, loads from `checkpoint_dir/subdir` where a file is
-        found, and (full size) casts a model, once per name. `post_init`
-        adjusts the seeded values before the load."""
+        found, and (full size, with `cast`) casts a model to bf16, once per
+        name. `post_init(model, generator)` adjusts the seeded values
+        before the load."""
         if name in self._cache:
             return self._cache[name]
         gen = torch.Generator(device=self.device)
@@ -139,11 +142,11 @@ class Adapter3DRunner(EndpointsMixin):
             model = make()
         init_random_(model, gen)
         if post_init is not None:
-            post_init(model)
+            post_init(model, gen)
         path = self._checkpoint_file(subdir)
         if path is not None:
             self._load_into(name, model, load_torch_state(path), convert)
-        if not self.tiny:
+        if cast and not self.tiny:
             # inference-only frozen nets store bf16 weights (runner.py:96-107)
             model = model.to(torch.bfloat16)
         model.eval().requires_grad_(False)
@@ -234,7 +237,7 @@ class Adapter3DRunner(EndpointsMixin):
         from ..ops.image import resize_bilinear
 
         @torch.no_grad()
-        def prelu_init(net):             # PReLU slopes start at 0.25
+        def prelu_init(net, gen):        # PReLU slopes start at 0.25
             for mod in net.body:
                 if isinstance(mod, torch.nn.PReLU):
                     mod.weight.fill_(0.25)
@@ -371,24 +374,53 @@ class Adapter3DRunner(EndpointsMixin):
     def run_segmentation(self, images, seed=42, refine_fn=None,
                          use_sam=False, bg_color=None, erosion=0):
         """TRACER foreground masks: images (N, H, W, 3) in [0, 1] (numpy
-        or a tensor) -> (N, H, W, 1) on the runner's device. The SAM
-        refiner, `refine_fn`, `bg_color` and `erosion` (the reference's
-        `preproc.do_segmentation`) are not ported yet (ROADMAP Queue 1,
-        item 6: SAM)."""
-        if use_sam or refine_fn is not None or bg_color is not None \
-                or erosion:
-            raise NotImplementedError(
-                "SAM refinement, bg_color and erosion of run_segmentation "
-                "are not ported yet (ROADMAP Queue 1, item 6: SAM and "
-                "preproc.do_segmentation)")
+        or a tensor) -> (N, H, W, 1) on the runner's device. `refine_fn`
+        (`preproc.do_segmentation`'s box-prompted refiner; `use_sam`
+        installs `make_sam_refine_fn()`), `bg_color` and `erosion` go
+        through `preproc.do_segmentation`, as the reference's."""
         from ..models.segmentors import tracer_segment
         net = self.load_tracer(seed=seed)
         ims = torch.as_tensor(np.asarray(images, np.float32)
                               if not torch.is_tensor(images) else images,
                               dtype=torch.float32, device=self.device)
-        with torch.inference_mode():
-            return tracer_segment(net, ims, 64 if self.tiny else 640,
-                                  chunk=8)
+
+        @torch.inference_mode()
+        def segment(x):
+            return tracer_segment(net, x, 64 if self.tiny else 640, chunk=8)
+        if use_sam and refine_fn is None:
+            refine_fn = self.make_sam_refine_fn()
+        if refine_fn is None and bg_color is None and erosion == 0:
+            return segment(ims)
+        from ..pipelines.preproc import do_segmentation
+        return do_segmentation(ims, segment, refine_fn=refine_fn,
+                               bg_color=bg_color, erosion=erosion)
+
+    def load_sam(self):
+        """SAM in float32: ViT-H (`SAM_TINY` with tiny models) from
+        `sam/` in `checkpoint_dir` (segment-anything's
+        `sam_vit_h_4b8939.pth` keys), else seeded; its positional-encoding
+        matrix N(0, 1), as segment-anything draws it."""
+        from ..models.segmentors.sam import SAM_TINY, SAM_VIT_H, SamModel
+        cfg = SAM_TINY if self.tiny else SAM_VIT_H
+
+        @torch.no_grad()
+        def pe_init(net, gen):
+            g = net.prompt_encoder.pe_layer.positional_encoding_gaussian_matrix
+            g.copy_(torch.randn(g.shape, generator=gen, device=g.device))
+        return self._build("sam", lambda: SamModel(cfg), seed_offset=9,
+                           subdir="sam", post_init=pe_init, cast=False)
+
+    def make_sam_refine_fn(self):
+        """`refine_fn(image_uint8 (H, W, 3), bbox (4,) xyxy) -> (H, W)`
+        float32 numpy mask, through SAM on the runner's device."""
+        from ..models.segmentors.sam import sam_predict_box
+        model = self.load_sam()
+
+        def refine(image_uint8, bbox):
+            img = torch.as_tensor(np.asarray(image_uint8, np.float32) / 255.0,
+                                  device=self.device)
+            return sam_predict_box(model, img, bbox).cpu().numpy()
+        return refine
 
     def load_normal_model(self):
         """Omnidata's DPT-hybrid (`omnidata/` in `checkpoint_dir`, else

@@ -15,8 +15,7 @@ so the topology is refreshed at the same steps as in the reference.
 
 The random draws (the views of each step, the regulariser's face samples,
 the LPIPS patch origins) are inputs: `fit` takes them as tensors, or draws
-them from a `torch.Generator` when none are given. The unstructured
-`TetGrid` path waits for its slice.
+them from a `torch.Generator` when none are given.
 """
 import math
 from dataclasses import dataclass
@@ -28,6 +27,7 @@ from ..ops.segment import gather_rows, segment_add
 from ..ops.tonemapping import Tonemapping
 from . import losses as L
 from .fields import field_leaves
+from .mesh.dmtet import marching_tets, marching_tets_compact
 from .mesh.rasterize import RasterConfig
 from .mesh.renderer import render_views
 from .mesh.structured_tets import (StructuredTetGrid,
@@ -62,9 +62,9 @@ class MeshFitConfig:
     bg_color: float = 1.0
     shaded: bool = True
     ssaa: int = 1
-    vert_cap: int = 0                 # 0: the default caps of `mesh_caps`
-    face_cap: int = 0
-    freeze_topology: bool = False
+    vert_cap: int = 0                 # 0: the default caps of `mesh_caps`;
+    face_cap: int = 0                 # a TetGrid's full buffers
+    freeze_topology: bool = False     # structured grids only
 
 
 def default_mesh_schedule_weights(cfg: MeshFitConfig):
@@ -100,9 +100,10 @@ def percentiles(x, qs):
 
 
 @torch.no_grad()
-def init_sdf_from_density(density_fn, grid: StructuredTetGrid, thresh=5.0,
-                          scale=0.05, adaptive=True, device=None):
-    """sdf0 at the lattice verts from a density field: positive inside
+def init_sdf_from_density(density_fn, grid, thresh=5.0, scale=0.05,
+                          adaptive=True, device=None):
+    """sdf0 at the verts of a `StructuredTetGrid` or a `TetGrid` from a
+    density field: positive inside
     (density > thresh). `adaptive` clamps the threshold below the field's
     95th percentile, and falls back to the 70th percentile when nearly all
     or nearly no verts start inside, so the initial surface has crossings."""
@@ -218,8 +219,9 @@ def _draw_views(targets, cfg: MeshFitConfig, n_steps, generator):
                                       device=dev)}
 
 
-def make_mesh_fit(grid: StructuredTetGrid, color_fn, cfg: MeshFitConfig):
-    """Build `fit(state, opt, targets, sched=None, draws=None,
+def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
+    """On a `StructuredTetGrid` or a `TetGrid`, build `fit(state, opt,
+    targets, sched=None, draws=None,
     generator=None, lpips_params=None)`, `make_optimizer(state)` and
     `extract(state)`.
 
@@ -231,26 +233,46 @@ def make_mesh_fit(grid: StructuredTetGrid, color_fn, cfg: MeshFitConfig):
     (n_steps, render_bs), "reg_faces": (n_steps, reg_face_samples)} index
     tensors (the patch origins are read when `lpips_params` is given).
     fit returns (state, opt, {"loss": (n_steps,), "mt": extraction of the
-    final state}).
+    final state}); `fit.face_cap` is the extraction's face slots, which
+    the regulariser's face draws index.
+
+    A `TetGrid` extracts through `marching_tets_compact` at `cfg`'s caps
+    (face_cap 0: twice vert_cap), or with no caps through `marching_tets`'
+    full buffers; its cell is 2 / (round(V^(1/3)) - 1), as the
+    reference's. It takes no `freeze_topology` (ValueError).
     """
-    if not isinstance(grid, StructuredTetGrid):
-        raise NotImplementedError("only the structured tet grid is ported")
     tm = Tonemapping()
-    cell = 2.0 / grid.resolution
-    vert_cap, face_cap = mesh_caps(grid.resolution, cfg.vert_cap,
-                                   cfg.face_cap)
+    structured = isinstance(grid, StructuredTetGrid)
+    if structured:
+        cell = 2.0 / grid.resolution
+        vert_cap, face_cap = mesh_caps(grid.resolution, cfg.vert_cap,
+                                       cfg.face_cap)
+    else:
+        if cfg.freeze_topology:
+            raise ValueError("freeze_topology requires a StructuredTetGrid")
+        cell = 2.0 / max(round(len(grid.verts) ** (1 / 3)) - 1, 1)
+        vert_cap = cfg.vert_cap
+        face_cap = (cfg.face_cap or 2 * vert_cap) if vert_cap \
+            else grid.max_faces
     subsample = bool(cfg.reg_face_samples) and cfg.reg_face_samples < face_cap
 
     def _deform(state):
         return torch.tanh(state["deform"]) * (cfg.deform_scale * cell)
 
+    def _extract(sdf, deform):
+        if structured:
+            return marching_tets_structured(
+                grid, grid.arrays(sdf.device), sdf, deform=deform,
+                vert_cap=vert_cap, face_cap=face_cap)
+        if vert_cap:
+            return marching_tets_compact(grid, sdf, deform=deform,
+                                         vert_cap=vert_cap,
+                                         face_cap=face_cap)
+        return marching_tets(grid, sdf, deform=deform)
+
     @torch.no_grad()
     def extract(state):
-        sdf = state["sdf"].detach()
-        return marching_tets_structured(
-            grid, grid.arrays(sdf.device), sdf,
-            deform=_deform(state).detach(), vert_cap=vert_cap,
-            face_cap=face_cap)
+        return _extract(state["sdf"].detach(), _deform(state).detach())
 
     def make_optimizer(state):
         """Adam(b1 0.9, b2 0.99, eps 1e-15) with two groups, the field and
@@ -270,9 +292,7 @@ def make_mesh_fit(grid: StructuredTetGrid, color_fn, cfg: MeshFitConfig):
             mt["verts"] = marching_tets_verts(grid, topo, state["sdf"],
                                               deform=_deform(state))
         else:
-            mt = marching_tets_structured(
-                grid, grid.arrays(state["sdf"].device), state["sdf"],
-                deform=_deform(state), vert_cap=vert_cap, face_cap=face_cap)
+            mt = _extract(state["sdf"], _deform(state))
         if reg_ids is not None:
             reg_faces, reg_mask = mt["faces"][reg_ids], mt["face_mask"][reg_ids]
         else:
@@ -367,7 +387,7 @@ def make_mesh_fit(grid: StructuredTetGrid, color_fn, cfg: MeshFitConfig):
             losses.append(loss.detach())
         return state, opt, {"loss": torch.stack(losses), "mt": extract(state)}
 
-    fit.draw = draw
+    fit.draw, fit.face_cap = draw, face_cap
     return fit, make_optimizer, extract
 
 

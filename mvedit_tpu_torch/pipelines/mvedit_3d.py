@@ -40,7 +40,7 @@ from ..models.diffusion import schedulers as S
 from ..models.fields import (FieldColor, FieldShading, INGPConfig, ingp_init,
                              ingp_point_decode)
 from ..models.mesh import (Mesh, RasterConfig, StructuredTetGrid,
-                           bake_texture, render_views)
+                           bake_texture, build_grid_tets, render_views)
 from ..models.volume_renderer import OccupancyGrid, RenderConfig
 from ..native import decimate_qem, native_available
 from ..ops.image import edge_dilation, resize_bilinear
@@ -333,7 +333,11 @@ class MVEdit3DPipeline:
         def get(steps):
             key = ("mesh", steps)
             if key not in self._fit_cache:
-                # the extraction caps are `mesh_caps(tet_resolution)`
+                # the extraction caps are `mesh_caps(tet_resolution)` from
+                # tet 32 up; below it a TetGrid keeps its full buffers (a
+                # structured grid takes the same caps either way)
+                res = cfg.tet_resolution
+                vert_cap = MF.mesh_caps(res)[0] if res >= 32 else 0
                 mcfg = MF.MeshFitConfig(
                     raster=self._mesh_raster_cfg(cfg.render_size),
                     n_steps=steps,
@@ -341,6 +345,8 @@ class MVEdit3DPipeline:
                     laplacian_weight=0.25 * cfg.mesh_smoothness,
                     normal_consistency_weight=0.25 * cfg.mesh_smoothness,
                     patch_size=min(cfg.patch_size, cfg.render_size),
+                    vert_cap=vert_cap,
+                    face_cap=vert_cap + (vert_cap >> 1),
                     freeze_topology=(cfg.freeze_mesh_topology
                                      and cfg.structured_tets))
                 self._fit_cache[key] = (mcfg,) + MF.make_mesh_fit(
@@ -363,7 +369,7 @@ class MVEdit3DPipeline:
             return state, opt, {"loss": torch.cat(hists), "mt": out["mt"]}
         run.kind, run.chunks = "mesh", chunks
         run.fit_cfg = get(chunks[0])[0]
-        run.face_cap = MF.mesh_caps(tet_grid.resolution)[1]
+        run.face_cap = get(chunks[0])[1].face_cap
         run.draw = lambda tgt, generator: [
             get(s)[1].draw(tgt, s, generator) for s in chunks]
         return run, make_opt, extract
@@ -724,13 +730,14 @@ class MVEdit3DPipeline:
 
     def _init_mesh_phase(self, nerf_params, device=None):
         """The switch to DMTet (reference `__call__`, mvedit_3d.py:847-862):
-        the structured tet grid, sdf from the field's density, zero deform,
-        the optimizer. Returns (tet_grid, mesh_state, optimizer)."""
+        the structured tet grid, or with `structured_tets=False` the
+        unstructured one of `build_grid_tets`, sdf from the field's
+        density, zero deform, the optimizer. Returns (tet_grid,
+        mesh_state, optimizer)."""
         cfg = self.cfg
-        if not cfg.structured_tets:
-            raise NotImplementedError("only the structured tet grid is "
-                                      "ported")
-        tet_grid = StructuredTetGrid(cfg.tet_resolution)
+        tet_grid = (StructuredTetGrid(cfg.tet_resolution)
+                    if cfg.structured_tets
+                    else build_grid_tets(cfg.tet_resolution))
         sdf0 = MF.init_sdf_from_density(
             lambda x: self._decode_fn(nerf_params, x)[0], tet_grid,
             device=device)

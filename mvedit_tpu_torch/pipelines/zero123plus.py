@@ -10,12 +10,16 @@ Counterpart of `mvedit_tpu/pipelines/zero123plus.py`:
 - the CLIP vision tower's global embedding, scaled per token by
   `ramping`, added to the encoded empty prompt (`text_uncond`);
 - Zero123++'s latent and image rescalings (`scale_latents` & co.);
-- `shift_views`: v1.2's roll of the grid latents by half a tile.
+- `shift_views`: v1.2's roll of the grid latents by half a tile;
+- `normal_cond`: v1.2's normal pass, whose UNet reads the ControlNet
+  (`m.controlnet`) run on the CFG batch with the generated RGB grid
+  as its hint, at `cond_scale`: its down and mid residuals go into the
+  read pass beside the reference states.
 
 The random draws come from a draw source (`Zero123PlusDraws`' methods):
 the initial latents, then per step the reference noise and the ancestral
 noise, in the reference's key order (key -> (key, k0); per step key ->
-(key, kr, ks)). The normal ControlNet (v1.2's normal pass) is not ported.
+(key, kr, ks)).
 """
 from dataclasses import dataclass
 
@@ -49,6 +53,7 @@ class Zero123PlusConfig:
     num_steps: int = 40
     guidance_scale: float = 4.0
     grid_hw: tuple = (960, 640)      # 3 x 2 grid of 320 x 320 views
+    cond_scale: float = 1.0          # the normal ControlNet's scale
     shift_views: bool = False        # v1.2 latent roll
     # Euler-ancestral as the reference samples Zero123++; "dpmsolver" is
     # the reference's second-order option
@@ -76,7 +81,8 @@ class Zero123PlusDraws:
 
 class Zero123PlusPipeline:
     """models: unet, vae, vision (CLIPVisionModel), ramping (L,)
-    coefficients, text_uncond (1, L, C), schedule (v-prediction)."""
+    coefficients, text_uncond (1, L, C), schedule (v-prediction); for the
+    normal pass also controlnet."""
 
     def __init__(self, models, cfg: Zero123PlusConfig):
         self.m = models
@@ -95,12 +101,13 @@ class Zero123PlusPipeline:
 
     @torch.inference_mode()
     def __call__(self, cond_image, cond_pixels_clip, generator=None,
-                 draws=None):
+                 draws=None, normal_cond=None):
         """cond_image: (1, H, W, 3) in [0, 1] at the grid size;
         cond_pixels_clip: (1, S, S, 3) in [0, 1], the input at the vision
-        tower's size (the reference feeds it unnormalised). The draws come
-        from `draws`, by default from `generator`. Returns the decoded
-        grid (1, H, W, 3) in [0, 1]."""
+        tower's size (the reference feeds it unnormalised); normal_cond:
+        (1, H, W, 3) the ControlNet's hint (the normal pass's RGB grid),
+        or None. The draws come from `draws`, by default from `generator`.
+        Returns the decoded grid (1, H, W, 3) in [0, 1]."""
         cfg, m, sch = self.cfg, self.m, self.schedule
         draws = draws if draws is not None else Zero123PlusDraws(generator)
         dev = cond_image.device
@@ -113,6 +120,10 @@ class Zero123PlusPipeline:
         ds = 2 ** (len(m.vae.cfg.block_out_channels) - 1)
         latents = draws.initial_latents((1, H // ds, W // ds, 4), dev)
         solver_state = S.SolverState.init(latents)
+        hint = None
+        if normal_cond is not None and getattr(m, "controlnet",
+                                               None) is not None:
+            hint = torch.cat([normal_cond] * 2, 0)
         for i, t in enumerate(timesteps):
             t = int(t)
             ref_noise, anc_noise = draws.step_noise(cond_latent.shape,
@@ -123,9 +134,15 @@ class Zero123PlusPipeline:
                                   torch.cat([ref_noise] * 2, 0), t)
             _, writes = m.unet(ref_lat, t2, embeds,
                                mode=AttnMode(reference="write"))
-            out = m.unet(torch.cat([latents] * 2, 0), t2, embeds,
-                         mode=AttnMode(reference="read"), ref_kv=writes)
-            del writes
+            lat2 = torch.cat([latents] * 2, 0)
+            down = mid = None
+            if hint is not None:
+                down, mid = m.controlnet(lat2, t2, embeds, hint,
+                                         conditioning_scale=cfg.cond_scale)
+            out = m.unet(lat2, t2, embeds, mode=AttnMode(reference="read"),
+                         ref_kv=writes, down_block_res=down,
+                         mid_block_res=mid)
+            del writes, down, mid
             out_u, out_c = out.float().chunk(2, 0)
             model_out = out_u + cfg.guidance_scale * (out_c - out_u)
             t_prev = int(timesteps[i + 1]) if i + 1 < len(timesteps) else -1

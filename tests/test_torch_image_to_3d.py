@@ -36,7 +36,6 @@ and the first compiles of its programs).
 """
 import jax
 import numpy as np
-import pytest
 import torch
 
 from mvedit_tpu.apis import Adapter3DRunner as JRunner
@@ -170,11 +169,3 @@ def test_run_zero123plus_to_mesh_matches_jax(tmp_path, monkeypatch):
     assert mt.albedo.shape == mj.albedo.shape
     assert np.isfinite(mt.albedo).all()
     assert np.abs(mt.albedo - mj.albedo).mean() <= 0.05
-
-
-@pytest.mark.parametrize("kw", [dict(use_sam=True), dict(erosion=1),
-                                dict(bg_color=1.0)])
-def test_unported_segmentation_options_raise(kw):
-    tr = TRunner(tiny_models=True, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.run_segmentation(np.zeros((1, 32, 32, 3), np.float32), **kw)

@@ -34,10 +34,13 @@ Tolerances:
   one contribution to 10^6 and at the slice edges; the bf16 output is the
   float32 sum rounded once. Its ordering equals `torch.sort(stable=True)`
   of the keys and `searchsorted` offsets exactly.
-- determinism: two tiny NeRF-fit chunks, and two mesh-fit chunks, from one
-  seed give bit-equal parameters, without and with
+- determinism: two tiny NeRF-fit chunks, and two mesh-fit chunks (on the
+  structured and on the unstructured tet grid), from one seed give
+  bit-equal parameters, without and with
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
-  no deterministic algorithm on the card).
+  no deterministic algorithm on the card); two tiny Zero123++ v1.2 RGB +
+  normal passes and their postprocess, and two SAM refinements, from one
+  seed are bit-equal.
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
@@ -516,7 +519,7 @@ def test_segment_order_matches_a_stable_sort(cuda, size):
         assert torch.equal(off.long(), want_off)
 
 
-def _fit_pipe(cuda):
+def _fit_pipe(cuda, structured_tets=True):
     import types
     from mvedit_tpu_torch.models.fields import INGPConfig
     from mvedit_tpu_torch.models.losses import lpips_init
@@ -525,6 +528,7 @@ def _fit_pipe(cuda):
                                                       MVEdit3DPipeline)
     lp = lpips_init(torch.Generator(device=cuda).manual_seed(1), cuda)
     cfg = MVEdit3DConfig(num_views=4, render_size=128, tet_resolution=32,
+                         structured_tets=structured_tets,
                          patch_size=32, use_lpips=True,
                          fit_steps_per_program=2,
                          ingp=INGPConfig(backend="dense",
@@ -554,10 +558,11 @@ def _fit_targets(cuda, size):
 
 def _two_chunks(cuda, kind):
     """Two fit chunks from seed 0 (field init, the chunks' draws); returns
-    the parameters after them."""
+    the parameters after them. `kind` "mesh_unstructured" fits on the
+    unstructured tet grid (`build_grid_tets`, the compact extraction)."""
     from mvedit_tpu_torch.models.fields import field_leaves, ingp_init
     from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
-    pipe, lp = _fit_pipe(cuda)
+    pipe, lp = _fit_pipe(cuda, structured_tets=kind != "mesh_unstructured")
     targets = _fit_targets(cuda, 128)
     gen = torch.Generator(device=cuda).manual_seed(0)
     field = ingp_init(pipe.cfg.ingp, gen, cuda)
@@ -581,7 +586,7 @@ def _two_chunks(cuda, kind):
 
 
 @pytest.mark.parametrize("flag", [False, True])
-@pytest.mark.parametrize("kind", ["nerf", "mesh"])
+@pytest.mark.parametrize("kind", ["nerf", "mesh", "mesh_unstructured"])
 def test_one_seed_gives_one_fit(cuda, monkeypatch, kind, flag):
     """The fits' gradients accumulate in a fixed order (the segment sum,
     deterministic cuDNN for LPIPS's backward, the volume renderer's cumsum
@@ -730,3 +735,52 @@ def test_reference_attention_unet_on_card(cuda):
     for a, b in zip(w_gpu, w_cpu):
         assert ((a - b).norm() / b.norm()).item() <= 2e-2
     assert ((out_gpu - out_cpu).norm() / out_cpu.norm()).item() <= 2e-2
+
+
+def test_one_seed_gives_one_normal_pass(cuda):
+    """Zero123++ v1.2's RGB and normal passes (tiny models on the card,
+    the normal ControlNet on the RGB grid) and the postprocess of their
+    views, twice from one seed: bit-equal."""
+    import numpy as np
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.pipelines.preproc import zero123plus_postprocess
+    runner = Adapter3DRunner(tiny_models=True, seed=0, device="cuda")
+    img = np.random.default_rng(0).random((40, 40, 3)).astype(np.float32)
+
+    def run():
+        grid, ngrid = runner.run_zero123plus(img, seed=3, version="1.2",
+                                             return_normal=True)
+        posts = [zero123plus_postprocess(v, n) for v, n in zip(
+            runner._split_grid(grid), runner._split_grid(ngrid))]
+        return [grid, ngrid] + [x for p in posts for x in p]
+    a, b = run(), run()
+    assert all(np.isfinite(x).all() for x in a)
+    assert [np.array_equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
+
+
+def test_one_seed_gives_one_sam_refinement(cuda):
+    """`run_segmentation` with SAM (tiny, f32, on the card), bg_color and
+    erosion, twice: SAM prompted once per image, bit-equal masks."""
+    import numpy as np
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    runner = Adapter3DRunner(tiny_models=True, seed=0, device="cuda")
+    images = np.ones((2, 64, 64, 3), np.float32)
+    images[0, 10:40, 14:50] = 0.3
+    images[1, 20:60, 5:30] = 0.6
+    calls = []
+    make = runner.make_sam_refine_fn
+
+    def counted():
+        refine = make()
+
+        def f(*a):
+            calls.append(a[1])
+            return refine(*a)
+        return f
+    runner.make_sam_refine_fn = counted
+    a, b = (runner.run_segmentation(images, use_sam=True,
+                                    bg_color=(1.0, 1.0, 1.0), erosion=1)
+            for _ in range(2))
+    assert len(calls) == 4
+    assert a.shape == (2, 64, 64, 1) and a.device.type == "cuda"
+    assert torch.equal(a, b)

@@ -10,7 +10,14 @@ tiny configuration both runners build (`tiny_models=True`):
   JaxZero123PlusDraws`): the grid within 1e-4;
 - `run_zero123plus` (v1.1 and v1.2's latent roll) through both runners,
   and `proc_zero123plus`'s mirrored passes and `_split_grid` on a grid
-  made from the input and the seed.
+  made from the input and the seed;
+- v1.2's normal pass: `run_zero123plus(return_normal=True)` (the normal
+  UNet and the normal ControlNet, whose hint is the RGB grid; the RGB
+  pass's draws from PRNGKey(seed), the normal pass's from PRNGKey(seed +
+  1000)): both grids within 1e-4, the ControlNet's residuals moving the
+  normal grid by more than 1e-2; and `proc_zero123plus(return_normals=
+  True)`'s mirrored pass (x channel 1 - n, then un-mirrored) on grids
+  made from the input and the seed, with the draw sources it asks for.
 
 Weights are the JAX runner's seeded init plus seeded noise, sent through
 the weight bridge (`torch_state_from_flax`).
@@ -149,7 +156,7 @@ def test_proc_zero123plus_mirrors_like_jax(runners, monkeypatch):
     jr, tr = runners
 
     def fake(self, image, seed=42, num_steps=None, version="1.1",
-             return_normal=False, draws=None):
+             return_normal=False, draws=None, normal_draws=None):
         im = np.asarray(image, np.float32)
         grid = np.zeros((48, 32, 3), np.float32)
         grid[:, :, 0] = np.linspace(0, 1, 32)[None] * im[..., 0].mean()
@@ -169,11 +176,82 @@ def test_proc_zero123plus_mirrors_like_jax(runners, monkeypatch):
                                   jr._split_grid(grid))
 
 
-def test_unported_normal_pass_raises(runners):
-    _, tr = runners
-    img = np.zeros((48, 32, 3), np.float32)
-    for call in (lambda: tr.run_zero123plus(img, return_normal=True),
-                 lambda: tr.proc_zero123plus(img, return_normals=True),
-                 lambda: tr.run_zero123plus1_2_to_mesh(img)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+@pytest.fixture(scope="module")
+def normal_runners(runners):
+    """`runners` with the JAX runner's normal UNet and normal ControlNet
+    (jittered in its cache) in the port's, and one vision tower for both
+    versions."""
+    jr, tr = runners
+    tr._cache["z123_vision:1.2"] = tr._cache["z123_vision:1.1"]
+    jr._cache["z123_vision:1.2"] = jr._cache["z123_vision:1.1"]
+    jr.load_zero123plus_normal("1.2")
+    tm = tr.load_zero123plus_normal("1.2")
+    for name, kind, mod, seed in (
+            ("z123_normal_unet:1.2", "unet", tm.unet, 4),
+            ("controlnet:z123_normal", "controlnet", tm.controlnet, 5)):
+        p = _jitter(jr._cache[name], seed)
+        jr._cache[name] = p
+        mod.load_state_dict(torch_state_from_flax(p, kind))
+    return jr, tr
+
+
+def test_normal_pass_matches_jax(normal_runners):
+    jr, tr = normal_runners
+    img = np.random.default_rng(7).random((40, 40, 3)).astype(np.float32)
+    ref, nref = jr.run_zero123plus(img, seed=3, version="1.2",
+                                   return_normal=True)
+    out, nout = tr.run_zero123plus(
+        img, seed=3, version="1.2", return_normal=True,
+        draws=JaxZero123PlusDraws(jax.random.PRNGKey(3)),
+        normal_draws=JaxZero123PlusDraws(jax.random.PRNGKey(1003)))
+    assert nout.shape == nref.shape == (48, 32, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(nout, nref, atol=1e-4, rtol=0)
+    # the ControlNet's residuals matter: the same pass without its hint
+    from mvedit_tpu_torch.ops.image import resize_bilinear
+    tm = tr.load_zero123plus_normal("1.2")
+    x = torch.from_numpy(img)[None]
+    plain = Zero123PlusPipeline(tm, Zero123PlusConfig(
+        num_steps=2, grid_hw=(48, 32), shift_views=True))(
+        resize_bilinear(x, (48, 32)), resize_bilinear(x, (32, 32)),
+        draws=JaxZero123PlusDraws(jax.random.PRNGKey(1003)))
+    assert np.abs(plain[0].numpy() - nout).max() > 1e-2
+
+
+def test_proc_zero123plus_normals_mirror_like_jax(runners, monkeypatch):
+    """Two passes with normals: the mirrored pass's normal views get their
+    x channel inverted and are un-mirrored; each pass asks for its draws
+    at seed + p and its normal pass's at seed + p + 1000."""
+    jr, tr = runners
+    asked = []
+
+    def fake(self, image, seed=42, num_steps=None, version="1.1",
+             return_normal=False, draws=None, normal_draws=None):
+        asked.append((draws, normal_draws))
+        im = np.asarray(image, np.float32)
+        grid = np.zeros((48, 32, 3), np.float32)
+        grid[:, :, 0] = np.linspace(0, 1, 32)[None] * im[..., 0].mean()
+        grid[:, :16, 2] = im[:48, :16, 0]
+        ngrid = np.stack([np.broadcast_to(np.linspace(0.1, 0.9, 32)[None],
+                                          (48, 32)),
+                          im[:48, :32, 1], np.full((48, 32), seed / 10)],
+                         -1).astype(np.float32)
+        return grid, ngrid
+    monkeypatch.setattr(type(jr), "run_zero123plus", fake)
+    monkeypatch.setattr(type(tr), "run_zero123plus", fake)
+    img = np.random.default_rng(8).random((48, 32, 3)).astype(np.float32)
+    ref, nref = jr.proc_zero123plus(img, seed=5, passes=2,
+                                    return_normals=True)
+    asked.clear()
+    out, nout = tr.proc_zero123plus(img, seed=5, passes=2,
+                                    return_normals=True,
+                                    z123_draws=lambda s: s)
+    assert asked == [(5, 1005), (6, 1006)]
+    assert nout.shape == nref.shape == (12, 16, 16, 3)
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(nout, nref)
+    _, ngrid = fake(None, img[:, ::-1], seed=6)
+    n6 = tr._split_grid(ngrid)
+    np.testing.assert_array_equal(nout[6:, ..., 0],
+                                  1.0 - n6[:, :, ::-1, 0])
+    np.testing.assert_array_equal(nout[6:, ..., 1:], n6[:, :, ::-1, 1:])

@@ -228,3 +228,23 @@ class JaxZero123PlusDraws:
         self.key, kr, ks = jax.random.split(self.key, 3)
         return (_t(jax.random.normal(kr, tuple(ref_shape))).to(device),
                 _t(jax.random.normal(ks, tuple(lat_shape))).to(device))
+
+
+class JaxZero123Draws:
+    """A draw source for the port's `Zero123Pipeline` that replays
+    `mvedit_tpu`'s `Zero123Pipeline.__call__` from `key`: key -> (key, k0)
+    for the initial latents, then per step key -> (key, kr), the DDIM
+    noise from kr where eta > 0."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def initial_latents(self, shape, device):
+        self.key, k0 = jax.random.split(self.key)
+        return _t(jax.random.normal(k0, tuple(shape))).to(device)
+
+    def step_noise(self, shape, device, eta):
+        self.key, kr = jax.random.split(self.key)
+        if eta <= 0:
+            return None
+        return _t(jax.random.normal(kr, tuple(shape))).to(device)
