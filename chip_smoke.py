@@ -21,9 +21,12 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
 `run_3d_to_3d` requests, checkpoint loading, whole `run_retex`
 requests with IP-Adapter, texture superres with an orbit video, whole
 image-to-3D requests (v1.1, and v1.2 with its generated normals), SAM,
-legacy Zero123 and the unstructured tet grid.
+legacy Zero123, the unstructured tet grid, whole text-to-3D requests
+(direct and through the JSON server) and the hash-grid field.
 
-1. device: the card's name and power limit (nvidia-smi);
+1. device: the card's name and power limit (nvidia-smi); the stand-in
+   tokenizer's ids of the smoke's prompts in two fresh processes with
+   other `PYTHONHASHSEED`s equal to this process's;
 2. build: nvcc of every kernel source, all started together, with ptxas'
    report;
 3. kernels against their plain versions, timed with CUDA events:
@@ -40,7 +43,8 @@ legacy Zero123 and the unstructured tet grid.
    kernel API (`ops/flash_attention.py`); the fixed-order segment sum at
    the path's shapes (the dense grid's corner gathers at a NeRF chunk's
    sample count and at the retex and superres albedo fits, the mesh fit's
-   vertex sums, a render's corner gather) and at a NeRF-fit step's own
+   vertex sums, a render's corner gather, the hash grid's levels 0 and 11
+   at a NeRF step's samples) and at a NeRF-fit step's own
    sample points
    (rays of the rig, those that miss the box included): the same bits on
    two runs, the bits of its order rebuilt in plain PyTorch, the bf16
@@ -135,15 +139,35 @@ legacy Zero123 and the unstructured tet grid.
    `build_grid_tets` on the host cold and cached, the switch with
    `structured_tets=False`, 8 fit steps (of 120) through
    `marching_tets_compact` and the extraction: a finite loss history,
-   raster and segment-sum launches > 0, the counts against the caps.
+   raster and segment-sum launches > 0, the counts against the caps;
+17. text-to-3D at full width: `run_stablessdnerf` twice with one seed (50
+   DPM-Solver++ steps of the SSDNeRF cars denoiser on the (1, 3, 12, 40,
+   40) code, seeded weights, the 160^2 preview): code and preview
+   bit-equal; then `run_stablessdnerf_to_mesh` twice with one seed, once
+   called directly and once POSTed to the port's `ApiServer` on
+   127.0.0.1 as `text_to_3d_stablessdnerf_to_mesh`: the distillation at
+   its 200 steps, 32 views rendered from the triplane at 512^2, 2-pass,
+   tet 128, the MVEdit loop cut in depth as phase 7's (steps 8 of 24,
+   init_inverse_steps 32 of 256, n_inverse_steps 16 of 80); the two GLBs
+   byte-equal with faces > 0; wall, parts (the code sample, the preview,
+   the distillation, the init renders, then the pipeline's phases) and
+   peak memory of each; flash, raster and segment-sum launches > 0 a
+   request, nothing staged;
+18. the hash-grid field at `_mvedit_cfg`'s hash widths (12 levels of
+   2^19 rows, base 16, max 320): one 8-step NeRF-fit chunk at 256^2 on
+   phase 7's rig and targets, twice from one seed (table and MLP
+   bit-equal), its wall beside the dense field's chunk and its
+   segment-sum launches; `triplane_ingp_point_decode` forward and
+   backward on 2^18 points at the default `TriPlaneINGPConfig`, twice,
+   bit-equal.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
 phase 10; each request and the video in phase 11; each request in phases
-12 and 13; phase 16; the segment sum over phases 6-16): a kernel of a path
-with no launch
+12, 13 and 17; phase 16; the segment sum over phases 6-18): a kernel of
+a path with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -278,6 +302,17 @@ SEGMENT_CASES = [("grid_level1", 161 ** 3, 16384 * 128 * 8, 8, "bf16"),
 # the box clipped to its faces, as the grid clips them)
 SEGMENT_PATH_CASE = ("nerf_chunk_level1", 161 ** 3, 16384 * 128 * 8, 8,
                      "bf16")
+# the hash grid's backward at the same samples, one level a call (2^19
+# rows of 2 f32): level 0 (17^3 rows linearly indexed: long rows, the
+# slices' tier) and level 11 (res 320, hashed)
+SEGMENT_CASES += [("hash_level0", 1 << 19, 16384 * 128 * 8, 2, "f32"),
+                  ("hash_level11", 1 << 19, 16384 * 128 * 8, 2, "f32")]
+# text-to-3D's distillation, 400 sums a request (2 levels x 200 steps):
+# 65536 points uniform in the triplane's box, 8 corners each, into the
+# MVEdit field's dense grid (the box fills the middle half of the field's
+# on each axis: most rows take nothing)
+SEGMENT_CASES += [("distill_level0", 33 ** 3, 65536 * 8, 8, "bf16"),
+                  ("distill_level1", 161 ** 3, 65536 * 8, 8, "bf16")]
 SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
@@ -314,6 +349,15 @@ SR_ATLAS = 2048
 SR_FIT_STEPS = 512
 VIDEO_FRAMES = 24
 LPIPS_BF16_RTOL = 5e-2       # bf16 LPIPS against f32, relative
+# text-to-3D: the code sample at its 50 steps, the to-mesh request's MVEdit
+# loop cut in depth as phase 7's (its tet_init_inverse_steps stay 120: the
+# endpoint takes no such argument)
+T23_PROMPT = "a red sports car, studio light"
+T23_STEPS = 50
+# the hash-grid field at `_mvedit_cfg`'s hash widths: one 8-step NeRF-fit
+# chunk at 256^2, and the triplane + hash hybrid on 2^18 points
+HASH_CHUNK = 8
+HYBRID_POINTS = 1 << 18
 DEV = "cuda"
 TIMED_RUNS = 10
 # an H100 SXM's peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor
@@ -342,6 +386,41 @@ def phase_device():
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     return smi
+
+
+def phase_tokenizer():
+    """The stand-in tokenizer's ids of the smoke's prompts (the runner
+    has no vocab files, so every request tokenizes through it) in two
+    fresh processes with other hash seeds equal the parent's: one prompt,
+    one request, in every process."""
+    from mvedit_tpu_torch.apis import parameters as P
+    from mvedit_tpu_torch.models.diffusion.tokenizer import HashTokenizer
+    aux = [d[k] for d in (P.nerf_mesh_defaults, P.retex_defaults)
+           for k in ("aux_prompt", "aux_negative_prompt")]
+    prompts = ["a red car", "a red car on a hill", "a wooden chair",
+               "a wooden chair, studio light", T23_PROMPT, ""] + [
+        f"a golden torus knot, studio light, {x}" for x in aux]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "mvedit_tpu_torch", "models", "diffusion",
+                        "tokenizer.py")
+    code = ("import importlib.util, json, sys\n"
+            f"spec = importlib.util.spec_from_file_location('t', {path!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "print(json.dumps(mod.HashTokenizer()(json.loads(sys.argv[1]))"
+            ".tolist()))\n")
+    mine = HashTokenizer()(prompts).tolist()
+    for hashseed in (1, 2):
+        res = subprocess.run(
+            [sys.executable, "-c", code, json.dumps(prompts)],
+            env=dict(os.environ, PYTHONHASHSEED=str(hashseed)),
+            capture_output=True, text=True, timeout=120, check=True)
+        same = json.loads(res.stdout.strip().splitlines()[-1]) == mine
+        log(f"[tokenizer] {len(prompts)} prompts in a process with "
+            f"PYTHONHASHSEED={hashseed}: the parent's ids {same}")
+        if not same:
+            raise AssertionError("the stand-in tokenizer gave other ids in "
+                                 "another process")
 
 
 def phase_build():
@@ -979,12 +1058,12 @@ def phase_flash_fwd():
     return rows, worst
 
 
-def segment_bound(n, rows, C, elt):
+def segment_bound(n, rows, C, elt, idx_elt):
     """Least time of one segment sum on the card: its bytes (the targets,
-    8 B each, and the values read once, the float32 output written once)
-    at the memory rate; its adds (one per contribution and channel, f32)
-    take far less."""
-    nbytes = 8.0 * n + n * C * elt + 4.0 * rows * C
+    `idx_elt` B each, and the values read once, the float32 output written
+    once) at the memory rate; its adds (one per contribution and channel,
+    f32) take far less."""
+    nbytes = float(idx_elt) * n + n * C * elt + 4.0 * rows * C
     ops_ms = n * C / PEAK_F32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
@@ -1047,10 +1126,30 @@ def segment_indices(name, R, n, gen):
         bg = torch.rand((m, 1), generator=gen, device=DEV) < 0.65
         x = torch.where(bg, torch.full_like(x, 0.37), x)
         return grid_corners(x, round(R ** (1 / 3)) - 1), {}
+    if name.startswith("distill"):
+        # `distill_points` in the triplane's box, mapped to [0, 1] as
+        # `ingp_point_decode` maps the field's box
+        from mvedit_tpu_torch.configs.ssdnerf_cars import ssdnerf_config
+        from mvedit_tpu_torch.models.fields import INGPConfig
+        tb, fb = ssdnerf_config.triplane.bound, INGPConfig().bound
+        u = torch.rand((n // 8, 3), generator=gen, device=DEV)
+        x01 = (u * (2 * tb) - tb + fb) / (2 * fb)
+        return grid_corners(x01, round(R ** (1 / 3)) - 1), {}
     if name.startswith("nerf"):
         x, miss = nerf_chunk_points(gen)
         assert 8 * x.shape[0] == n
         return grid_corners(x, round(R ** (1 / 3)) - 1), dict(miss=miss)
+    if name.startswith("hash"):
+        # `ops/hash_grid.py`'s rows of one level at a NeRF step's samples
+        from mvedit_tpu_torch.ops.hash_grid import (_CORNERS, HashGridConfig,
+                                                    _level_index)
+        x, miss = nerf_chunk_points(gen)
+        assert 8 * x.shape[0] == n
+        res = HashGridConfig().level_resolution(int(name[len("hash_level"):]))
+        p0 = torch.floor(x * res).long()
+        off = torch.tensor(_CORNERS, device=DEV)
+        corners = (p0[:, None, :] + off).clamp(max=res).reshape(-1, 3)
+        return _level_index(corners, res, R).to(torch.int32), dict(miss=miss)
     if name.startswith("grid"):
         # samples along rays: runs of neighbouring cells, 8 corners each
         base = torch.randint(0, R - 200, (n // 64,), generator=gen,
@@ -1117,7 +1216,7 @@ def phase_segment_sum():
         vf = vals.float()
         lib_ms = median_ms(lambda: torch.zeros(
             (R, C), device=DEV).index_add_(0, idx, vf))
-        bd = segment_bound(n, R, C, vals.element_size())
+        bd = segment_bound(n, R, C, vals.element_size(), idx.element_size())
         extra = "".join(f", {k} {v:.4f}" for k, v in info.items())
         log(f"[segment_sum] {name}: {n} contributions into {R} rows x {C} "
             f"{dt}, the longest row {longest}{extra}; bit-equal run to run "
@@ -2522,6 +2621,260 @@ def phase_tet_unstructured(runner, ctx):
     return n
 
 
+def phase_text_to_3d(runner, tmp):
+    """Text-to-3D at full width (see the module doc): two
+    `run_stablessdnerf` samples of one seed, then
+    `run_stablessdnerf_to_mesh` twice with one seed, called directly and
+    POSTed to the port's `ApiServer` on 127.0.0.1. Returns the flash,
+    raster and segment-sum launches of the two to-mesh requests."""
+    import base64
+    import functools
+    import urllib.request
+
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.apis import ApiServer
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.mesh import Mesh
+    from mvedit_tpu_torch.utils import profiling as PR
+    samples = []
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run_stablessdnerf(T23_PROMPT, seed=SEED,
+                                       steps=T23_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        code, prev = out["code"].float().cpu().numpy(), out["preview"]
+        size = 32 if runner.tiny else 160
+        ok = (code.shape == tuple(out["ssdnerf_cfg"].latent_shape)
+              and prev.shape == (size, size, 3) and np.isfinite(code).all()
+              and np.isfinite(prev).all())
+        log(f"[text_to_3d] run_stablessdnerf {run}: {wall:.3f} s ({T23_STEPS}"
+            f" DPM-Solver++ steps of the (1, 3, 12, 40, 40) code, the 160^2 "
+            f"preview); code mean |x| {float(np.abs(code).mean()):.4f}, "
+            f"preview mean {float(prev.mean()):.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("run_stablessdnerf failed its checks")
+        samples.append((code, prev))
+    same = [bool(np.array_equal(a, b)) for a, b in zip(*samples)]
+    log(f"[text_to_3d] the two samples of one seed bit-equal: code "
+        f"{same[0]}, preview {same[1]}")
+    if not all(same):
+        raise AssertionError("two run_stablessdnerf calls of one seed differ")
+    log(f"[text_to_3d] run_stablessdnerf_to_mesh: {REQ_VIEWS} views at 512^2"
+        f" from the triplane (96 samples a ray), 2-pass, tet {TET}, the "
+        f"distillation at its 200 steps; cut in depth: steps {REQ_STEPS} "
+        f"(of 24), init_inverse_steps {REQ_INIT_INV} (of 256), "
+        f"n_inverse_steps {REQ_N_INV} (of 80)")
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
+    orig = runner.run_stablessdnerf_to_mesh
+    # the served request takes the runner's defaults: the cuts go in here
+    runner.run_stablessdnerf_to_mesh = functools.partial(
+        orig, steps=REQ_STEPS, init_inverse_steps=REQ_INIT_INV,
+        n_inverse_steps=REQ_N_INV)
+    server = ApiServer(runner, port=0)
+    thread = server.serve(background=True)
+    host, port = server.server_address
+    glbs, totals = {}, dict(flash=0, raster=0, segment=0)
+    try:
+        for run in ("direct", "served"):
+            dst = os.path.join(tmp, f"t23_{run}.glb")
+            pt = PR.PhaseTimer()
+            PR.set_phase_timer(pt)
+            TA.flash_attention = recording
+            flash_attention.launches = RS.raster_select.launches = 0
+            SS.segment_sum.launches = 0
+            staged = (launch.staged, RS.raster_select.staged,
+                      SS.segment_sum.staged)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                if run == "direct":
+                    runner.run_stablessdnerf_to_mesh(T23_PROMPT, seed=SEED,
+                                                     out_path=dst)
+                else:
+                    req = urllib.request.Request(
+                        f"http://{host}:{port}/api/"
+                        "text_to_3d_stablessdnerf_to_mesh",
+                        data=json.dumps({"prompt": T23_PROMPT,
+                                         "seed": SEED}).encode(),
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=900) as r:
+                        status, answer = r.status, json.loads(r.read())
+                    if status != 200:
+                        raise AssertionError(f"the server answered {status}")
+                    with open(dst, "wb") as f:
+                        f.write(base64.b64decode(answer["mesh"]))
+                torch.cuda.synchronize()
+            finally:
+                TA.flash_attention = kernel
+                PR.set_phase_timer(None)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n = dict(flash=flash_attention.launches,
+                     raster=RS.raster_select.launches,
+                     segment=SS.segment_sum.launches)
+            for k in totals:
+                totals[k] += n[k]
+            with open(dst, "rb") as f:
+                glbs[run] = f.read()
+            back = Mesh.load(dst)
+            ok = (len(back.f) > 0 and back.albedo is not None
+                  and np.isfinite(back.albedo).all() and min(n.values()) > 0
+                  and (launch.staged, RS.raster_select.staged,
+                       SS.segment_sum.staged) == staged)
+            log(f"[text_to_3d] {run}: {wall:.3f} s wall, peak memory "
+                f"allocated {peak / 2**30:.2f} GiB; GLB {len(glbs[run])} "
+                f"bytes, {len(back.f)} faces {'ok' if ok else 'FAIL'}")
+            for name, sec in pt.report().items():
+                log(f"[text_to_3d] {run}   part {name}: {sec:.3f} s over "
+                    f"{pt.counts[name]} ticks")
+            log(f"[launches] text_to_3d {run}: flash_attention "
+                f"{n['flash']}, raster_select {n['raster']}, segment_sum "
+                f"{n['segment']} (staged copies: none)")
+            if not ok:
+                raise AssertionError("the run_stablessdnerf_to_mesh request "
+                                     "failed its checks")
+    finally:
+        runner.run_stablessdnerf_to_mesh = orig
+        server.shutdown()
+        thread.join(timeout=30)
+    same = glbs["direct"] == glbs["served"]
+    log(f"[text_to_3d] the direct and the served GLB byte-equal (one seed): "
+        f"{same}")
+    if not same or thread.is_alive():
+        raise AssertionError("the direct and the served text-to-3D GLBs "
+                             "differ, or the server did not stop")
+    check_shapes("text_to_3d", shapes)
+    return totals
+
+
+def phase_hash_grid(runner):
+    """The hash-grid field at `_mvedit_cfg`'s hash widths: one NeRF-fit
+    chunk of HASH_CHUNK steps at 256^2 (LPIPS on, the request's
+    schedule) on phase 7's rig and targets (the knot's `load_init_mesh`
+    renders), twice from one seed, beside the dense field's chunk; then
+    `triplane_ingp_point_decode` forward and backward on HYBRID_POINTS
+    points at the default `TriPlaneINGPConfig`, twice. Each pair must be
+    bit-equal. Returns the segment-sum launches."""
+    import types
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.models import triplane as TT
+    from mvedit_tpu_torch.models.fields import field_leaves, ingp_init
+    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+    m = types.SimpleNamespace(lpips_params=runner.load_lpips())
+    dense_cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV,
+                                   REQ_INIT_INV)
+    hcfg = dense_cfg.ingp.hash
+    log(f"[hash_grid] {hcfg.n_levels} levels of 2^{hcfg.log2_hashmap_size} "
+        f"rows x {hcfg.n_features}, base {hcfg.base_resolution}, max "
+        f"{hcfg.max_resolution}: resolutions "
+        f"{[hcfg.level_resolution(i) for i in range(hcfg.n_levels)]}")
+    poses, intr, lights = _rig(SIZE)
+    init = runner.load_init_mesh(torus_knot(), poses, intr, SIZE, lights)
+    targets = {"images": init["images"], "masks": init["masks"],
+               "poses": torch.as_tensor(poses, device=DEV),
+               "intrinsics": torch.as_tensor(intr, device=DEV),
+               "cam_lights": torch.as_tensor(lights, device=DEV),
+               "cam_weights": torch.ones(REQ_VIEWS, device=DEV)}
+    walls, tables, n_seg = {}, [], 0
+    for backend in ("hash", "dense"):
+        cfg = dataclasses.replace(dense_cfg, ingp=dataclasses.replace(
+            dense_cfg.ingp, backend=backend))
+        pipe = MVEdit3DPipeline(m, cfg)
+        run, make_opt = pipe._nerf_fit_fns(256, HASH_CHUNK)
+        tgt = pipe._resize_targets(targets, 256)
+        secs = []
+        for i in range(3):          # a warm-up, then the two compared
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+            field = ingp_init(cfg.ingp, gen, DEV)
+            opt = make_opt(field)
+            grid = OccupancyGrid.create(cfg.render.grid_size, device=DEV)
+            seg0 = SS.segment_sum.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            field, _, _, out = run(field, opt, grid, tgt,
+                                   sched=pipe._sched_weights(0.5, "nerf"),
+                                   lpips_params=m.lpips_params,
+                                   generator=gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if backend == "hash":
+                n_seg += SS.segment_sum.launches - seg0
+                if i:
+                    tables.append([x.detach().clone()
+                                   for x in field_leaves(field)])
+            ok = bool(torch.isfinite(out["loss"]).all())
+            if not ok:
+                raise AssertionError(f"the {backend} NeRF-fit chunk gave a "
+                                     f"loss that is not finite")
+        walls[backend] = secs
+        log(f"[hash_grid] {backend} field: a {HASH_CHUNK}-step NeRF-fit "
+            f"chunk at 256^2 (LPIPS) {secs[1]:.4f} / {secs[2]:.4f} s warm "
+            f"({secs[0]:.4f} s first); loss {float(out['loss'][0]):.4f} -> "
+            f"{float(out['loss'][-1]):.4f}")
+        del field, opt, grid, pipe
+    same = all(bool(torch.equal(a, b)) for a, b in zip(*tables))
+    ratio = (statistics.median(walls["hash"][1:])
+             / statistics.median(walls["dense"][1:]))
+    log(f"[hash_grid] the two hash chunks of one seed bit-equal (table and "
+        f"MLP): {same}; segment_sum launches in the three hash chunks "
+        f"{n_seg}; hash / dense chunk wall {ratio:.2f}x")
+    if not same or n_seg == 0:
+        raise AssertionError("two hash-grid chunks of one seed differ, or "
+                             "no segment sum launched")
+    # the triplane + hash hybrid at its defaults (16 x 80 x 80 planes)
+    tcfg = TT.TriPlaneINGPConfig()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    params = TT.triplane_ingp_init(tcfg, gen, DEV)
+    with torch.no_grad():          # a residual that is not zero
+        params["ingp_base"][-1]["w"].normal_(0.0, 0.1, generator=gen)
+        params["table"].mul_(1e3)
+    code = torch.randn((3, tcfg.triplane.n_channels, 80, 80), generator=gen,
+                       device=DEV)
+    b = tcfg.triplane.bound
+    xyz = torch.rand((HYBRID_POINTS, 3), generator=gen, device=DEV) \
+        * (2.2 * b) - 1.1 * b
+    dirs = torch.nn.functional.normalize(
+        torch.randn((HYBRID_POINTS, 3), generator=gen, device=DEV), dim=-1)
+    g = torch.randn((HYBRID_POINTS, 4), generator=gen, device=DEV)
+    leaves = [params["table"]] + [l[k] for name in sorted(params)
+                                  if name != "table"
+                                  for l in params[name] for k in ("w", "b")]
+    results, secs = [], []
+    for _ in range(3):
+        for x in leaves:
+            x.requires_grad_(True)
+            x.grad = None
+        seg0 = SS.segment_sum.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sigma, rgb = TT.triplane_ingp_point_decode(params, code, xyz, dirs,
+                                                   tcfg)
+        (torch.cat([sigma[:, None], rgb], -1) * g).sum().backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        n_seg += SS.segment_sum.launches - seg0
+        results.append([sigma.detach(), rgb.detach()]
+                       + [x.grad.clone() for x in leaves])
+    same = all(bool(torch.equal(a, b)) for a, b in zip(results[1],
+                                                       results[2]))
+    finite = all(bool(torch.isfinite(t).all()) for t in results[2])
+    log(f"[hash_grid] triplane_ingp_point_decode forward + backward on "
+        f"{HYBRID_POINTS} points: {secs[1]:.4f} / {secs[2]:.4f} s warm; "
+        f"outputs and gradients bit-equal {same}, finite {finite}")
+    if not (same and finite):
+        raise AssertionError("the triplane + hash hybrid differs between "
+                             "two runs")
+    return n_seg
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -2910,6 +3263,7 @@ def main():
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
     smi = phase_device()
+    phase_tokenizer()
     if args.time_fits or args.time_retex:
         if args.time_fits:
             phase_time_fits()
@@ -2985,14 +3339,17 @@ def main():
         seg_launches += i23["segment"]
         v12 = phase_image_to_3d_v12(runner, tmp)
         seg_launches += v12["segment"]
+        t23 = phase_text_to_3d(runner, tmp)
+        seg_launches += t23["segment"]
     phase_sam(runner)
     phase_zero123(runner)
     unst = phase_tet_unstructured(runner, req_ctx)
     seg_launches += unst["segment"]
+    seg_launches += phase_hash_grid(runner)
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
-        f"requests, tet 256, the retex, superres and image-to-3D requests "
-        f"(v1.1 and v1.2) and the unstructured tet grid (staged copies "
-        f"{SS.segment_sum.staged})")
+        f"requests, tet 256, the retex, superres, image-to-3D (v1.1 and "
+        f"v1.2) and text-to-3D requests, the unstructured tet grid and the "
+        f"hash grid (staged copies {SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
                              "staged its inputs")
@@ -3009,8 +3366,8 @@ def main():
     # the rasterizer hands the selection float32 pts, int64 faces and ids,
     # bool masks, contiguous: read as they are
     log(f"[launches] raster_select staged copies over the mesh phase, the "
-        f"requests, tet 256, retex, superres, image-to-3D (v1.1 and v1.2) "
-        f"and the unstructured tet grid: "
+        f"requests, tet 256, retex, superres, image-to-3D (v1.1 and v1.2), "
+        f"text-to-3D and the unstructured tet grid: "
         f"{RS.raster_select.staged}; tile 32: {superres['tile32']} "
         f"launches, all in phase 11")
     if RS.raster_select.staged:
@@ -3044,7 +3401,8 @@ def main():
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash + retex["flash"]
-         + superres["flash"] + i23["flash"] + v12["flash"],
+         + superres["flash"] + i23["flash"] + v12["flash"] + t23["flash"],
+         "text_to_3d_launches": t23["flash"],
          "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
@@ -3055,7 +3413,8 @@ def main():
          "launches": sum(mesh_launches.values())
          + sum(req_launches.values()) + retex["raster"]
          + superres["raster"] + i23["raster"] + v12["raster"]
-         + unst["raster"],
+         + unst["raster"] + t23["raster"],
+         "text_to_3d_launches": t23["raster"],
          "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),

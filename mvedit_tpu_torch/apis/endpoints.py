@@ -7,7 +7,8 @@ texture superres (`proc_texture_superres`, `run_texture_superres`) and
 image-to-3D (`load_zero123plus`, `load_zero123plus_normal`,
 `run_zero123plus`, `proc_zero123plus`, `run_zero123plus1_2`,
 `run_zero123plus_to_mesh`, `run_zero123plus1_2_to_mesh`; v1.2 with its
-generated normals by default).
+generated normals by default) and text-to-3D (`run_stablessdnerf`,
+`distill_triplane_to_field`, `run_stablessdnerf_to_mesh`).
 """
 import numpy as np
 import torch
@@ -17,8 +18,10 @@ from ..models.diffusion import SD15_UNET, UNet2DCondition
 from ..models.diffusion import schedulers as S
 from ..models.mesh import RasterConfig, render_views
 from ..ops.tonemapping import Tonemapping
+from ..pipelines.mvedit_3d import GeneratorDraws
 from ..utils import camera as cam_utils
 from ..utils.geometry import normalize_depth
+from ..utils.profiling import phase_timer
 
 __all__ = ["EndpointsMixin"]
 
@@ -103,10 +106,18 @@ class EndpointsMixin:
         from ..models.fields import INGPConfig
         from ..models.volume_renderer import RenderConfig
         from ..ops.dense_grid import DenseGridConfig
+        from ..ops.hash_grid import HashGridConfig
         from ..pipelines.mvedit_3d import MVEdit3DConfig
         tiny = self.tiny
-        ingp = INGPConfig(backend="dense", dense=DenseGridConfig(
-            resolutions=(8, 32) if tiny else (32, 160)))
+        # the dense backend runs; the hash widths are the reference's
+        ingp = INGPConfig(
+            backend="dense",
+            dense=DenseGridConfig(resolutions=(8, 32) if tiny
+                                  else (32, 160)),
+            hash=HashGridConfig(n_levels=4 if tiny else 12,
+                                log2_hashmap_size=12 if tiny else 19,
+                                base_resolution=4 if tiny else 16,
+                                max_resolution=32 if tiny else 320))
         tet_resolution = overrides.pop("tet_resolution", 16 if tiny else 128)
         return MVEdit3DConfig(
             num_views=num_views,
@@ -627,6 +638,182 @@ class EndpointsMixin:
                                    kwargs.get("superres", False))
         out.update(views=views, normals=gen_normals,
                    in_pose=np.asarray(poses[0]), pose_route=route)
+        if out_path and out["mesh"] is not None:
+            out["mesh"].write(out_path, flip_yz=True)
+        return out
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def run_stablessdnerf(self, prompt, seed=42, steps=None, cfg_scale=7.0,
+                          draws=None):
+        """Text -> a triplane code sampled by the SSDNeRF denoiser (50
+        DPM-Solver++ steps, tiny 4) -> a preview render of the decoded
+        triplane (160^2, tiny 32^2, at the rig's front azimuth, elevation
+        0.3). The prompt and `cfg_scale` do not reach the sample: the
+        denoiser is unconditional, as the reference's; only
+        `run_stablessdnerf_to_mesh`'s MVEdit loop reads the prompt. The
+        sample's initial noise comes from a generator seeded with `seed`,
+        or from `draws.code_noise`. Returns {"code" (3, C, H, W), "preview"
+        (size, size, 3) float32 numpy, "decoder", "ssdnerf_cfg"}."""
+        from ..models import gaussian_diffusion as GD
+        from ..models.nerf_fit import make_image_renderer
+        from ..models.ssdnerf import tanh_code
+        dev, pt = self.device, phase_timer()
+        if pt is not None:
+            pt.mark()
+        ss = self.load_ssdnerf()
+        cfg = ss.cfg
+        draws = draws if draws is not None else GeneratorDraws(
+            torch.Generator(device=self.device).manual_seed(seed))
+        shape = (1, *cfg.latent_shape)
+        code = GD.sample_from_noise(
+            ss.schedule, ss.denoiser, shape,
+            noise=draws.code_noise(shape, dev),
+            num_steps=steps or (4 if self.tiny else 50))[0]
+        if pt is not None:
+            pt.tick("code_sample", code)
+        size = 32 if self.tiny else 160
+        c = self.constants
+        intr = cam_utils.intrinsics_from_fov(c["ssdnerf_fov"], size, size)
+        pose = cam_utils.get_pose_from_angles(
+            np.asarray([c["ssdnerf_front_azi"]]), np.asarray([0.3]),
+            c["ssdnerf_camera_distance"])[0, :3]
+        render = make_image_renderer(self._triplane_decode(cfg), size, size,
+                                     cfg.render, chunk=size * size,
+                                     use_grid=False)
+        img = render({"decoder": ss.decoder, "code": tanh_code(code)},
+                     self._f32(pose), self._f32(intr))
+        preview = img["rgb"].float().cpu().numpy()
+        if pt is not None:
+            pt.tick("preview")
+        return {"code": code, "preview": preview, "decoder": ss.decoder,
+                "ssdnerf_cfg": cfg}
+
+    @staticmethod
+    def _triplane_decode(cfg):
+        """The renderers' `decode(params, x)` of {"decoder", "code"}: the
+        triplane without view directions."""
+        from ..models.triplane import triplane_point_decode
+
+        def decode(p, x):
+            s, col = triplane_point_decode(p["decoder"], p["code"],
+                                           x.reshape(-1, 3), None,
+                                           cfg.triplane)
+            return s.reshape(x.shape[:-1]), col.reshape(*x.shape[:-1], 3)
+        return decode
+
+    def _f32(self, x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def distill_triplane_to_field(self, decoder, code_act, ssdnerf_cfg,
+                                  ingp_cfg, steps=200, n_points=65536,
+                                  seed=0, draws=None):
+        """Distil the sampled triplane NeRF into the MVEdit field: `steps`
+        Adam(5e-3) steps of the field's (log1p sigma, rgb) regressed on the
+        triplane's at `n_points` points a step, uniform in the triplane's
+        box. The field's init and the points come from `draws`
+        (`distill_field_init`, `distill_points`; the request's draw source
+        in `run_stablessdnerf_to_mesh`), else from a generator seeded with
+        `seed` (the reference always draws from PRNGKey(0)). Returns the
+        field's params."""
+        from ..models.fields import field_leaves, ingp_point_decode
+        from ..models.triplane import triplane_point_decode
+        dev = self.device
+        draws = draws if draws is not None else GeneratorDraws(
+            torch.Generator(device=self.device).manual_seed(seed))
+        params = draws.distill_field_init(ingp_cfg, dev)
+        leaves = field_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        opt = torch.optim.Adam(leaves, lr=5e-3)
+        bound = ssdnerf_cfg.triplane.bound
+        with torch.enable_grad():
+            for _ in range(steps):
+                pts = draws.distill_points(n_points, bound, dev)
+                with torch.no_grad():
+                    s_t, c_t = triplane_point_decode(
+                        decoder, code_act, pts, None, ssdnerf_cfg.triplane)
+                s, c = ingp_point_decode(params, pts, ingp_cfg)
+                loss = (((torch.log1p(s) - torch.log1p(s_t)) ** 2).mean()
+                        + ((c - c_t) ** 2).mean())
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        for p in leaves:
+            p.requires_grad_(False)
+            p.grad = None
+        return params
+
+    def run_stablessdnerf_to_mesh(self, prompt, seed=42, steps=None,
+                                  out_path=None, draws=None, **kwargs):
+        """Text -> a triplane (`run_stablessdnerf`, 50 steps, tiny 4) ->
+        the MVEdit loop -> a GLB at `out_path`. The triplane is distilled
+        into the MVEdit field (`distill_triplane_to_field`, 200 steps, tiny
+        20), which the loop starts from, and rendered at the loop's views
+        (32, tiny 3, a surround rig at the SSDNeRF camera distance from the
+        front azimuth, 96 samples a ray) as its targets; the loop runs in
+        2-pass mode without LPIPS, the enhancer or IP-Adapter, as the
+        reference's. kwargs: `num_views`, `n_inverse_steps`,
+        `init_inverse_steps`, `negative_prompt`, `superres` (see
+        `_chain_superres`). Every random draw comes from a generator seeded
+        with `seed`, in order: the code's noise, the distillation's, the
+        loop's; or from `draws` (`GeneratorDraws`' methods). The rig and
+        the lights come from `np.random.default_rng(seed)`."""
+        from ..models.nerf_fit import make_image_renderer
+        from ..models.ssdnerf import tanh_code
+        from ..pipelines.mvedit_3d import MVEdit3DPipeline
+        tiny, dev = self.tiny, self.device
+        draws = draws if draws is not None else GeneratorDraws(
+            torch.Generator(device=self.device).manual_seed(seed))
+        ssd = self.run_stablessdnerf(prompt, seed=seed,
+                                     steps=4 if tiny else 50, draws=draws)
+        cfg_s = ssd["ssdnerf_cfg"]
+        code_act = tanh_code(ssd["code"])
+        num_views = kwargs.get("num_views", 3 if tiny else 32)
+        cfg = self._mvedit_cfg(
+            num_views, steps or (2 if tiny else 24),
+            kwargs.get("n_inverse_steps", 4 if tiny else 80),
+            kwargs.get("init_inverse_steps", 8 if tiny else 256))
+        pt = phase_timer()
+        if pt is not None:
+            pt.mark()
+        field0 = self.distill_triplane_to_field(
+            ssd["decoder"], code_act, cfg_s, cfg.ingp,
+            steps=20 if tiny else 200, draws=draws)
+        if pt is not None:
+            pt.tick("distill", field0)
+        c = self.constants
+        rng = np.random.default_rng(seed)
+        poses, intr = C.surround_rig(
+            num_views, c["ssdnerf_camera_distance"], c["ssdnerf_fov"],
+            c["ssdnerf_min_elev"], c["ssdnerf_max_elev"], cfg.render_size,
+            begin_rad=c["ssdnerf_front_azi"], rng=rng)
+        render = make_image_renderer(
+            self._triplane_decode(cfg_s), cfg.render_size, cfg.render_size,
+            cfg_s.render, chunk=cfg.render_size * 64, use_grid=False)
+        tp = {"decoder": ssd["decoder"], "code": code_act}
+        frames = [render(tp, self._f32(poses[i]), self._f32(intr[i]))
+                  for i in range(num_views)]
+        images = torch.stack([f["rgb"] for f in frames])
+        masks = torch.stack([f["alpha"][..., None] for f in frames])
+        if pt is not None:
+            pt.tick("init_renders", images)
+        lights, _ = cam_utils.light_sampling(poses, rng=rng)
+        m = self.load_stable_diffusion()
+        m.controlnets = self.load_controlnets()
+        m.segment_fn = None
+        targets = {"images": images, "masks": masks,
+                   "poses": self._f32(poses), "intrinsics": self._f32(intr),
+                   "cam_weights": torch.ones(num_views, device=dev),
+                   "cam_lights": self._f32(lights)}
+        negative_prompt = kwargs.get("negative_prompt", "")
+        pos, neg = self.encode_prompt(m, [prompt] * num_views,
+                                      [negative_prompt] * num_views)
+        out = MVEdit3DPipeline(m, cfg)(targets, pos.clone(), neg.clone(),
+                                       draws=draws, init_field_params=field0)
+        out = self._chain_superres(out, "nerf_params", prompt,
+                                   negative_prompt, seed,
+                                   kwargs.get("superres", False))
         if out_path and out["mesh"] is not None:
             out["mesh"].write(out_path, flip_yz=True)
         return out

@@ -1,8 +1,9 @@
 """Adapter3DRunner: the model zoo and the public endpoints.
 
 Counterpart of `mvedit_tpu/apis/runner.py`, for the parts `run_3d_to_3d`,
-`run_retex`, texture superres, `run_mesh_to_video`, `run_text_to_img` and
-image-to-3D need: the SD1.5 UNet, VAE and CLIP text encoder, the tile and
+`run_retex`, texture superres, `run_mesh_to_video`, `run_text_to_img`,
+image-to-3D and text-to-3D need: the SD1.5 UNet, VAE and CLIP text
+encoder, the SSDNeRF denoiser and triplane decoder, the tile and
 depth (and ip2p, and Zero123++ v1.2's normal) ControlNets, LPIPS, the
 SRVGG image enhancer, IP-Adapter with its CLIP vision tower, the
 perception nets (TRACER-B7 masks with SAM's box-prompted refinement, DPT
@@ -184,6 +185,28 @@ class Adapter3DRunner(EndpointsMixin):
                         lambda: ControlNet(cfg, hint_strides=hint_strides),
                         seed_offset=1 + i, subdir=f"controlnet_{kind}")
             for i, kind in enumerate(kinds))
+
+    def load_ssdnerf(self):
+        """The text-to-3D models, once per runner: the SSDNeRF cars
+        configuration (`configs/ssdnerf_cars.py`), its `LatentDenoiser` at
+        the published widths (seeded with `seed + 11`, f32), the triplane
+        decoder's params (`triplane_init` from a generator seeded with
+        `seed`) and the v-prediction schedule. The reference builds the
+        denoiser anew from each request's seed; no converter of its
+        checkpoint exists yet, so both stay seeded."""
+        if "ssdnerf" not in self._cache:
+            from ..configs.ssdnerf_cars import LatentDenoiser, ssdnerf_config
+            from ..models.triplane import triplane_init
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed)
+            self._cache["ssdnerf"] = types.SimpleNamespace(
+                cfg=ssdnerf_config,
+                denoiser=self._build("ssdnerf_denoiser", LatentDenoiser,
+                                     seed_offset=11, cast=False),
+                decoder=triplane_init(ssdnerf_config.triplane, gen,
+                                      self.device),
+                schedule=S.sd_schedule(prediction_type="v_prediction"))
+        return self._cache["ssdnerf"]
 
     @torch.inference_mode()
     def encode_prompt(self, m, prompts, negative_prompts):

@@ -6,13 +6,16 @@ import it, because importing `mvedit_tpu` pulls in JAX.
 The reference relies on transformers' CLIPTokenizer; here the byte-level BPE
 is implemented directly so the framework has no tokenizer dependency. When no
 vocab assets are available (e.g. clean container), `HashTokenizer` provides a
-deterministic stand-in with the same contract (ids in [0, vocab), bos/eos,
-fixed 77-length padding) so pipelines and tests run end-to-end.
+stand-in with the same contract (ids in [0, vocab), bos/eos, fixed 77-length
+padding) so pipelines and tests run end-to-end. Its word ids are crc32
+hashes, the same in every process; the JAX package's stand-in hashes with
+Python's per-process salted `hash()`.
 """
 import gzip
 import html
 import json
 import re
+import zlib
 from functools import lru_cache
 
 import numpy as np
@@ -129,9 +132,11 @@ class CLIPTokenizer:
 
 
 class HashTokenizer:
-    """Deterministic stand-in when vocab assets are absent: hashes words into
-    the CLIP id space. NOT semantically meaningful — for shape/flow testing
-    and random-weight benchmarking only."""
+    """Stand-in when vocab assets are absent: each word's id is
+    `crc32(word) % (vocab_size - 2)`, so one prompt gives one id sequence in
+    every process (bos, the words' ids, eos, eos padding). NOT semantically
+    meaningful: for shape/flow testing and random-weight benchmarking
+    only."""
 
     def __init__(self, vocab_size=49408, max_length=77):
         self.vocab_size = vocab_size
@@ -146,7 +151,8 @@ class HashTokenizer:
         out = np.full((len(texts), L), self.eos, np.int32)
         for i, t in enumerate(texts):
             words = _clean(t).split()[: L - 2]
-            ids = [self.bos] + [hash(w) % (self.vocab_size - 2)
-                                for w in words] + [self.eos]
+            ids = ([self.bos]
+                   + [zlib.crc32(w.encode()) % (self.vocab_size - 2)
+                      for w in words] + [self.eos])
             out[i, :len(ids)] = ids
         return out

@@ -309,6 +309,9 @@ _RAW = {
             "pos_embed": "pretrained.model.pos_embed"},
 }
 
+# modules named as their flax counterparts: `a/b` -> `a.b`
+_SAME_NAMES = [(r"(\w+)/(\w+)", r"\1.\2"), (r"(\w+)", r"\1")]
+
 _RULES = {
     "unet": _UNET_BODY,
     "controlnet": _CONTROLNET_EXTRA + _UNET_BODY,
@@ -320,6 +323,8 @@ _RULES = {
     "tracer": _TRACER,
     "dpt": _DPT,
     "loftr": _LOFTR,
+    "latent_denoiser": _SAME_NAMES,
+    "vae_preproc": _SAME_NAMES,
 }
 
 
@@ -365,7 +370,9 @@ def _leaf(name, arr):
 def torch_state_from_flax(tree, kind):
     """Flax params tree (numpy-convertible leaves) of `kind` in {'unet',
     'controlnet', 'vae', 'clip_text', 'clip_vision', 'image_proj',
-    'resampler', 'tracer', 'dpt', 'loftr'} -> {port key: torch.Tensor}.
+    'resampler', 'tracer', 'dpt', 'loftr', 'latent_denoiser' (the SSDNeRF
+    cars denoiser), 'vae_preproc' (`VAEDecoderPreproc`)} -> {port key:
+    torch.Tensor}.
     The perception nets' keys are their reference checkpoints' (what
     `convert_tracer` / `convert_dpt` / `convert_loftr` read); the DPT's
     unused `refinenet4.resConfUnit1` and final ViT norm, which the flax

@@ -1,12 +1,13 @@
 """Neural fields: the iNGP-style field as a dict of tensors (counterpart of
 `mvedit_tpu/models/fields.py`).
 
-Dense-grid encoding -> ReLU MLP -> (sigma via trunc_exp + a density blob at
-the origin, rgb via a saturated sigmoid). Parameters are a plain nested
-dict, `{"table": {"level_i": ...}, "mlp": [{"w", "b"}, ...]}`, the JAX
-pytree's layout, so `field_params_from_flax` bridges them leaf for leaf
-and the fits hand `field_leaves` to their optimizer. Only the dense backend
-is ported; `backend="hash"` raises until the hash-grid slice.
+Hash-grid (`backend="hash"`, the reference's default) or dense-grid
+encoding -> ReLU MLP -> (sigma via trunc_exp + a density blob at the
+origin, rgb via a saturated sigmoid). Parameters are a plain nested dict,
+`{"table": ..., "mlp": [{"w", "b"}, ...]}`, the JAX pytree's layout: the
+table is one (L, T, F) tensor for the hash grid and `{"level_i": ...}` for
+the dense grid. `field_params_from_flax` bridges them leaf for leaf and
+the fits hand `field_leaves` to their optimizer.
 """
 from dataclasses import dataclass, field
 
@@ -17,6 +18,7 @@ from ..ops.activation import trunc_exp
 from ..ops.clip import clip
 from ..ops.dense_grid import (DenseGridConfig, dense_grid_encode,
                               dense_grid_init)
+from ..ops.hash_grid import HashGridConfig, hash_grid_encode, hash_grid_init
 
 __all__ = ["mlp_init", "mlp_apply", "INGPConfig", "ingp_init",
            "ingp_point_decode", "ingp_density", "FieldColor",
@@ -46,8 +48,9 @@ def mlp_apply(params, x):
 
 @dataclass(frozen=True)
 class INGPConfig:
+    hash: HashGridConfig = field(default_factory=HashGridConfig)
     dense: DenseGridConfig = field(default_factory=DenseGridConfig)
-    backend: str = "hash"          # the reference's default; not ported yet
+    backend: str = "hash"          # or "dense"
     num_layers: int = 2
     hidden_dim: int = 64
     sigmoid_saturation: float = 0.001
@@ -55,16 +58,10 @@ class INGPConfig:
     blob_radius: float = 0.2
     bound: float = 1.0
 
-    def _check(self):
-        if self.backend != "dense":
-            raise NotImplementedError(
-                f"INGPConfig(backend={self.backend!r}): only the dense "
-                f"backend is ported")
-
     @property
     def enc_dim(self):
-        self._check()
-        return self.dense.out_dim
+        return (self.hash.out_dim if self.backend == "hash"
+                else self.dense.out_dim)
 
     @property
     def mlp_dims(self):
@@ -73,9 +70,10 @@ class INGPConfig:
 
 
 def ingp_init(cfg: INGPConfig, generator=None, device=None):
-    cfg._check()
-    return {"table": dense_grid_init(cfg.dense, generator, device),
-            "mlp": mlp_init(cfg.mlp_dims, generator, device)}
+    table = (dense_grid_init(cfg.dense, generator, device)
+             if cfg.backend == "dense"
+             else hash_grid_init(cfg.hash, generator, device))
+    return {"table": table, "mlp": mlp_init(cfg.mlp_dims, generator, device)}
 
 
 def _density_blob(xyz, cfg: INGPConfig):
@@ -87,9 +85,11 @@ def _density_blob(xyz, cfg: INGPConfig):
 def ingp_point_decode(params, xyz, cfg: INGPConfig):
     """xyz: (..., 3) world points in [-bound, bound] -> (sigma (...,),
     rgb (..., 3))."""
-    cfg._check()
     x01 = (xyz + cfg.bound) / (2.0 * cfg.bound)
-    enc = dense_grid_encode(params["table"], x01, cfg.dense)
+    if cfg.backend == "dense":
+        enc = dense_grid_encode(params["table"], x01, cfg.dense)
+    else:
+        enc = hash_grid_encode(params["table"], x01, cfg.hash)
     h = mlp_apply(params["mlp"], enc)
     sigma = trunc_exp(h[..., 0] + _density_blob(xyz, cfg))
     rgb = torch.sigmoid(h[..., 1:])
@@ -121,16 +121,21 @@ class FieldShading(FieldColor):
 
 
 def field_params_from_flax(tree, device=None):
-    """The JAX field pytree (`ingp_init`'s `{"table": {"level_i"}, "mlp":
-    [{"w", "b"}]}`, leaves as numpy or JAX arrays) -> the port's params,
-    float32 tensors on `device`."""
+    """The JAX field pytree (`ingp_init`'s `{"table": (L, T, F) or
+    {"level_i"}, "mlp": [{"w", "b"}]}`, leaves as numpy or JAX arrays) ->
+    the port's params, float32 tensors on `device`."""
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
-    return {"table": {k: t(v) for k, v in tree["table"].items()},
+    table = tree["table"]
+    return {"table": ({k: t(v) for k, v in table.items()}
+                      if isinstance(table, dict) else t(table)),
             "mlp": [{"w": t(l["w"]), "b": t(l["b"])} for l in tree["mlp"]]}
 
 
 def field_leaves(params):
-    """The field's tensors in a fixed order (tables by level, then MLP)."""
-    return ([params["table"][k] for k in sorted(params["table"])]
-            + [l[n] for l in params["mlp"] for n in ("w", "b")])
+    """The field's tensors in a fixed order (the hash table, or the dense
+    tables by level, then the MLP's)."""
+    table = params["table"]
+    tables = ([table[k] for k in sorted(table)] if isinstance(table, dict)
+              else [table])
+    return tables + [l[n] for l in params["mlp"] for n in ("w", "b")]

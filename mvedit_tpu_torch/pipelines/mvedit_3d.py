@@ -175,7 +175,9 @@ class GeneratorDraws:
     """The pipelines' random draws, all from one `torch.Generator`: the
     field init, the latent noise (shared by the views, or per view for
     texture superres), and the draws of every fit chunk, of the texture
-    refinement and of the re-texturing fits (each fit's own `draw`)."""
+    refinement and of the re-texturing fits (each fit's own `draw`); for
+    text-to-3D also the code sample's noise and the distillation's field
+    init and points."""
 
     def __init__(self, generator=None):
         self.generator = generator
@@ -193,6 +195,19 @@ class GeneratorDraws:
         """One noise draw of the whole `shape` (N, h, w, 4): texture
         superres gives every view its own noise."""
         return torch.randn(shape, generator=self.generator, device=device)
+
+    def code_noise(self, shape, device):
+        """The initial noise of a text-to-3D code sample."""
+        return torch.randn(shape, generator=self.generator, device=device)
+
+    def distill_field_init(self, cfg: INGPConfig, device):
+        """The field a triplane is distilled into, before its first step."""
+        return ingp_init(cfg, self.generator, device)
+
+    def distill_points(self, n, bound, device):
+        """One distillation step's n points, uniform in [-bound, bound]^3."""
+        u = torch.rand((n, 3), generator=self.generator, device=device)
+        return u * (2 * bound) - bound
 
     def fit(self, run, targets):
         """The per-chunk draws of a chunked fit (`_nerf_fit_fns` or

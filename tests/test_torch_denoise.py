@@ -319,10 +319,14 @@ def test_chunk_view_batches(models):
 
 def test_run_text_to_img_tiny():
     """A whole tiny request: tokenizer, CLIP, the CFG DPM-Solver++ loop and
-    the VAE decode, from the JAX runner's weights and noise draw."""
+    the VAE decode, from the JAX runner's weights and noise draw. The JAX
+    runner tokenizes with the port's crc32 word ids
+    (`torch_tokenizer.StableHashTokenizer`)."""
     from mvedit_tpu.apis import Adapter3DRunner as JaxRunner
     from mvedit_tpu_torch.apis import Adapter3DRunner
+    from torch_tokenizer import StableHashTokenizer
     jr = JaxRunner(tiny_models=True, seed=0)
+    jr.tokenizer = StableHashTokenizer()
     ref = jr.run_text_to_img("a red car", "blurry", seed=3, steps=2)
     jm = jr.load_stable_diffusion()
     tr = Adapter3DRunner(tiny_models=True, seed=0, device="cpu")

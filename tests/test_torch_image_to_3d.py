@@ -9,7 +9,9 @@ stack, the ControlNets, IP-Adapter and the perception nets); the JAX
 runner keeps its seeded Zero123++ vision tower (its loader has no
 converter), which the port gets through the bridge. The port replays the
 JAX request's draws: Zero123++'s per pass (`JaxZero123PlusDraws` from
-PRNGKey(seed + pass)) and the MVEdit loop's (`JaxDraws`).
+PRNGKey(seed + pass)) and the MVEdit loop's (`JaxDraws`). The JAX runner
+tokenizes the prompts with the port's crc32 word ids
+(`torch_tokenizer.StableHashTokenizer`).
 
 Compared: the generated views within 1e-4 (the Zero123++ pipeline's
 bound), the input pose (the same route, the same pose within 1e-4), then
@@ -52,6 +54,7 @@ import mvedit_tpu_torch.pipelines.mvedit_3d as TM
 from torch_checkpoints import (write_image_to_3d_checkpoint,
                                write_tiny_checkpoint)
 from torch_jax_draws import JaxDraws, JaxZero123PlusDraws
+from torch_tokenizer import StableHashTokenizer
 
 torch.set_num_threads(4)
 
@@ -100,6 +103,7 @@ def test_run_zero123plus_to_mesh_matches_jax(tmp_path, monkeypatch):
     write_tiny_checkpoint(root, "safetensors", seed=6)
     write_image_to_3d_checkpoint(root, "safetensors", seed=7)
     jr = JRunner(checkpoint_dir=root, seed=0, tiny_models=True)
+    jr.tokenizer = StableHashTokenizer()
     tr = TRunner(checkpoint_dir=root, seed=0, tiny_models=True,
                  device="cpu")
     tr.load_zero123plus().vision.load_state_dict(torch_state_from_flax(

@@ -14,7 +14,8 @@ ControlNet (its loaders have no converters) reach the port through the
 bridge. The port replays the JAX request's draws: each Zero123++ pass's
 (`JaxZero123PlusDraws` from PRNGKey(seed + pass) for the RGB pass,
 PRNGKey(seed + pass + 1000) for the normal pass) and the MVEdit loop's
-(`JaxDraws`).
+(`JaxDraws`). The JAX runner tokenizes the prompts with the port's crc32
+word ids (`torch_tokenizer.StableHashTokenizer`).
 
 Compared, with `test_torch_image_to_3d.py`'s bounds and no looser: the
 generated views and normals within 1e-4; the MVEdit loop's masks and
@@ -51,6 +52,7 @@ from test_torch_image_to_3d import J_INGP, SEED, _record, _record_vae
 from torch_checkpoints import (write_image_to_3d_checkpoint,
                                write_tiny_checkpoint)
 from torch_jax_draws import JaxDraws, JaxZero123PlusDraws
+from torch_tokenizer import StableHashTokenizer
 
 torch.set_num_threads(4)
 
@@ -73,6 +75,7 @@ def runners(tmp_path_factory):
     write_tiny_checkpoint(root, "safetensors", seed=6)
     write_image_to_3d_checkpoint(root, "safetensors", seed=7)
     jr = JRunner(checkpoint_dir=root, seed=0, tiny_models=True)
+    jr.tokenizer = StableHashTokenizer()
     tr = TRunner(checkpoint_dir=root, seed=0, tiny_models=True,
                  device="cpu")
     jn, tn = jr.load_zero123plus_normal("1.2"), \

@@ -34,13 +34,14 @@ Tolerances:
   one contribution to 10^6 and at the slice edges; the bf16 output is the
   float32 sum rounded once. Its ordering equals `torch.sort(stable=True)`
   of the keys and `searchsorted` offsets exactly.
-- determinism: two tiny NeRF-fit chunks, and two mesh-fit chunks (on the
+- determinism: two tiny NeRF-fit chunks (of the dense and of the
+  hash-grid field), and two mesh-fit chunks (on the
   structured and on the unstructured tet grid), from one seed give
   bit-equal parameters, without and with
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
   no deterministic algorithm on the card); two tiny Zero123++ v1.2 RGB +
-  normal passes and their postprocess, and two SAM refinements, from one
-  seed are bit-equal.
+  normal passes and their postprocess, two SAM refinements, and two tiny
+  text-to-3D requests, from one seed are bit-equal.
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
@@ -559,14 +560,23 @@ def _fit_targets(cuda, size):
 def _two_chunks(cuda, kind):
     """Two fit chunks from seed 0 (field init, the chunks' draws); returns
     the parameters after them. `kind` "mesh_unstructured" fits on the
-    unstructured tet grid (`build_grid_tets`, the compact extraction)."""
+    unstructured tet grid (`build_grid_tets`, the compact extraction),
+    "nerf_hash" the NeRF fit of a hash-grid field (8 levels of 2^16 rows,
+    linear and hashed)."""
+    import dataclasses
     from mvedit_tpu_torch.models.fields import field_leaves, ingp_init
     from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+    from mvedit_tpu_torch.ops.hash_grid import HashGridConfig
     pipe, lp = _fit_pipe(cuda, structured_tets=kind != "mesh_unstructured")
+    if kind == "nerf_hash":
+        pipe = type(pipe)(pipe.m, dataclasses.replace(
+            pipe.cfg, ingp=dataclasses.replace(
+                pipe.cfg.ingp, backend="hash", hash=HashGridConfig(
+                    n_levels=8, log2_hashmap_size=16, max_resolution=128))))
     targets = _fit_targets(cuda, 128)
     gen = torch.Generator(device=cuda).manual_seed(0)
     field = ingp_init(pipe.cfg.ingp, gen, cuda)
-    if kind == "nerf":
+    if kind in ("nerf", "nerf_hash"):
         run, make_opt = pipe._nerf_fit_fns(64, 4)
         opt = make_opt(field)
         grid = OccupancyGrid.create(pipe.cfg.render.grid_size, device=cuda)
@@ -586,7 +596,8 @@ def _two_chunks(cuda, kind):
 
 
 @pytest.mark.parametrize("flag", [False, True])
-@pytest.mark.parametrize("kind", ["nerf", "mesh", "mesh_unstructured"])
+@pytest.mark.parametrize("kind", ["nerf", "nerf_hash", "mesh",
+                                  "mesh_unstructured"])
 def test_one_seed_gives_one_fit(cuda, monkeypatch, kind, flag):
     """The fits' gradients accumulate in a fixed order (the segment sum,
     deterministic cuDNN for LPIPS's backward, the volume renderer's cumsum
@@ -784,3 +795,30 @@ def test_one_seed_gives_one_sam_refinement(cuda):
     assert len(calls) == 4
     assert a.shape == (2, 64, 64, 1) and a.device.type == "cuda"
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_one_seed_gives_one_text_to_3d(cuda, monkeypatch, flag):
+    """A tiny `run_stablessdnerf_to_mesh` on the card (the code sample, the
+    distillation's 20 Adam steps, the triplane renders, the MVEdit loop),
+    twice from one seed: the code, the distilled loop's field and the mesh
+    bit-equal, without and with `torch.use_deterministic_algorithms`."""
+    import numpy as np
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.models.fields import field_leaves
+    if flag:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    runner = Adapter3DRunner(tiny_models=True, seed=0, device="cuda")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(flag)
+    try:
+        a, b = (runner.run_stablessdnerf_to_mesh("a red car", seed=1)
+                for _ in range(2))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert a["mesh"] is not None and len(a["mesh"].f) > 0
+    assert all(torch.equal(x, y) for x, y in zip(
+        field_leaves(a["nerf_params"]), field_leaves(b["nerf_params"])))
+    for k in ("v", "f", "albedo"):
+        assert np.array_equal(getattr(a["mesh"], k), getattr(b["mesh"], k))

@@ -104,8 +104,15 @@ def test_dense_grid_and_field_decode_match_jax(gather):
 
 
 def test_hash_backend_raises():
-    with pytest.raises(NotImplementedError):
-        TF.ingp_init(TF.INGPConfig())
+    """The hash backend, the field's default, at its full width: it no
+    longer raises, and `ingp_init` builds a (12, 2^19, 2) table under an
+    MLP over its 24 features. (The name stays from when the backend
+    raised; `test_torch_hash_grid.py` holds its values and its leaf order
+    against the JAX field at a tiny width.)"""
+    cfg = TF.INGPConfig()
+    p = TF.ingp_init(cfg, torch.Generator().manual_seed(0))
+    assert p["table"].shape == (12, 2 ** 19, 2)
+    assert cfg.enc_dim == 24 and p["mlp"][0]["w"].shape == (24, 64)
 
 
 def test_tonemapping_and_image_losses_match_jax():

@@ -2,9 +2,10 @@
 at the tiny configuration both runners use (`tiny_models=True`): SD-like
 UNet / ControlNets / VAE / CLIP at narrow widths, 3 views, 2 diffusion
 steps (1-pass, reference pairs), 64^2 renders, dense field (8, 32), NeRF
-fits of 8 and 4 steps, tet 16, the grid-atlas bake at 1024^2. Both run in
-one process (`HashTokenizer` hashes words with the per-process salted
-`hash()`). The port gets the JAX runner's weights (bridged, the
+fits of 8 and 4 steps, tet 16, the grid-atlas bake at 1024^2. The JAX
+runner tokenizes through `torch_tokenizer.StableHashTokenizer`, the port's
+crc32 word ids (its own `HashTokenizer` hashes words with the per-process
+salted `hash()`). The port gets the JAX runner's weights (bridged, the
 ControlNets' zero-initialised heads jittered in both) and every random
 draw of the JAX run (`torch_jax_draws.JaxDraws`).
 
@@ -44,6 +45,7 @@ from mvedit_tpu_torch.models.diffusion.weights import torch_state_from_flax
 from mvedit_tpu_torch.models.mesh import Mesh as TMesh
 
 from torch_jax_draws import JaxDraws
+from torch_tokenizer import StableHashTokenizer
 
 torch.set_num_threads(4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,6 +107,7 @@ def _record(monkeypatch, module):
 def test_run_3d_to_3d_matches_jax(tmp_path, monkeypatch):
     src = _torus_glb(str(tmp_path / "torus.glb"))
     jr = JRunner(tiny_models=True, seed=0)
+    jr.tokenizer = StableHashTokenizer()
     tr = TRunner(tiny_models=True, seed=0, device="cpu")
     _bridge(jr, tr)
     calls_j, calls_t = _record(monkeypatch, JS), _record(monkeypatch, TS)

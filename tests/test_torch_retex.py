@@ -21,10 +21,11 @@ Compared, with their tolerances:
   +-lr updates from the first step on wherever a gradient nearly cancels
   (ROADMAP, reference behaviours; the field's MLP weights end up to 0.09
   apart), and the denoise feeds the fit back through 3 timesteps. The
-  prompts go through `StableHashTokenizer` in both runners: the runners'
-  `HashTokenizer` hashes words with the per-process salted `hash()`, so
-  its ids, and with them how far the two chains part, changed from
-  process to process (max |d| from 4.4e-3 to 1.8e-2 over runs);
+  JAX runner tokenizes through `torch_tokenizer.StableHashTokenizer`, the
+  port's crc32 word ids: its own `HashTokenizer` hashes words with the
+  per-process salted `hash()`, so its ids, and with them how far the two
+  chains part, changed from process to process (max |d| from 4.4e-3 to
+  1.8e-2 over runs);
 - the baked 1024^2 albedo: mean |d| <= 2e-3 and at most 3% of its values
   off by more than 1e-2. The grid atlas puts texel centres on its cells'
   diagonal edges, where coverage is a tie that rounding decides, so a few
@@ -36,7 +37,6 @@ there): the field stays as initialised.
 """
 import math
 import os
-import zlib
 
 import jax
 import numpy as np
@@ -44,7 +44,6 @@ import pytest
 import torch
 
 from mvedit_tpu.apis import Adapter3DRunner as JRunner
-from mvedit_tpu.models.diffusion.tokenizer import HashTokenizer, _clean
 from mvedit_tpu.models.fields import INGPConfig as JINGPConfig
 from mvedit_tpu.ops.dense_grid import DenseGridConfig as JDense
 from mvedit_tpu.ops.hash_grid import HashGridConfig
@@ -54,6 +53,7 @@ from mvedit_tpu_torch.apis import Adapter3DRunner as TRunner
 from mvedit_tpu_torch.models.mesh import Mesh
 from torch_checkpoints import write_tiny_checkpoint
 from torch_jax_draws import JaxDraws
+from torch_tokenizer import StableHashTokenizer
 
 torch.set_num_threads(2)
 
@@ -66,23 +66,6 @@ J_INGP = JINGPConfig(backend="dense", dense=JDense(resolutions=(8, 32)),
                                          max_resolution=32))
 CASES = {"front_ip": dict(front_view_id=0, in_image=True, min_num_views=3),
          "instruct": dict(instruct=True)}
-
-
-class StableHashTokenizer(HashTokenizer):
-    """`HashTokenizer`'s id layout with a hash of each word that is the
-    same in every process (crc32)."""
-
-    def __call__(self, texts, max_length=None):
-        if isinstance(texts, str):
-            texts = [texts]
-        L = max_length or self.max_length
-        out = np.full((len(texts), L), self.eos, np.int32)
-        for i, t in enumerate(texts):
-            words = _clean(t).split()[: L - 2]
-            ids = [self.bos] + [zlib.crc32(w.encode()) % (self.vocab_size - 2)
-                                for w in words] + [self.eos]
-            out[i, :len(ids)] = ids
-        return out
 
 
 def _sphere(n=10):
@@ -142,7 +125,6 @@ def test_run_retex_matches_jax(setup, case):
     jout, jlosses = _run_jax(root, mesh_path, kw)
     runner = TRunner(checkpoint_dir=root, seed=0, tiny_models=True,
                      device="cpu")
-    runner.tokenizer = StableHashTokenizer()
     tout = runner.run_retex(
         mesh_path, "a wooden vase", seed=SEED, steps=4, n_inverse_steps=3,
         draws=JaxDraws(jax.random.PRNGKey(SEED), J_INGP), **kw)

@@ -73,9 +73,9 @@ from mvedit_tpu_torch.pipelines import (SuperResConfig,
                                         TextureSuperResPipeline)
 from mvedit_tpu_torch.pipelines.texture import TextureConfig as TTextureConfig
 from mvedit_tpu_torch.pipelines.texture import make_texture_fit as t_fit
-from test_torch_retex import StableHashTokenizer
 from torch_checkpoints import write_tiny_checkpoint
 from torch_jax_draws import JaxDraws, JaxSuperResDraws, texture_fit_draws
+from torch_tokenizer import StableHashTokenizer
 
 torch.set_num_threads(2)
 
@@ -247,7 +247,7 @@ def _runners(root):
     jr = JRunner(checkpoint_dir=root, seed=0, tiny_models=True)
     tr = TRunner(checkpoint_dir=root, seed=0, tiny_models=True,
                  device="cpu")
-    jr.tokenizer = tr.tokenizer = StableHashTokenizer()
+    jr.tokenizer = StableHashTokenizer()
     return jr, tr
 
 

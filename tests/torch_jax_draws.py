@@ -248,3 +248,30 @@ class JaxZero123Draws:
         if eta <= 0:
             return None
         return _t(jax.random.normal(kr, tuple(shape))).to(device)
+
+
+class JaxTextTo3DDraws(JaxDraws):
+    """A draw source for the port's text-to-3D endpoints that replays
+    `mvedit_tpu`'s: the code sample's initial noise from PRNGKey(seed)
+    split once (`sample_from_noise`), the distillation's field init from
+    PRNGKey(0) and each step's points from its next split
+    (`distill_triplane_to_field`, whose seed is 0 whatever the request's),
+    and the MVEdit loop's draws from PRNGKey(seed) (`JaxDraws`).
+    jax_ingp: the JAX field config."""
+
+    def __init__(self, seed, jax_ingp):
+        super().__init__(jax.random.PRNGKey(seed), jax_ingp)
+        self.seed, self.distill_key = seed, jax.random.PRNGKey(0)
+
+    def code_noise(self, shape, device):
+        _, k0 = jax.random.split(jax.random.PRNGKey(self.seed))
+        return _t(jax.random.normal(k0, tuple(shape))).to(device)
+
+    def distill_field_init(self, cfg, device):
+        return field_params_from_flax(jax.tree_util.tree_map(
+            np.asarray, j_ingp_init(self.distill_key, self.jax_ingp)), device)
+
+    def distill_points(self, n, bound, device):
+        self.distill_key, k = jax.random.split(self.distill_key)
+        return _t(jax.random.uniform(k, (n, 3), minval=-bound,
+                                     maxval=bound)).to(device)
