@@ -22,7 +22,8 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
 requests with IP-Adapter, texture superres with an orbit video, whole
 image-to-3D requests (v1.1, and v1.2 with its generated normals), SAM,
 legacy Zero123, the unstructured tet grid, whole text-to-3D requests
-(direct and through the JSON server) and the hash-grid field.
+(direct and through the JSON server), the hash-grid field and SSDNeRF
+training through its CLIs.
 
 1. device: the card's name and power limit (nvidia-smi); the stand-in
    tokenizer's ids of the smoke's prompts in two fresh processes with
@@ -44,8 +45,10 @@ legacy Zero123, the unstructured tet grid, whole text-to-3D requests
    the path's shapes (the dense grid's corner gathers at a NeRF chunk's
    sample count and at the retex and superres albedo fits, the mesh fit's
    vertex sums, a render's corner gather, the hash grid's levels 0 and 11
-   at a NeRF step's samples) and at a NeRF-fit step's own
-   sample points
+   at a NeRF step's samples, SSDNeRF training's code gradient at a step's
+   own targets: the SRN rig's rays, 96 samples each, 3 planes x 4
+   corners into 4 x 3 x 40 x 40 texels of 12 f32) and at a NeRF-fit
+   step's own sample points
    (rays of the rig, those that miss the box included): the same bits on
    two runs, the bits of its order rebuilt in plain PyTorch, the bf16
    output the f32 sum rounded once, and within the rounding of that order
@@ -159,14 +162,30 @@ legacy Zero123, the unstructured tet grid, whole text-to-3D requests
    bit-equal), its wall beside the dense field's chunk and its
    segment-sum launches; `triplane_ingp_point_decode` forward and
    backward on 2^18 points at the default `TriPlaneINGPConfig`, twice,
-   bit-equal.
+   bit-equal;
+19. SSDNeRF training at the cars recipe's widths (`mvedit_tpu_torch/
+   configs/ssdnerf_cars.py`: 4 scenes x 4096 rays x 96 samples a step, a
+   (3, 12, 40, 40) code, the 36 -> 64 decoder, the 128-wide
+   `LatentDenoiser` with EMA, code Adam 0.04, decoder Adam 1e-3, denoiser
+   AdamW 1e-4) on a seeded dataset in SRN's layout (8 scenes x 50 views
+   of 128^2, focal 131.25, cameras on a sphere of radius 1.3; the knot
+   drawn by the port's renderer on white), cut in depth (16 of 40000
+   iterations) and scene count (8 of 2458): `tools/train_ssdnerf.py`'s
+   `main` in-process twice from one seed (cache, decoder, denoiser, their
+   optimizer states and the EMA bit-equal; finite losses, the render loss
+   falling; the step's median time with the loader's apart, peak memory,
+   segment-sum launches a step), a 2-step stage-1 run and a 2-step stage-2
+   warm start from its cache, a resume of the first run with the eval
+   hook, and `tools/test_ssdnerf.py --recons-views 1` on 2 scenes
+   (val_optim's wall time, PSNR and SSIM printed).
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
 phase 10; each request and the video in phase 11; each request in phases
-12, 13 and 17; phase 16; the segment sum over phases 6-18): a kernel of
+12, 13 and 17; phase 16; each training run and the recons eval in phase
+19; the segment sum over phases 6-19): a kernel of
 a path with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
@@ -313,6 +332,11 @@ SEGMENT_CASES += [("hash_level0", 1 << 19, 16384 * 128 * 8, 2, "f32"),
 # on each axis: most rows take nothing)
 SEGMENT_CASES += [("distill_level0", 33 ** 3, 65536 * 8, 8, "bf16"),
                   ("distill_level1", 161 ** 3, 65536 * 8, 8, "bf16")]
+# SSDNeRF training's code gradient, one a step: 4 scenes x 4096 rays x 96
+# samples x 3 planes x 4 corners into the batch's (4, 3, 40, 40) code
+# texels, 12 f32 channels (the targets from `triplane_grad_targets`)
+SEGMENT_CASES += [("triplane_grad", 4 * 3 * 40 * 40, 4 * 4096 * 96 * 3 * 4,
+                   12, "f32")]
 SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
@@ -357,6 +381,17 @@ T23_STEPS = 50
 # the hash-grid field at `_mvedit_cfg`'s hash widths: one 8-step NeRF-fit
 # chunk at 256^2, and the triplane + hash hybrid on 2^18 points
 HASH_CHUNK = 8
+# SSDNeRF training (phase 19): the cars recipe at its widths on a seeded
+# SRN-layout dataset; cut in depth (iterations) and in the scene count
+TRAIN_SCENES = 8             # of SRN cars' 2458 training scenes
+TRAIN_VIEWS = 50             # SRN cars' views a scene
+TRAIN_SIZE = 128             # SRN cars' images
+TRAIN_FOCAL = 131.25         # SRN cars' focal length at 128^2
+TRAIN_STEPS = 16             # of the recipe's 40000
+TRAIN_EVAL_SCENES = 2        # test_ssdnerf's scenes (of 8)
+KNOT_NU, KNOT_NV = 90, 10    # few enough faces a raster tile at 128^2
+TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "mvedit_tpu_torch", "configs", "ssdnerf_cars.py")
 HYBRID_POINTS = 1 << 18
 DEV = "cuda"
 TIMED_RUNS = 10
@@ -1115,6 +1150,50 @@ def nerf_chunk_points(gen, size=256, rays=16384):
     return x01, float((far <= near).float().mean())
 
 
+def srn_rig(n_views, rng):
+    """SRN cars' cameras: c2w poses (n, 3, 4) on a sphere of radius 1.3
+    looking at the origin (azimuths uniform, elevations in [-0.2, 1.2]
+    rad), focal TRAIN_FOCAL and principal point at the centre of
+    TRAIN_SIZE^2 -> (poses, intrinsics (n, 4))."""
+    from mvedit_tpu_torch.utils import camera as cu
+    azi = rng.uniform(0, 2 * np.pi, n_views)
+    elev = rng.uniform(-0.2, 1.2, n_views)
+    poses = cu.get_pose_from_angles(azi, elev, 1.3)[:, :3]
+    c = TRAIN_SIZE / 2
+    intr = np.tile(np.array([TRAIN_FOCAL, TRAIN_FOCAL, c, c], np.float32),
+                   (n_views, 1))
+    return poses.astype(np.float32), intr
+
+
+def triplane_grad_targets():
+    """The rows of a training step's code gradient: 4 scenes x 4096 rays
+    of the SRN rig's pixels (as the loader makes them), the renderer's 96
+    bin-centre samples in the 0.5 box (`sample_rays`), the planes'
+    coordinates (`_plane_coords`) and their 4 corners each
+    (`ops/grid_sample.py::corner_rows`, border padding) -> (18874368,)
+    int32 rows into the batch's 4 x 3 x 40 x 40 texels."""
+    from mvedit_tpu_torch.configs.ssdnerf_cars import (ssdnerf_config,
+                                                       train_config)
+    from mvedit_tpu_torch.datasets.loader import pixel_rays
+    from mvedit_tpu_torch.models.triplane import _plane_coords
+    from mvedit_tpu_torch.models.volume_renderer import sample_rays
+    from mvedit_tpu_torch.ops.grid_sample import corner_rows
+    cfg = ssdnerf_config
+    B, R = train_config["batch_size"], cfg.n_rays
+    rng = np.random.default_rng(SEED + 19)
+    poses, intr = srn_rig(TRAIN_VIEWS, rng)
+    vi = rng.integers(0, TRAIN_VIEWS, B * R)
+    yi, xi = rng.integers(0, TRAIN_SIZE, (2, B * R))
+    o, d = pixel_rays(poses, intr, vi, yi, xi, (TRAIN_SIZE, TRAIN_SIZE))
+    xyz = sample_rays(torch.as_tensor(o, device=DEV).reshape(B, R, 3),
+                      torch.as_tensor(d, device=DEV).reshape(B, R, 3),
+                      cfg.render)[0]
+    grid = _plane_coords(xyz.reshape(B, -1, 3), cfg.triplane).transpose(0, 1)
+    idx, _ = corner_rows(grid.reshape(B * 3, -1, 2), cfg.latent_shape[2:],
+                         "border", False)
+    return idx.reshape(-1)
+
+
 def segment_indices(name, R, n, gen):
     """The targets of a SEGMENT_CASES row (or of SEGMENT_PATH_CASE)."""
     if name.startswith(("retex", "superres")):
@@ -1135,6 +1214,10 @@ def segment_indices(name, R, n, gen):
         u = torch.rand((n // 8, 3), generator=gen, device=DEV)
         x01 = (u * (2 * tb) - tb + fb) / (2 * fb)
         return grid_corners(x01, round(R ** (1 / 3)) - 1), {}
+    if name.startswith("triplane"):
+        idx = triplane_grad_targets()
+        assert idx.shape[0] == n
+        return idx, {}
     if name.startswith("nerf"):
         x, miss = nerf_chunk_points(gen)
         assert 8 * x.shape[0] == n
@@ -2875,6 +2958,194 @@ def phase_hash_grid(runner):
     return n_seg
 
 
+def write_srn_dataset(runner, root):
+    """TRAIN_SCENES seeded scenes in ShapeNet SRN's layout under `root`:
+    per scene TRAIN_VIEWS views of TRAIN_SIZE^2 (`srn_rig`) of the torus
+    knot, turned by a seeded rotation and scaled into the 0.5 box, drawn by
+    the port's mesh renderer (`load_init_mesh`, Lambert-shaded, lit from the
+    camera) on white; rgb/*.png, pose/*.txt (4 x 4 c2w) and
+    intrinsics.txt (focal cx cy)."""
+    from PIL import Image
+    knot = torus_knot(nu=KNOT_NU, nv=KNOT_NV)
+    scale = 0.45 / float(np.linalg.norm(knot.v, axis=-1).max())
+    for s in range(TRAIN_SCENES):
+        rng = np.random.default_rng(SEED + 100 + s)
+        rot = np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
+        mesh = type(knot)(v=knot.v @ rot.T * scale, f=knot.f, vc=None)
+        poses, intr = srn_rig(TRAIN_VIEWS, rng)
+        light = poses[:, :3, 3] / np.linalg.norm(poses[:, :3, 3], axis=-1,
+                                                 keepdims=True)
+        imgs = runner.load_init_mesh(mesh, poses, intr, TRAIN_SIZE,
+                                     light)["images"]
+        imgs = (imgs.clamp(0, 1) * 255).round().byte().cpu().numpy()
+        d = os.path.join(root, f"scene_{s:04d}")
+        os.makedirs(os.path.join(d, "rgb"))
+        os.makedirs(os.path.join(d, "pose"))
+        for i in range(TRAIN_VIEWS):
+            Image.fromarray(imgs[i]).save(os.path.join(d, "rgb",
+                                                       f"{i:06d}.png"))
+            c2w = np.eye(4)
+            c2w[:3] = poses[i]
+            np.savetxt(os.path.join(d, "pose", f"{i:06d}.txt"),
+                       c2w.reshape(1, 16))
+        with open(os.path.join(d, "intrinsics.txt"), "w") as f:
+            f.write(f"{TRAIN_FOCAL} {intr[0, 2]} {intr[0, 3]} 0.\n0. 0. 0."
+                    f"\n1.\n{TRAIN_SIZE} {TRAIN_SIZE}\n")
+
+
+def _leaves(tree):
+    from mvedit_tpu_torch.models.ssdnerf import tree_leaves
+    return [x for x in tree_leaves(tree) if torch.is_tensor(x)]
+
+
+def phase_training(runner, tmp):
+    """SSDNeRF training at the cars recipe's widths through the CLIs (see
+    the module doc). Returns the segment-sum launches of the two stage-2
+    runs and their step count."""
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.models import ssdnerf as MS
+    from mvedit_tpu_torch.tools import test_ssdnerf, train_ssdnerf
+    data = os.path.join(tmp, "srn")
+    t0 = time.perf_counter()
+    write_srn_dataset(runner, data)
+    log(f"[training] dataset: {TRAIN_SCENES} scenes x {TRAIN_VIEWS} views "
+        f"of {TRAIN_SIZE}^2 (SRN layout, the knot on white) written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    cfg, cfgs = TRAIN_CONFIG, {}
+    for name, extra in (("stage1", "no_diffusion=True"),
+                        ("stage2", "init_scene_cache='scene_cache.npz'")):
+        cfgs[name] = os.path.join(tmp, f"train_{name}.py")
+        with open(cfgs[name], "w") as f:
+            f.write("from mvedit_tpu_torch.tools.train_ssdnerf import "
+                    f"load_config\nbase = load_config({cfg!r})\n"
+                    "ssdnerf_config = base.ssdnerf_config\n"
+                    "build_denoiser = base.build_denoiser\n"
+                    f"train_config = dict(base.train_config, {extra})\n")
+
+    def train(config, work, *extra):
+        return train_ssdnerf.main(["--config", config, "--data", data,
+                                   "--work-dir", os.path.join(tmp, work),
+                                   "--device", DEV, *extra])
+    log(f"[training] stage 2 of ssdnerf_cars.py at its widths (4 scenes x "
+        f"4096 rays x 96 samples a step, a (3, 12, 40, 40) code, the 36 -> "
+        f"64 decoder, the 128-wide LatentDenoiser with EMA), "
+        f"{TRAIN_STEPS} steps (of 40000), twice from seed 0")
+    runs, launches = [], []
+    staged = SS.segment_sum.staged
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for tag in ("first", "second"):
+        SS.segment_sum.launches = 0
+        t0 = time.perf_counter()
+        out = train(cfg, f"train_{tag}", "--max-iters", str(TRAIN_STEPS))
+        wall = time.perf_counter() - t0
+        launches.append(SS.segment_sum.launches)
+        rl = [m["loss_render"] for m in out.metrics]
+        dl = [m["loss_diffusion"] for m in out.metrics]
+        step_ms = statistics.median(out.step_seconds[1:]) * 1e3
+        load_ms = statistics.median(out.loader_seconds[1:]) * 1e3
+        ok = (np.isfinite(rl).all() and np.isfinite(dl).all()
+              and rl[-1] < rl[0] and len(rl) == TRAIN_STEPS
+              and launches[-1] > 0 and SS.segment_sum.staged == staged)
+        log(f"[training] {tag}: {wall:.3f} s wall; step median "
+            f"{step_ms:.3f} ms (first {out.step_seconds[0] * 1e3:.3f} ms; "
+            f"all: {' '.join(f'{x * 1e3:.1f}' for x in out.step_seconds)}),"
+            f" loader median {load_ms:.3f} ms a batch apart (first "
+            f"{out.loader_seconds[0] * 1e3:.3f}); render loss {rl[0]:.5f} "
+            f"-> {rl[-1]:.5f}, diffusion loss {dl[0]:.5f} -> {dl[-1]:.5f}; "
+            f"segment_sum {launches[-1]} launches "
+            f"({launches[-1] / TRAIN_STEPS:.2f} a step) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {tag} training run failed its "
+                                 f"checks")
+        runs.append(out)
+    peak = torch.cuda.max_memory_allocated()
+    a, b = runs
+    same = dict(
+        codes=all(np.array_equal(getattr(a.cache, k), getattr(b.cache, k))
+                  for k in ("codes", "m", "v", "steps")),
+        **{k: all(bool(torch.equal(x, y)) for x, y in zip(
+            _leaves(a.trainer.state[k]), _leaves(b.trainer.state[k])))
+           for k in ("decoder", "decoder_opt", "denoiser", "denoiser_opt")},
+        ema=all(bool(torch.equal(x, y)) for x, y in zip(_leaves(a.ema),
+                                                         _leaves(b.ema))))
+    log(f"[training] peak memory allocated {peak / 2**30:.3f} GiB; the two "
+        f"runs of one seed bit-equal: {same}")
+    if not all(same.values()):
+        raise AssertionError("two training runs of one seed differ")
+    # stage 1, then stage 2 warm-started from its cache
+    s1 = train(cfgs["stage1"], "train_stages", "--max-iters", "2")
+    s2 = train(cfgs["stage2"], "train_stages", "--max-iters", "2")
+    touched = s1.cache.steps > 0
+    ok = ("denoiser" not in s1.trainer.state and touched.any()
+          and bool((s2.cache.steps[touched] >= 1).all())
+          and (s2.cache.steps > s1.cache.steps).any()
+          and np.isfinite([m["loss_render"] for m in s1.metrics
+                           + s2.metrics]).all())
+    log(f"[training] stage 1 (2 steps, render loss "
+        f"{s1.metrics[-1]['loss_render']:.5f}) then stage 2 warm-started "
+        f"from its cache (2 steps, diffusion loss "
+        f"{s2.metrics[-1]['loss_diffusion']:.5f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the two-stage run failed its checks")
+    # resume the first run with the eval hook on
+    res = train(cfg, "train_first", "--resume", "--max-iters",
+                str(TRAIN_STEPS + 2), "--eval-interval", "2",
+                "--eval-scenes", str(TRAIN_EVAL_SCENES))
+    with open(os.path.join(tmp, "train_first", "eval.jsonl")) as f:
+        evals = [json.loads(r) for r in f]
+    ok = (res.trainer.step == TRAIN_STEPS + 2 and len(res.metrics) == 2
+          and [r["step"] for r in evals] == [TRAIN_STEPS + 2] * 2
+          and all(np.isfinite(r["psnr"]) for r in evals)
+          and int(res.trainer.state["decoder_opt"]["count"])
+          == TRAIN_STEPS + 2)
+    log(f"[training] resume from step {TRAIN_STEPS} to {TRAIN_STEPS + 2} "
+        f"with the eval hook: PSNR {evals[-1]['psnr']:.3f} on view 0 of "
+        f"{TRAIN_EVAL_SCENES} scenes {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the resumed run failed its checks")
+    # the recons eval: val_optim on view 0, PSNR / SSIM on view 1
+    make, walls = MS.make_val_optim, []
+
+    def timed_make(*a, **k):
+        fn = make(*a, **k)
+
+        def run(*a2, **k2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a2, **k2)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return run
+    MS.make_val_optim = timed_make
+    SS.segment_sum.launches = 0
+    try:
+        got = test_ssdnerf.main(["--config", cfg, "--data", data,
+                                 "--work-dir", os.path.join(tmp,
+                                                            "train_first"),
+                                 "--device", DEV, "--num-scenes",
+                                 str(TRAIN_EVAL_SCENES), "--recons-views",
+                                 "1"])
+    finally:
+        MS.make_val_optim = make
+    ok = (got["scenes"] == TRAIN_EVAL_SCENES and np.isfinite(got["psnr"])
+          and len(walls) == TRAIN_EVAL_SCENES
+          and SS.segment_sum.launches > 0)
+    log(f"[training] test_ssdnerf --recons-views 1: PSNR {got['psnr']:.3f},"
+        f" SSIM {got['ssim']:.4f} over {got['scenes']} scenes; val_optim "
+        f"(100 steps on {TRAIN_SIZE}^2 rays) "
+        f"{' / '.join(f'{w:.3f}' for w in walls)} s a scene; segment_sum "
+        f"{SS.segment_sum.launches} launches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the recons eval failed its checks")
+    return dict(segment=sum(launches), steps=2 * TRAIN_STEPS,
+                step_ms=statistics.median(a.step_seconds[1:]
+                                          + b.step_seconds[1:]) * 1e3,
+                peak_gib=peak / 2**30)
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -3346,10 +3617,15 @@ def main():
     unst = phase_tet_unstructured(runner, req_ctx)
     seg_launches += unst["segment"]
     seg_launches += phase_hash_grid(runner)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_training(runner, tmp)
+    seg_launches += train["segment"]
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
         f"requests, tet 256, the retex, superres, image-to-3D (v1.1 and "
-        f"v1.2) and text-to-3D requests, the unstructured tet grid and the "
-        f"hash grid (staged copies {SS.segment_sum.staged})")
+        f"v1.2) and text-to-3D requests, the unstructured tet grid, the "
+        f"hash grid and the two stage-2 training runs ({train['segment']} "
+        f"in {train['steps']} steps; staged copies "
+        f"{SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
                              "staged its inputs")
@@ -3385,6 +3661,7 @@ def main():
     rhot = next(r for r in raster_rows if r["case"] == RASTER_HOT)
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
     shot = next(r for r in seg_rows if r["case"] == SEGMENT_HOT)
+    tgrad = next(r for r in seg_rows if r["case"] == "triplane_grad")
     log(f"[kernels] times and bounds below at {HOT_SHAPE} "
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
         f"{FWD_HOT} (flash_fwd), {SEGMENT_HOT} (segment_sum: ms the whole "
@@ -3440,7 +3717,12 @@ def main():
          "kernel_ms": shot["kernel_ms"],
          "plain_ms": shot["plain_ms"], "bound_ms": shot["bound_ms"],
          "bound_by": shot["bound_by"],
-         "library_ms": shot["library_ms"]}]}))
+         "library_ms": shot["library_ms"],
+         "training": dict({k: tgrad[k] for k in (
+             "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+             launches=train["segment"], steps=train["steps"],
+             step_ms=train["step_ms"], peak_gib=train["peak_gib"])}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

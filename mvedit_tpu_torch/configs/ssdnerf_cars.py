@@ -10,18 +10,25 @@ blocks (GroupNorm(32) with flax's eps 1e-6, silu, 3x3 conv, a timestep
 projection, silu, 3x3 conv) and a conv back to 3 * C channels. Module
 names are the flax module's, so `torch_state_from_flax(params,
 "latent_denoiser")` bridges its params.
+
+`train_config` is the reference's training recipe (4 scenes a step, 40000
+iterations) and `build_denoiser(generator, device)` the seeded denoiser
+that `tools/train_ssdnerf.py` trains. The imports are absolute, so the
+training tools can load this file, or a copy of it, by its path.
 """
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.diffusion.layers import Conv, Dense
-from ..models.diffusion.norm import GroupNorm
-from ..models.diffusion.unet import timestep_embedding
-from ..models.ssdnerf import SSDNeRFConfig
-from ..models.triplane import TriPlaneConfig
-from ..models.volume_renderer import RenderConfig
+from mvedit_tpu_torch.models.diffusion.layers import Conv, Dense
+from mvedit_tpu_torch.models.diffusion.norm import GroupNorm
+from mvedit_tpu_torch.models.diffusion.unet import timestep_embedding
+from mvedit_tpu_torch.models.ssdnerf import SSDNeRFConfig
+from mvedit_tpu_torch.models.triplane import TriPlaneConfig
+from mvedit_tpu_torch.models.volume_renderer import RenderConfig
 
-__all__ = ["ssdnerf_config", "LatentDenoiser"]
+__all__ = ["ssdnerf_config", "train_config", "LatentDenoiser",
+           "build_denoiser"]
 
 ssdnerf_config = SSDNeRFConfig(
     code_shape=(3, 12, 40, 40),
@@ -40,6 +47,13 @@ ssdnerf_config = SSDNeRFConfig(
     code_lr=0.04,
     decoder_lr=1e-3,
     denoiser_lr=1e-4,
+)
+
+train_config = dict(
+    batch_size=4,
+    max_iters=40000,       # stablessdnerf_cars_lpips.py:189 total_iters
+    log_interval=50,
+    ckpt_interval=2000,
 )
 
 
@@ -72,3 +86,14 @@ class LatentDenoiser(nn.Module):
             r = r + getattr(self, f"tproj{i}")(temb)[:, :, None, None]
             h = h + getattr(self, f"conv{i}b")(F.silu(r))
         return self.conv_out(h).reshape(B, P, C, H, W)
+
+
+def build_denoiser(generator=None, device=None):
+    """The `LatentDenoiser` at the config's widths on `device`, seeded from
+    `generator` (flax's defaults: weights N(0, 1/fan_in), biases 0, norm
+    weights 1)."""
+    from mvedit_tpu_torch.apis.runner import init_random_
+    with torch.device(device or "cpu"):
+        net = LatentDenoiser()
+    with torch.no_grad():
+        return init_random_(net, generator)

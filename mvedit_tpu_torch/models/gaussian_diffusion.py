@@ -6,7 +6,9 @@ over trailing timesteps (or the Karras table), CFG on a doubled batch,
 x0-space gradient guidance and a Langevin corrector. The denoiser is any
 callable `(x, t_vec, cond) -> out`. The random draws are inputs: the
 initial noise and the corrector's draws are given, or drawn from a
-`torch.Generator`. The training loss waits for the training slice.
+`torch.Generator`. `training_loss` is SSDNeRF's diffusion loss: the
+v-prediction (or epsilon) MSE per sample, weighted by (1 - acp[t])^p and
+the weights rescaled to a mean of 1 over the batch.
 """
 from dataclasses import dataclass
 
@@ -16,7 +18,7 @@ import torch
 from .diffusion import schedulers as S
 
 __all__ = ["GaussianDiffusionConfig", "q_sample", "v_target",
-           "sample_from_noise"]
+           "training_loss", "sample_from_noise"]
 
 
 @dataclass(frozen=True)
@@ -36,6 +38,25 @@ def v_target(schedule: S.NoiseSchedule, x0, noise, t):
     sa, sn = schedule.sqrt_acp(t)
     shape = (-1,) + (1,) * (x0.dim() - 1)
     return sa.reshape(shape) * noise - sn.reshape(shape) * x0
+
+
+def training_loss(schedule, denoise_fn, x0, t, noise, cond=None,
+                  cfg: GaussianDiffusionConfig = GaussianDiffusionConfig()):
+    """Scalar loss: the denoiser's output on q_sample(x0, noise, t) against
+    v (or noise), the per-sample MSE weighted by (1 - acp[t])^p and the
+    weights divided by their batch mean (clipped at 1e-8). t: (B,)
+    integer tensor; denoise_fn(x_t, t, cond) -> out."""
+    xt = q_sample(schedule, x0, noise, t)
+    out = denoise_fn(xt, t, cond)
+    if cfg.prediction_type == "v_prediction":
+        target = v_target(schedule, x0, noise, t)
+    else:
+        target = noise
+    mse = ((out - target) ** 2).mean(tuple(range(1, x0.dim())))
+    acp = torch.as_tensor(schedule.acp32(), device=x0.device)[t.long()]
+    w = (1.0 - acp) ** cfg.timestep_weight_power
+    w = w / w.mean().clamp(min=1e-8)
+    return (mse * w).mean()
 
 
 def _timesteps(schedule, num_steps, use_karras):

@@ -9,7 +9,8 @@ of `mvedit_tpu/models/mesh/texture.py`).
   per-view weights. Its sums go through `ops/segment.py::segment_add`, so
   that the card adds them in a fixed order.
 
-Forward only, as `ops/grid_sample.py` is.
+No path differentiates the texture sampling (`ops/grid_sample.py` would
+then take its fixed-order gather path).
 """
 import torch
 

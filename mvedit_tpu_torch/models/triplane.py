@@ -13,10 +13,14 @@ upsampler (counterpart of `mvedit_tpu/models/triplane.py`).
 - `VAEDecoderPreproc`: 12ch 40x40 -> 48ch 80x80 per plane.
 
 Parameters are dicts of tensors in the JAX pytree's layout
-(`triplane_params_from_flax` bridges them). The code is sampled forward
-only (`ops.grid_sample.grid_sample_2d`): no path differentiates the code
-or the points, and torch's grid-sample backward adds atomically on the
-card. Gradients reach the MLPs and the hash table.
+(`triplane_params_from_flax` bridges them). The code is sampled by
+`ops.grid_sample.grid_sample_2d`: where the code (SSDNeRF's training,
+`val_guide`, `val_optim`) or the points need a gradient, its corners go
+through one gather whose backward is the fixed-order segment sum, so one
+seed gives one result on the card; elsewhere (sampling, the distillation,
+the hybrid) it is `F.grid_sample`. A batch of codes (B, 3, C, H, W) with
+points (B, P, 3) samples each scene's code at its own points in that one
+gather.
 """
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
@@ -88,12 +92,19 @@ def _silu(x):
 
 
 def _triplane_features(code, xyz, cfg: TriPlaneConfig):
-    """(P, C * 3) features, channel-major (the reference's permute)."""
-    P = xyz.shape[0]
-    sampled = grid_sample_2d(code.float(), _plane_coords(xyz, cfg)[:, None],
+    """code (3, C, H, W), xyz (P, 3) -> (P, C * 3) features, channel-major
+    (the reference's permute); a batch, code (B, 3, C, H, W) and xyz (B,
+    P, 3), -> (B, P, C * 3)."""
+    if code.dim() == 4:
+        return _triplane_features(code[None], xyz[None], cfg)[0]
+    B, _, C, H, W = code.shape
+    P = xyz.shape[1]
+    grid = _plane_coords(xyz, cfg).transpose(0, 1)        # (B, 3, P, 2)
+    sampled = grid_sample_2d(code.float().reshape(B * 3, C, H, W),
+                             grid.reshape(B * 3, 1, P, 2),
                              padding_mode="border",
-                             align_corners=False)          # (3, C, 1, P)
-    return sampled[:, :, 0].permute(2, 1, 0).reshape(P, -1)
+                             align_corners=False)          # (3B, C, 1, P)
+    return sampled.reshape(B, 3, C, P).permute(0, 3, 2, 1).reshape(B, P, -1)
 
 
 def _decode_heads(params, feat, dirs, cfg: TriPlaneConfig, density_only):
@@ -116,7 +127,8 @@ def _decode_heads(params, feat, dirs, cfg: TriPlaneConfig, density_only):
 def triplane_point_decode(params, code, xyz, dirs, cfg: TriPlaneConfig,
                           density_only=False):
     """code: (3, C, H, W); xyz: (P, 3); dirs: (P, 3) or None -> (sigma
-    (P,), rgb (P, 3) or None with `density_only`)."""
+    (P,), rgb (P, 3) or None with `density_only`); or a batch of scenes:
+    code (B, 3, C, H, W), xyz and dirs (B, P, 3) -> (B, P), (B, P, 3)."""
     return _decode_heads(params, _triplane_features(code, xyz, cfg), dirs,
                          cfg, density_only)
 

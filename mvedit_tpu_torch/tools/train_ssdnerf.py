@@ -1,0 +1,231 @@
+"""SSDNeRF training CLI (counterpart of `tools/train_ssdnerf.py`).
+
+  python -m mvedit_tpu_torch.tools.train_ssdnerf \\
+      --config mvedit_tpu_torch/configs/ssdnerf_cars.py \\
+      --data /path/to/srn_cars --work-dir work_dirs/cars
+
+The config module gives `ssdnerf_config`, `train_config` and, unless
+`train_config["no_diffusion"]` (stage 1), `build_denoiser(generator,
+device)`. `train_config` keys: batch_size, max_iters, log_interval,
+ckpt_interval, init_scene_cache (a stage-1 cache to warm-start from),
+cache_dtype, cache_backend ("filesystem": one file a scene under
+`work_dir/code`, num_file_writers threads), num_train_imgs, patch_size,
+use_lpips, lpips_weight. The run ends with `scene_cache.npz` (or the
+filesystem cache's `steps.npz`) in the work dir; `--resume` reloads the
+last checkpoint, its EMA and that cache. Runs on the card unless
+`--device cpu`.
+"""
+import argparse
+import importlib.util
+import os
+import time
+import types
+
+import numpy as np
+import torch
+
+__all__ = ["load_config", "main"]
+
+
+def load_config(path):
+    spec = importlib.util.spec_from_file_location("config", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--data", required=True)
+    ap.add_argument("--work-dir", default="work_dirs/ssdnerf")
+    ap.add_argument("--max-iters", type=int, default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval-interval", type=int, default=0,
+                    help="N>0: log held-out PSNR every N iters")
+    ap.add_argument("--eval-scenes", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def _make_cache(args, cfg, train_cfg, n_scenes, device):
+    from ..models.ssdnerf import FileSceneCodeCache, SceneCodeCache
+    init_cache = train_cfg.get("init_scene_cache")
+    cache_dtype = train_cfg.get("cache_dtype", "float16")
+    if train_cfg.get("cache_backend") == "filesystem":
+        code_dir = os.path.join(args.work_dir, "code")
+        writers = train_cfg.get("num_file_writers", 4)
+        if init_cache or (args.resume and os.path.exists(
+                os.path.join(code_dir, "steps.npz"))):
+            cache = FileSceneCodeCache.load(init_cache or code_dir,
+                                            num_file_writers=writers,
+                                            device=device)
+            print(f"loaded filesystem scene-code cache "
+                  f"({cache.num_scenes} scenes)")
+            return cache
+        return FileSceneCodeCache(n_scenes, cfg.latent_shape, code_dir,
+                                  dtype=cache_dtype,
+                                  num_file_writers=writers, device=device)
+    own = os.path.join(args.work_dir, "scene_cache.npz")
+    path = own if args.resume and os.path.exists(own) else init_cache
+    if path:
+        if not os.path.isabs(path):
+            path = os.path.join(args.work_dir, path)
+        print(f"loaded scene-code cache from {path}")
+        return SceneCodeCache.load(path, device=device)
+    return SceneCodeCache(n_scenes, cfg.latent_shape, dtype=cache_dtype,
+                          device=device)
+
+
+def make_eval_fn(dataset, cache, cfg, n_scenes, device):
+    """eval_fn(state, step) -> {"psnr"}: view 0 of the first scenes,
+    rendered from their cached codes and the state's decoder."""
+    from ..models.ssdnerf import tanh_code
+    from ..models.triplane import triplane_point_decode
+    from ..models.volume_renderer import render_rays
+    from ..utils.evaluation import eval_psnr
+    from ..utils.geometry import get_ray_directions, get_rays
+
+    @torch.no_grad()
+    def eval_fn(state, step):
+        psnrs = []
+        for i in range(min(n_scenes, len(dataset))):
+            scene = dataset[i]
+            code = tanh_code(torch.as_tensor(
+                np.asarray(cache.get_code(i), np.float32), device=device))
+            h, w = scene["hw"]
+            pose = torch.as_tensor(scene["poses"][:1], device=device)
+            intr = torch.as_tensor(scene["intrinsics"][:1], device=device)
+            ro, rd = get_rays(get_ray_directions(h, w, intr), pose,
+                              norm=True)
+
+            def decode(x):
+                s, c = triplane_point_decode(state["decoder"], code,
+                                             x.reshape(-1, 3), None,
+                                             cfg.triplane)
+                return s.reshape(x.shape[:-1]), c.reshape(*x.shape[:-1], 3)
+            out = render_rays(decode, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                              cfg.render, bg_color=1.0)
+            img = out["rgb"].reshape(h, w, 3).cpu().numpy()
+            psnrs.append(float(eval_psnr(img[None],
+                                         scene["images"][:1])[0]))
+        return {"psnr": float(np.mean(psnrs))}
+    return eval_fn
+
+
+def main(argv=None):
+    """Trains; returns a namespace of the trainer, the cache, the EMA, each
+    step's metrics (floats) and the per-step host times of the loader and
+    of the step (the latter ends in the cache's copy to the host, which
+    waits for the device)."""
+    args = parse_args(argv)
+    from ..datasets import ShapeNetSRN, ray_batch_iterator
+    from ..models.diffusion import schedulers as S
+    from ..models.ssdnerf import (adam_init, make_train_step,
+                                  module_apply, module_params)
+    from ..models.triplane import triplane_init
+    from ..runner.trainer import (CheckpointHook, EmaHook, EvalHook,
+                                  LogHook, Trainer)
+
+    device = torch.device(args.device)
+    cfg_mod = load_config(args.config)
+    cfg = cfg_mod.ssdnerf_config
+    train_cfg = cfg_mod.train_config
+    dataset = ShapeNetSRN(args.data,
+                          caption_path=getattr(cfg_mod, "captions", None))
+    print(f"dataset: {len(dataset)} scenes")
+    cache = _make_cache(args, cfg, train_cfg, len(dataset), device)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    schedule = S.sd_schedule(prediction_type="v_prediction")
+    with_diffusion = not train_cfg.get("no_diffusion", False)
+    decoder = triplane_init(cfg.triplane, gen, device)
+    state = {"decoder": decoder, "decoder_opt": adam_init(decoder)}
+    denoise_apply = None
+    if with_diffusion:
+        net = cfg_mod.build_denoiser(gen, device)
+        denoise_apply = module_apply(net)
+        state["denoiser"] = module_params(net)
+        state["denoiser_opt"] = adam_init(state["denoiser"])
+    lpips_params = None
+    if train_cfg.get("use_lpips"):
+        from ..models.losses import lpips_init
+        lpips_params = lpips_init(
+            torch.Generator(device=device).manual_seed(7), device)
+    step_fn = make_train_step(denoise_apply, cfg.triplane, cfg, schedule,
+                              with_diffusion=with_diffusion,
+                              lpips_params=lpips_params,
+                              lpips_weight=train_cfg.get("lpips_weight",
+                                                         1.2),
+                              patch_size=train_cfg.get("patch_size"))
+    start, ema = 0, None
+    if args.resume:
+        restored, start = CheckpointHook.load(args.work_dir, device=device)
+        if restored:
+            ema = restored.pop("ema", None)
+            state.update(restored)
+            print(f"resumed from step {start}")
+
+    data = ray_batch_iterator(dataset, train_cfg["batch_size"], cfg.n_rays,
+                              seed=args.seed, skip_iter=start,
+                              num_train_imgs=train_cfg.get("num_train_imgs"),
+                              patch_size=train_cfg.get("patch_size"))
+    cond_fn = getattr(cfg_mod, "make_cond_fn", None)
+    cond_fn = cond_fn() if cond_fn else None
+    times = types.SimpleNamespace(loader=[], step=[], metrics=[])
+
+    def timed_batches():
+        while True:
+            t0 = time.perf_counter()
+            batch = next(data)
+            times.loader.append(time.perf_counter() - t0)
+            yield batch
+
+    def wrapped_step(state, batch, generator):
+        t0 = time.perf_counter()
+        ids = batch.pop("scene_ids")
+        caps = batch.pop("captions", None)
+        batch = {k: v.to(device) if torch.is_tensor(v) else v
+                 for k, v in batch.items()}
+        if cond_fn is not None and caps is not None:
+            batch["cond"] = cond_fn(caps)
+        codes, m, v, steps = cache.gather(ids)
+        state = dict(state, codes=codes, code_m=m, code_v=v,
+                     code_steps=steps)
+        state, metrics = step_fn(state, batch, generator)
+        cache.scatter(ids, state.pop("codes"), state.pop("code_m"),
+                      state.pop("code_v"), state.pop("code_steps"))
+        times.step.append(time.perf_counter() - t0)
+        times.metrics.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+
+    ema_hook = EmaHook(keys=("denoiser",), interval=1) \
+        if with_diffusion else None
+    if ema_hook is not None and ema is not None:
+        ema_hook.ema = ema
+    hooks = [
+        *([ema_hook] if ema_hook else []),
+        LogHook(args.work_dir, interval=train_cfg.get("log_interval", 50)),
+        CheckpointHook(args.work_dir,
+                       interval=train_cfg.get("ckpt_interval", 2000)),
+    ]
+    if args.eval_interval:
+        hooks.append(EvalHook(make_eval_fn(dataset, cache, cfg,
+                                           args.eval_scenes, device),
+                              args.work_dir, interval=args.eval_interval))
+    trainer = Trainer(wrapped_step, state, timed_batches(), hooks,
+                      generator=gen)
+    trainer.step = start
+    trainer.run(args.max_iters or train_cfg["max_iters"])
+    cache.save(os.path.join(args.work_dir, "scene_cache.npz"))
+    print("done")
+    return types.SimpleNamespace(trainer=trainer, cache=cache,
+                                 ema=ema_hook and ema_hook.ema,
+                                 metrics=times.metrics,
+                                 loader_seconds=times.loader,
+                                 step_seconds=times.step)
+
+
+if __name__ == "__main__":
+    main()

@@ -40,8 +40,13 @@ Tolerances:
   bit-equal parameters, without and with
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
   no deterministic algorithm on the card); two tiny Zero123++ v1.2 RGB +
-  normal passes and their postprocess, two SAM refinements, and two tiny
-  text-to-3D requests, from one seed are bit-equal.
+  normal passes and their postprocess, two SAM refinements, two tiny
+  text-to-3D requests, and three full-width SSDNeRF training steps (also
+  under `use_deterministic_algorithms`), from one seed are bit-equal.
+- SSDNeRF training's code gradient: the segment sum at a step's own
+  targets (the checks above); `grid_sample_2d`'s values and gradients on
+  the card within 1e-5 relative (L2) of the CPU's (sums in another
+  order).
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
@@ -822,3 +827,121 @@ def test_one_seed_gives_one_text_to_3d(cuda, monkeypatch, flag):
         field_leaves(a["nerf_params"]), field_leaves(b["nerf_params"])))
     for k in ("v", "f", "albedo"):
         assert np.array_equal(getattr(a["mesh"], k), getattr(b["mesh"], k))
+
+
+def _triplane_rays(device, B=4, R=4096, seed=0):
+    """B scenes x R rays of SRN cars' rig (cameras on a sphere of radius
+    1.3 at focal 131.25 and 128^2, as the loader makes the rays)."""
+    import numpy as np
+    from mvedit_tpu_torch.datasets.loader import pixel_rays
+    from mvedit_tpu_torch.utils import camera as cu
+    rng = np.random.default_rng(seed)
+    poses = cu.get_pose_from_angles(rng.uniform(0, 6.283, 50),
+                                    rng.uniform(-0.2, 1.2, 50), 1.3)[:, :3]
+    intr = np.tile(np.array([131.25, 131.25, 64, 64], np.float32), (50, 1))
+    vi = rng.integers(0, 50, B * R)
+    yi, xi = rng.integers(0, 128, (2, B * R))
+    o, d = pixel_rays(poses, intr, vi, yi, xi, (128, 128))
+    return (torch.as_tensor(o, device=device).reshape(B, R, 3),
+            torch.as_tensor(d, device=device).reshape(B, R, 3))
+
+
+def test_segment_sum_triplane_grad(cuda):
+    """SSDNeRF training's code gradient at a step's own targets (4 scenes
+    x 4096 rays x 96 samples x 3 planes x 4 corners into 4 x 3 x 40 x 40
+    texels, 12 f32): the kernel's checks above."""
+    from mvedit_tpu_torch.configs.ssdnerf_cars import ssdnerf_config as cfg
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    from mvedit_tpu_torch.models.triplane import _plane_coords
+    from mvedit_tpu_torch.models.volume_renderer import sample_rays
+    from mvedit_tpu_torch.ops.grid_sample import corner_rows
+    ro, rd = _triplane_rays(cuda)
+    xyz = sample_rays(ro, rd, cfg.render)[0].reshape(4, -1, 3)
+    grid = _plane_coords(xyz, cfg.triplane).transpose(0, 1)
+    idx, _ = corner_rows(grid.reshape(12, -1, 2), (40, 40), "border")
+    idx = idx.reshape(-1)
+    assert idx.dtype == torch.int32 and idx.shape[0] == 4 * 4096 * 96 * 12
+    g = torch.Generator(device=cuda).manual_seed(1)
+    vals = torch.randn((idx.shape[0], 12), generator=g, device=cuda)
+    _check_segment_sum(KS, idx, vals, 4 * 3 * 40 * 40)
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_grid_sample_2d_gradient_on_card_matches_cpu(cuda, padding):
+    """`grid_sample_2d`'s values and its gradients to the input (the
+    segment-sum kernel on the card, an in-order float32 `index_add` on the
+    CPU) and to the grid at the triplane's shapes: within 1e-5 relative
+    (L2) of the CPU's; the rows' sums differ in order only."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    from mvedit_tpu_torch.ops.grid_sample import grid_sample_2d
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((3, 12, 40, 40), generator=g)
+    grid = torch.rand((3, 1, 200000, 2), generator=g) * 2.2 - 1.1
+    w = torch.randn((3, 12, 1, 200000), generator=g)
+
+    def run(dev):
+        xs = x.to(dev).requires_grad_(True)
+        gs = grid.to(dev).requires_grad_(True)
+        out = grid_sample_2d(xs, gs, padding, False)
+        (out * w.to(dev)).sum().backward()
+        return [t.detach().cpu() for t in (out, xs.grad, gs.grad)]
+    before = KS.segment_sum.launches
+    card = run(cuda)
+    assert KS.segment_sum.launches == before + 1
+    for a, b in zip(card, run("cpu")):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+def _train_steps(cuda, n_steps=3):
+    """`n_steps` of the cars recipe's stage-2 step at full width (4 scenes
+    x 4096 rays x 96 samples, the (3, 12, 40, 40) code, the 128-wide
+    denoiser) from seed 0 -> the state's tensors."""
+    from mvedit_tpu_torch.configs.ssdnerf_cars import (build_denoiser,
+                                                       ssdnerf_config as cfg)
+    from mvedit_tpu_torch.models import ssdnerf as MS
+    from mvedit_tpu_torch.models.diffusion import schedulers as S
+    from mvedit_tpu_torch.models.triplane import triplane_init
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    decoder = triplane_init(cfg.triplane, gen, cuda)
+    net = build_denoiser(gen, cuda)
+    params = MS.module_params(net)
+    codes = torch.randn((4, *cfg.latent_shape), generator=gen,
+                        device=cuda) * 0.3
+    state = {"decoder": decoder, "decoder_opt": MS.adam_init(decoder),
+             "denoiser": params, "denoiser_opt": MS.adam_init(params),
+             "codes": codes, "code_m": torch.zeros_like(codes),
+             "code_v": torch.zeros_like(codes),
+             "code_steps": torch.zeros(4, dtype=torch.int32, device=cuda)}
+    step = MS.make_train_step(MS.module_apply(net), cfg.triplane, cfg,
+                              S.sd_schedule(prediction_type="v_prediction"))
+    ro, rd = _triplane_rays(cuda)
+    rgb = torch.rand((4, 4096, 3), generator=gen, device=cuda)
+    for _ in range(n_steps):
+        state, metrics = step(state, {"rays_o": ro, "rays_d": rd,
+                                      "rgb": rgb, "cond": None}, gen)
+    return MS.tree_leaves({k: v for k, v in state.items()
+                           if not k.endswith("_opt")}) + [
+        metrics["loss_render"], metrics["loss_diffusion"]]
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_one_seed_gives_one_training_run(cuda, monkeypatch, flag):
+    """Three full-width SSDNeRF stage-2 steps, twice from one seed: codes,
+    moments, decoder, denoiser and losses bit-equal, without and with
+    `torch.use_deterministic_algorithms(True)`; one segment sum a step."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    if flag:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(flag)
+    try:
+        before, staged = KS.segment_sum.launches, KS.segment_sum.staged
+        a = _train_steps(cuda)
+        b = _train_steps(cuda)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert KS.segment_sum.launches == before + 6
+    assert KS.segment_sum.staged == staged
+    assert all(torch.isfinite(x).all() for x in a)
+    assert [torch.equal(x, y) for x, y in zip(a, b)] == [True] * len(a)

@@ -4,9 +4,11 @@ package, on the CPU in fp32.
 - `grid_sample_2d` (bilinear; zeros and border padding; both
   `align_corners`), on a grid that reaches past [-1, 1]: within 4e-6 of
   the reference's gathers and lerps on N(0, 1) texels (a few float32
-  ulps: the port calls `F.grid_sample`, which forms the four weights
-  another way and clamps the coordinate, not the index, at a border).
-  It refuses a gradient (its backward adds atomically on the card).
+  ulps: without a gradient the port calls `F.grid_sample`, which forms
+  the four weights another way and clamps the coordinate, not the index,
+  at a border). With a gradient asked for it takes the reference's
+  gathers and lerps (no atomic backward): the same values within 4e-6
+  and a gradient that sums each sample's weights (1 inside the input).
 - `build_mipmaps` within 1e-6; `_sample_level` and `sample_texture` (four
   levels, the level from `uv_screen_derivatives` of a uv map, both within
   1e-5 of the reference; a level's fraction comes from a log2 of the
@@ -57,14 +59,26 @@ def test_grid_sample_2d_matches_jax(padding, align):
 
 
 def test_grid_sample_2d_is_forward_only():
-    img = torch.zeros((1, 1, 4, 4), requires_grad=True)
-    grid = torch.zeros((1, 2, 2, 2))
+    """Named for the forward-only op it was: `F.grid_sample` serves only
+    the calls that ask for no gradient; one that asks takes the gather
+    path, with the same values and the input's gradient summed through
+    `ops/segment.py`; an unsupported padding mode raises either way."""
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn((1, 1, 4, 4), generator=g).requires_grad_(True)
+    grid = torch.rand((1, 2, 2, 2), generator=g) - 0.5
+    out = t_gs(img, grid)
+    with torch.no_grad():
+        ref = t_gs(img, grid)
+    assert out.shape == ref.shape == (1, 1, 2, 2)
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(),
+                               atol=GS_TOL, rtol=0)
+    out.sum().backward()
+    # every corner of a sample inside the input has weight: they sum to 1
+    assert float(img.grad.sum()) == pytest.approx(4.0, abs=1e-6)
     with pytest.raises(ValueError):
-        t_gs(img, grid)
+        t_gs(img, grid, padding_mode="reflection")
     with pytest.raises(ValueError):
         t_gs(img.detach(), grid, padding_mode="reflection")
-    with torch.no_grad():
-        assert t_gs(img, grid).shape == (1, 1, 2, 2)
 
 
 def _texture_and_uv(seed=1):

@@ -275,3 +275,43 @@ class JaxTextTo3DDraws(JaxDraws):
         self.distill_key, k = jax.random.split(self.distill_key)
         return _t(jax.random.uniform(k, (n, 3), minval=-bound,
                                      maxval=bound)).to(device)
+
+
+def ssdnerf_step_draws(key, batch, code_shape, num_train_timesteps=1000):
+    """`mvedit_tpu/models/ssdnerf.py::make_train_step`'s draws from the
+    step's key: k1 -> t (B,), k2 -> the noise over the codes."""
+    k1, k2 = jax.random.split(key)
+    return {"t": _t(jax.random.randint(k1, (batch,), 0,
+                                       num_train_timesteps)),
+            "noise": _t(jax.random.normal(k2, (batch, *code_shape)))}
+
+
+def ssdnerf_trainer_keys(key, n_steps):
+    """The step keys of `mvedit_tpu/runner/trainer.py::Trainer.run`: the
+    trainer's key split before every step."""
+    out = []
+    for _ in range(n_steps):
+        key, k = jax.random.split(key)
+        out.append(k)
+    return out
+
+
+def val_guide_noise(key, shape):
+    """`sample_from_noise`'s initial x: the second half of its first
+    split."""
+    _, k0 = jax.random.split(key)
+    return _t(jax.random.normal(k0, shape))
+
+
+def val_optim_draws(key, n_steps, batch, code_shape,
+                    num_train_timesteps=1000):
+    """`make_val_optim`'s prior draws: one key a step, split into t and the
+    noise -> {"t": (n_steps, B), "noise": (n_steps, B, *code_shape)}."""
+    ts, noises = [], []
+    for k in jax.random.split(key, n_steps):
+        k1, k2 = jax.random.split(k)
+        ts.append(np.asarray(jax.random.randint(k1, (batch,), 0,
+                                                num_train_timesteps)))
+        noises.append(np.asarray(jax.random.normal(k2,
+                                                   (batch, *code_shape))))
+    return {"t": _t(np.stack(ts)), "noise": _t(np.stack(noises))}
