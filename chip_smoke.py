@@ -22,8 +22,10 @@ seeded random weights: the SD1.5 denoise, the DMTet mesh phase, whole
 requests with IP-Adapter, texture superres with an orbit video, whole
 image-to-3D requests (v1.1, and v1.2 with its generated normals), SAM,
 legacy Zero123, the unstructured tet grid, whole text-to-3D requests
-(direct and through the JSON server), the hash-grid field and SSDNeRF
-training through its CLIs.
+(direct and through the JSON server), the hash-grid field, SSDNeRF
+training through its CLIs (the cars recipe, StableSSDNeRF's LoRA recipe
+and the paper family) and the module-only ports (Inception, DDPMUNet,
+UNetVolume, the sparse-volume interpolation).
 
 1. device: the card's name and power limit (nvidia-smi); the stand-in
    tokenizer's ids of the smoke's prompts in two fresh processes with
@@ -47,8 +49,10 @@ training through its CLIs.
    vertex sums, a render's corner gather, the hash grid's levels 0 and 11
    at a NeRF step's samples, SSDNeRF training's code gradient at a step's
    own targets: the SRN rig's rays, 96 samples each, 3 planes x 4
-   corners into 4 x 3 x 40 x 40 texels of 12 f32) and at a NeRF-fit
-   step's own sample points
+   corners into 4 x 3 x 40 x 40 texels of 12 f32; in the LoRA recipe 8
+   scenes x a 32^2 patch into 8 x 3 x 40 x 40 texels of 4; in the paper
+   family 8 x 4096 rays into 8 x 3 x 128 x 128 texels of 6) and at a
+   NeRF-fit step's own sample points
    (rays of the rig, those that miss the box included): the same bits on
    two runs, the bits of its order rebuilt in plain PyTorch, the bf16
    output the f32 sum rounded once, and within the rounding of that order
@@ -177,15 +181,43 @@ training through its CLIs.
    segment-sum launches a step), a 2-step stage-1 run and a 2-step stage-2
    warm start from its cache, a resume of the first run with the eval
    hook, and `tools/test_ssdnerf.py --recons-views 1` on 2 scenes
-   (val_optim's wall time, PSNR and SSIM printed).
+   (val_optim's wall time, PSNR and SSIM printed);
+20. StableSSDNeRF training at full width (`mvedit_tpu_torch/configs/
+   stablessdnerf_cars_lpips.py`: the seeded SD2.1 UNet frozen, f32
+   weights and bf16 compute, a rank-32 LoRA on every attention
+   projection, the 1024-wide 23-layer CLIP on a seeded captions pickle, 8
+   scenes x one 32 x 32 patch x 96 samples, LPIPS 1.2) on phase 19's
+   dataset, cut in depth (6 of 100000 steps): `tools/train_ssdnerf.py`'s
+   `main` (what `python -m` runs) twice from one seed; the step and loader
+   medians, peak memory, the LoRA's parameter count and the render loss a
+   step; the state holds the LoRA alone, the frozen base is bit-equal to
+   its initial value, and the two runs are bit-equal (LoRA, codes,
+   decoder, optimizer states, EMA); then `tools/test_ssdnerf.py
+   --recons-views 1` on one scene (25 of 100 val_optim steps);
+21. the paper family at its (3, 6, 128, 128) code on phase 19's 8 scenes
+   (8 scenes x 4096 rays x 96 samples a step, 4 steps each):
+   `stage1_cars_recons16v_16bit_filesystem`, `ssdnerf_cars_recons1v`
+   (stack, twice from one seed: bit-equal) and
+   `ssdnerf_cars_recons1v_tiled` (ch 80, 16 groups); step and loader
+   medians, peak memory;
+22. the module-only ports on the card at their default widths, each held
+   to the same module on the CPU in f32 (TF32 off on the card for the
+   comparison): `InceptionV3Features` on 32 images of 299^2 (8 compared)
+   and `inception_stat` over phase 19's dataset; `DDPMUNet(DDPMUNetConfig
+   ())` forward and backward on a (2, 3, 12, 40, 40) code; `UNetVolume`
+   at its SD widths on a masked 32^3 volume and the masked
+   `ResnetBlockVolume(320)`; `spvolume_linear_interp` and
+   `neighbor_spvolume_linear_interp` on a 64^3 volume ~40% active (~10^5
+   voxels) at 2^20 points, with the gradients to the features and the
+   points. Wall time each; any non-finite output fails.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
 phase 10; each request and the video in phase 11; each request in phases
-12, 13 and 17; phase 16; each training run and the recons eval in phase
-19; the segment sum over phases 6-19): a kernel of
+12, 13 and 17; phase 16; each training run and the recons eval in phases
+19-21; the segment sum over phases 6-21): a kernel of
 a path with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
@@ -337,6 +369,13 @@ SEGMENT_CASES += [("distill_level0", 33 ** 3, 65536 * 8, 8, "bf16"),
 # texels, 12 f32 channels (the targets from `triplane_grad_targets`)
 SEGMENT_CASES += [("triplane_grad", 4 * 3 * 40 * 40, 4 * 4096 * 96 * 3 * 4,
                    12, "f32")]
+# the same sum in the StableSSDNeRF recipe (8 scenes x one 32 x 32 patch x
+# 96 samples into (8, 3, 40, 40) texels of 4 f32) and in the paper family
+# (8 scenes x 4096 rays x 96 samples into (8, 3, 128, 128) texels of 6)
+SEGMENT_CASES += [("triplane_grad_lora", 8 * 3 * 40 * 40,
+                   8 * 1024 * 96 * 3 * 4, 4, "f32"),
+                  ("triplane_grad_paper", 8 * 3 * 128 * 128,
+                   8 * 4096 * 96 * 3 * 4, 6, "f32")]
 SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
@@ -390,8 +429,14 @@ TRAIN_FOCAL = 131.25         # SRN cars' focal length at 128^2
 TRAIN_STEPS = 16             # of the recipe's 40000
 TRAIN_EVAL_SCENES = 2        # test_ssdnerf's scenes (of 8)
 KNOT_NU, KNOT_NV = 90, 10    # few enough faces a raster tile at 128^2
-TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "mvedit_tpu_torch", "configs", "ssdnerf_cars.py")
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "mvedit_tpu_torch", "configs")
+TRAIN_CONFIG = os.path.join(CONFIGS, "ssdnerf_cars.py")
+# phases 20-21: StableSSDNeRF's LoRA recipe and the paper family at full
+# width on phase 19's dataset, cut in depth (the recipes' 100000 / 80000)
+LORA_STEPS = 6
+LORA_RECONS_STEPS = 25       # val_optim's 100 in the recons eval
+PAPER_STEPS = 4
 HYBRID_POINTS = 1 << 18
 DEV = "cuda"
 TIMED_RUNS = 10
@@ -1165,25 +1210,42 @@ def srn_rig(n_views, rng):
     return poses.astype(np.float32), intr
 
 
-def triplane_grad_targets():
-    """The rows of a training step's code gradient: 4 scenes x 4096 rays
-    of the SRN rig's pixels (as the loader makes them), the renderer's 96
-    bin-centre samples in the 0.5 box (`sample_rays`), the planes'
-    coordinates (`_plane_coords`) and their 4 corners each
-    (`ops/grid_sample.py::corner_rows`, border padding) -> (18874368,)
-    int32 rows into the batch's 4 x 3 x 40 x 40 texels."""
-    from mvedit_tpu_torch.configs.ssdnerf_cars import (ssdnerf_config,
-                                                       train_config)
+TRIPLANE_CASES = {"triplane_grad": ("ssdnerf_cars", SEED + 19),
+                  "triplane_grad_lora": ("stablessdnerf_cars_lpips",
+                                         SEED + 20),
+                  "triplane_grad_paper": ("ssdnerf_cars_recons1v",
+                                          SEED + 21)}
+
+
+def triplane_grad_targets(name="triplane_grad"):
+    """The rows of a training step's code gradient in the recipe of
+    TRIPLANE_CASES[name]: its batch of scenes x its rays of the SRN rig's
+    pixels (scattered, or one patch a scene in the patch recipes, as the
+    loader draws them), the renderer's 96 bin-centre samples in the 0.5
+    box (`sample_rays`), the planes' coordinates (`_plane_coords`) and
+    their 4 corners each (`ops/grid_sample.py::corner_rows`, border
+    padding) -> int32 rows into the batch's B x 3 x H x W texels."""
     from mvedit_tpu_torch.datasets.loader import pixel_rays
     from mvedit_tpu_torch.models.triplane import _plane_coords
     from mvedit_tpu_torch.models.volume_renderer import sample_rays
     from mvedit_tpu_torch.ops.grid_sample import corner_rows
-    cfg = ssdnerf_config
-    B, R = train_config["batch_size"], cfg.n_rays
-    rng = np.random.default_rng(SEED + 19)
+    from mvedit_tpu_torch.tools.train_ssdnerf import load_config
+    config, seed = TRIPLANE_CASES[name]
+    mod = load_config(os.path.join(CONFIGS, config + ".py"))
+    cfg = mod.ssdnerf_config
+    B, R = mod.train_config["batch_size"], cfg.n_rays
+    ps = mod.train_config.get("patch_size")
+    rng = np.random.default_rng(seed)
     poses, intr = srn_rig(TRAIN_VIEWS, rng)
-    vi = rng.integers(0, TRAIN_VIEWS, B * R)
-    yi, xi = rng.integers(0, TRAIN_SIZE, (2, B * R))
+    if ps:
+        vi = np.repeat(rng.integers(0, TRAIN_VIEWS, B), R)
+        oy, ox = rng.integers(0, TRAIN_SIZE - ps + 1, (2, B))
+        gy, gx = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+        yi = (oy[:, None] + gy.reshape(1, -1)).reshape(-1)
+        xi = (ox[:, None] + gx.reshape(1, -1)).reshape(-1)
+    else:
+        vi = rng.integers(0, TRAIN_VIEWS, B * R)
+        yi, xi = rng.integers(0, TRAIN_SIZE, (2, B * R))
     o, d = pixel_rays(poses, intr, vi, yi, xi, (TRAIN_SIZE, TRAIN_SIZE))
     xyz = sample_rays(torch.as_tensor(o, device=DEV).reshape(B, R, 3),
                       torch.as_tensor(d, device=DEV).reshape(B, R, 3),
@@ -1215,7 +1277,7 @@ def segment_indices(name, R, n, gen):
         x01 = (u * (2 * tb) - tb + fb) / (2 * fb)
         return grid_corners(x01, round(R ** (1 / 3)) - 1), {}
     if name.startswith("triplane"):
-        idx = triplane_grad_targets()
+        idx = triplane_grad_targets(name)
         assert idx.shape[0] == n
         return idx, {}
     if name.startswith("nerf"):
@@ -3062,14 +3124,7 @@ def phase_training(runner, tmp):
         runs.append(out)
     peak = torch.cuda.max_memory_allocated()
     a, b = runs
-    same = dict(
-        codes=all(np.array_equal(getattr(a.cache, k), getattr(b.cache, k))
-                  for k in ("codes", "m", "v", "steps")),
-        **{k: all(bool(torch.equal(x, y)) for x, y in zip(
-            _leaves(a.trainer.state[k]), _leaves(b.trainer.state[k])))
-           for k in ("decoder", "decoder_opt", "denoiser", "denoiser_opt")},
-        ema=all(bool(torch.equal(x, y)) for x, y in zip(_leaves(a.ema),
-                                                         _leaves(b.ema))))
+    same = _same_runs(a, b)
     log(f"[training] peak memory allocated {peak / 2**30:.3f} GiB; the two "
         f"runs of one seed bit-equal: {same}")
     if not all(same.values()):
@@ -3144,6 +3199,354 @@ def phase_training(runner, tmp):
                 step_ms=statistics.median(a.step_seconds[1:]
                                           + b.step_seconds[1:]) * 1e3,
                 peak_gib=peak / 2**30)
+
+
+def _train_runs(train, config, work, steps, tag, runs=1):
+    """`runs` runs of `train_ssdnerf.main` from seed 0 with the segment
+    sums counted; each run's step / loader medians (its first step
+    apart), losses and launches printed. Returns the runs' outputs, their
+    launches and the peak memory over them."""
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    outs, launches = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(runs):
+        SS.segment_sum.launches = 0
+        t0 = time.perf_counter()
+        out = train(config, f"{work}_{r}", "--max-iters", str(steps))
+        wall = time.perf_counter() - t0
+        launches.append(SS.segment_sum.launches)
+        rl = [m["loss_render"] for m in out.metrics]
+        dl = [m.get("loss_diffusion", 0.0) for m in out.metrics]
+        step_ms = statistics.median(out.step_seconds[1:]) * 1e3
+        load_ms = statistics.median(out.loader_seconds[1:]) * 1e3
+        ok = (np.isfinite(rl).all() and np.isfinite(dl).all()
+              and len(rl) == steps and launches[-1] > 0)
+        log(f"[{tag}] run {r + 1}: {wall:.3f} s wall; step median "
+            f"{step_ms:.3f} ms (first {out.step_seconds[0] * 1e3:.3f}; all "
+            f"{' '.join(f'{x * 1e3:.1f}' for x in out.step_seconds)}), "
+            f"loader median {load_ms:.3f} ms a batch (first "
+            f"{out.loader_seconds[0] * 1e3:.3f}); render loss a step "
+            f"{' '.join(f'{x:.5f}' for x in rl)}; diffusion loss "
+            f"{' '.join(f'{x:.5f}' for x in dl)}; segment_sum "
+            f"{launches[-1]} launches {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: run {r + 1} failed its checks")
+        outs.append(out)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] peak memory allocated {peak / 2**30:.3f} GiB")
+    return outs, launches, peak
+
+
+def _same_runs(a, b):
+    """Bit-equality of two stage-2 runs' code caches (codes, moments,
+    steps), decoders, denoisers, their optimizer states and EMAs."""
+    return dict(
+        codes=all(np.array_equal(getattr(a.cache, k), getattr(b.cache, k))
+                  for k in ("codes", "m", "v", "steps")),
+        **{k: all(bool(torch.equal(x, y)) for x, y in zip(
+            _leaves(a.trainer.state[k]), _leaves(b.trainer.state[k])))
+           for k in ("decoder", "decoder_opt", "denoiser", "denoiser_opt")},
+        ema=all(bool(torch.equal(x, y)) for x, y in zip(_leaves(a.ema),
+                                                         _leaves(b.ema))))
+
+
+def phase_stablessdnerf(tmp):
+    """StableSSDNeRF training at full width (`mvedit_tpu_torch/configs/
+    stablessdnerf_cars_lpips.py`: the seeded SD2.1 UNet frozen with a
+    rank-32 LoRA, the 23-layer 1024-wide CLIP on seeded captions, 8 scenes
+    x one 32 x 32 patch x 96 samples with LPIPS) on phase 19's dataset,
+    through `tools/train_ssdnerf.main` (what `python -m` runs) twice from
+    one seed, then one `tools/test_ssdnerf` recons eval. Returns the
+    segment-sum launches and the step / peak numbers."""
+    import pickle
+
+    from mvedit_tpu_torch.configs import stablessdnerf_cars_lpips as S
+    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.tools import test_ssdnerf, train_ssdnerf
+    data = os.path.join(tmp, "srn")
+    rng = np.random.default_rng(SEED + 20)
+    words = ["red", "blue", "silver", "old", "sports", "pickup", "convertible",
+             "station", "wagon", "racing", "car", "truck", "with", "stripes"]
+    caps = {f"scene_{s:04d}": " ".join(rng.choice(words, 6))
+            for s in range(TRAIN_SCENES)}
+    cap_path = os.path.join(tmp, "captions.pkl")
+    with open(cap_path, "wb") as f:
+        pickle.dump(caps, f)
+    cfg = os.path.join(tmp, "stablessdnerf.py")
+    with open(cfg, "w") as f:
+        f.write("from mvedit_tpu_torch.configs.stablessdnerf_cars_lpips "
+                "import (ssdnerf_config, train_config, build_denoiser, "
+                f"make_cond_fn)\ncaptions = {cap_path!r}\n")
+    built, real = [], S.build_denoiser
+
+    def build(*a, **k):
+        # the frozen base as built, on the host, to compare after the run
+        net = real(*a, **k)
+        built.append((net, {n: v.cpu() for n, v in
+                            net.unet.state_dict().items()}))
+        return net
+
+    def train(config, work, *extra):
+        return train_ssdnerf.main(["--config", config, "--data", data,
+                                   "--work-dir", os.path.join(tmp, work),
+                                   "--device", DEV, *extra])
+    log(f"[stablessdnerf] SD2.1 UNet (frozen, f32 weights, bf16 compute) + "
+        f"rank-32 LoRA, the 1024-wide 23-layer CLIP on captions, 8 scenes x "
+        f"a 32^2 patch x 96 samples, LPIPS 1.2; {LORA_STEPS} steps (of "
+        f"100000), twice from seed 0")
+    flash_attention.launches = 0
+    S.build_denoiser = build
+    try:
+        outs, launches, peak = _train_runs(train, cfg, "lora", LORA_STEPS,
+                                           "stablessdnerf", runs=2)
+    finally:
+        S.build_denoiser = real
+    net, base0 = built[0]
+    n_lora = sum(v.numel() for v in outs[0].trainer.state[
+        "denoiser"].values())
+    n_base = sum(v.numel() for v in base0.values())
+    keys_ok = all(k.startswith("lora.") for k in outs[0].trainer.state[
+        "denoiser"])
+    base_same = all(bool(torch.equal(v.cpu(), base0[n]))
+                    for n, v in net.unet.state_dict().items())
+    same = _same_runs(*outs)
+    log(f"[stablessdnerf] LoRA {n_lora} parameters in the state "
+        f"({len(outs[0].trainer.state['denoiser'])} tensors, all LoRA: "
+        f"{keys_ok}) beside {n_base} frozen; the frozen base bit-equal to "
+        f"its initial value after the run: {base_same}; the two runs of one "
+        f"seed bit-equal: {same}; flash launches {flash_attention.launches} "
+        f"(the maps' 4800 / 1200 tokens are no multiple of 128)")
+    if not (keys_ok and base_same and all(same.values())):
+        raise AssertionError("the LoRA recipe's state, base or runs differ")
+    del built[:], net, base0
+    torch.cuda.empty_cache()
+    SS.segment_sum.launches = 0
+    t0 = time.perf_counter()
+    got = test_ssdnerf.main(["--config", cfg, "--data", data, "--work-dir",
+                             os.path.join(tmp, "lora_0"), "--device", DEV,
+                             "--num-scenes", "1", "--recons-views", "1",
+                             "--recons-steps", str(LORA_RECONS_STEPS)])
+    wall = time.perf_counter() - t0
+    ok = got["scenes"] == 1 and np.isfinite(got["psnr"]) \
+        and SS.segment_sum.launches > 0
+    log(f"[stablessdnerf] test_ssdnerf --recons-views 1 on 1 scene "
+        f"({LORA_RECONS_STEPS} val_optim steps of 100, the LoRA UNet's "
+        f"prior on): PSNR {got['psnr']:.3f}, SSIM {got['ssim']:.4f}, "
+        f"{wall:.3f} s with the models' build; segment_sum "
+        f"{SS.segment_sum.launches} launches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the LoRA recipe's recons eval failed")
+    steps = [x for o in outs for x in o.step_seconds[1:]]
+    return dict(segment=sum(launches), steps=2 * LORA_STEPS,
+                step_ms=statistics.median(steps) * 1e3,
+                loader_ms=statistics.median(
+                    [x for o in outs for x in o.loader_seconds[1:]]) * 1e3,
+                peak_gib=peak / 2**30, lora_params=n_lora)
+
+
+def phase_paper_family(tmp):
+    """The paper family at its (3, 6, 128, 128) code on phase 19's 8
+    scenes: stage 1 with the filesystem cache, the stack recipe twice from
+    one seed (bit-equal), the tiled recipe (ch 80, 16 groups)."""
+    from mvedit_tpu_torch.tools import train_ssdnerf
+    data = os.path.join(tmp, "srn")
+
+    def train(config, work, *extra):
+        return train_ssdnerf.main(["--config", config, "--data", data,
+                                   "--work-dir", os.path.join(tmp, work),
+                                   "--device", DEV, *extra])
+    res, seg = {}, 0
+    for name, runs in (("stage1_cars_recons16v_16bit_filesystem", 1),
+                       ("ssdnerf_cars_recons1v", 2),
+                       ("ssdnerf_cars_recons1v_tiled", 1)):
+        log(f"[paper] {name}: 8 scenes x 4096 rays x 96 samples, a (3, 6, "
+            f"128, 128) code, {PAPER_STEPS} steps, {runs} run(s) from seed 0")
+        outs, launches, peak = _train_runs(
+            train, os.path.join(CONFIGS, name + ".py"), name, PAPER_STEPS,
+            "paper", runs=runs)
+        seg += sum(launches)
+        if runs == 2:
+            same = _same_runs(*outs)
+            log(f"[paper] {name}: two runs of one seed bit-equal: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"{name}: two runs of one seed differ")
+        if name.startswith("stage1"):
+            outs[0].cache.close()   # the filesystem cache's writers
+        res[name] = dict(step_ms=statistics.median(
+            [x for o in outs for x in o.step_seconds[1:]]) * 1e3,
+            loader_ms=statistics.median(
+                [x for o in outs for x in o.loader_seconds[1:]]) * 1e3,
+            peak_gib=peak / 2**30)
+    return dict(segment=seg, runs=res)
+
+
+def _agree(a, b):
+    """(relative L2 distance, both finite) of a card tensor to a CPU one."""
+    a = a.detach().double().cpu()
+    b = b.detach().double()
+    finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+    return float((a - b).norm() / b.norm().clamp(min=1e-300)), finite
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_modules(tmp):
+    """The module-only ports on the card at their default widths, each held
+    to the same module on the CPU in f32 (TF32 off on the card for the
+    comparison: convolutions and matmuls in f32 on both): Inception
+    features and `inception_stat`, DDPMUNet forward and backward,
+    UNetVolume and the masked ResnetBlockVolume, the sparse
+    interpolations with their gradients."""
+    import copy
+
+    from mvedit_tpu_torch.models.ddpm_unet import DDPMUNet, DDPMUNetConfig
+    from mvedit_tpu_torch.models import volume_unet as V
+    from mvedit_tpu_torch.ops import volume_interp as VI
+    from mvedit_tpu_torch.tools import inception_stat
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 22)
+    rows, failed = [], []
+
+    def check(name, pairs, wall, tol):
+        errs = [_agree(a, b) for a, b in pairs]
+        ok = all(f and e <= tol for e, f in errs)
+        log(f"[modules] {name}: {wall:.4f} s on the card (warm); relative "
+            f"L2 to the CPU f32 run {' '.join(f'{e:.2e}' for e, _ in errs)} "
+            f"(tolerance {tol:g}), finite {all(f for _, f in errs)} "
+            f"{'ok' if ok else 'FAIL'}")
+        rows.append(dict(name=name, wall_s=wall,
+                         errs=[e for e, _ in errs]))
+        if not ok:
+            failed.append(name)
+    try:
+        # InceptionV3 on 32 images; the CPU holds the first 8 of them
+        net = inception_stat.load_inception(None, torch.device(DEV))
+        x = torch.rand((32, 3, 299, 299), generator=gen)
+        xd = x.to(DEV)
+        with torch.no_grad():
+            net(xd)                      # warm: cuDNN picks its algorithms
+            feats, wall = _timed(lambda: net(xd))
+            ref = copy.deepcopy(net).cpu()(x[:8])
+        check("InceptionV3Features (32 x 299^2 -> 2048)",
+              [(feats[:8], ref)], wall, 1e-4)
+        stat, wall = _timed(lambda: inception_stat.main(
+            ["--data", os.path.join(tmp, "srn"), "--out",
+             os.path.join(tmp, "inception.npz"), "--device", DEV,
+             "--views-per-scene", "8"]))
+        ok = stat["feats"].shape == (TRAIN_SCENES * min(8, TRAIN_VIEWS),
+                                     2048) and \
+            np.isfinite(stat["sigma"]).all()
+        log(f"[modules] inception_stat over phase 19's dataset "
+            f"({TRAIN_SCENES} scenes x 8 views, 128^2 -> 299^2): "
+            f"{stat['feats'].shape} features, mu / sigma finite, {wall:.3f} "
+            f"s with the build {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append("inception_stat")
+        del net, feats, ref
+        # DDPMUNet at its defaults on a (2, 3, 12, 40, 40) code
+        cfg = DDPMUNetConfig()
+        cpu = DDPMUNet(cfg)
+        from mvedit_tpu_torch.apis.runner import init_random_
+        with torch.no_grad():
+            init_random_(cpu, gen)
+        card = copy.deepcopy(cpu).to(DEV)
+        x = torch.randn((2, 3, 12, 40, 40), generator=gen)
+        t = torch.tensor([17, 802])
+        w = torch.randn(x.shape, generator=gen)
+
+        def fwd_bwd(net, dev):
+            xi = x.to(dev, copy=True).requires_grad_(True)
+            out = net(xi, t.to(dev))
+            (out * w.to(dev)).sum().backward()
+            return out, xi.grad
+        fwd_bwd(card, DEV)
+        card.zero_grad(set_to_none=True)
+        (out, gx), wall = _timed(lambda: fwd_bwd(card, DEV))
+        rout, rgx = fwd_bwd(cpu, "cpu")
+        pg = [(p.grad, q.grad) for p, q in zip(card.parameters(),
+                                              cpu.parameters())]
+        worst = max(pg, key=lambda pq: _agree(*pq)[0])
+        check("DDPMUNet(DDPMUNetConfig()) forward + backward on (2, 3, 12, "
+              "40, 40): output, input gradient, worst parameter gradient",
+              [(out, rout), (gx, rgx), worst], wall, 1e-4)
+        del card, cpu, out, gx
+        # UNetVolume at its defaults on a masked 32^3 volume, forward;
+        # the masked ResnetBlockVolume at its first width
+        vcfg = V.VolumeUNetConfig(out_channels=4)
+        cpu = V.init_volume_unet_(V.UNetVolume(vcfg), gen)
+        card = copy.deepcopy(cpu).to(DEV)
+        mask = torch.rand((1, 32, 32, 32), generator=gen) < 0.3
+        vol = torch.randn((1, 4, 32, 32, 32), generator=gen) * mask[:, None]
+        vd = vol.to(DEV)
+        with torch.no_grad():
+            card(vd)
+            (out, _), wall = _timed(lambda: card(vd))
+            rout, _ = cpu(vol)
+        check("UNetVolume(VolumeUNetConfig(out_channels=4)) on a masked "
+              "32^3 volume", [(out, rout)], wall, 1e-4)
+        blk = V.init_volume_unet_(V.ResnetBlockVolume(320, 320), gen)
+        with torch.no_grad():
+            blk.conv2.weight.normal_(0, 0.01, generator=gen)
+        bcard = copy.deepcopy(blk).to(DEV)
+        h = torch.randn((1, 320, 32, 32, 32), generator=gen) * mask[:, None]
+        hd, md = h.to(DEV), mask.to(DEV)
+        with torch.no_grad():
+            bcard(hd, md)
+            out, wall = _timed(lambda: bcard(hd, md))
+            rout = blk(h, mask)
+        check("masked ResnetBlockVolume(320) on the 32^3 mask",
+              [(out, rout)], wall, 1e-4)
+        del card, cpu, out, bcard, blk
+        # the sparse interpolations: a 64^3 volume, ~40% active, 10^6
+        # points, the gradients to the features and the points
+        grid = torch.stack(torch.meshgrid(
+            *[torch.arange(n) for n in (1, 64, 64, 64)], indexing="ij"),
+            -1).reshape(-1, 4)
+        keep = torch.rand(grid.shape[0], generator=gen) < 0.4
+        idx = grid[keep]
+        feats = torch.randn((idx.shape[0], 8), generator=gen)
+        pts = torch.rand((1 << 20, 3), generator=gen) * 2.2 - 1.1
+        bi = torch.zeros((pts.shape[0], 1), dtype=torch.int32)
+        wp = torch.randn((pts.shape[0], 8), generator=gen)
+        for nb in (False, True):
+            fn = VI.neighbor_spvolume_linear_interp if nb else \
+                VI.spvolume_linear_interp
+
+            def run(dev):
+                f = feats.to(dev, copy=True).requires_grad_(True)
+                p = pts.to(dev, copy=True).requires_grad_(True)
+                v = VI.sparse_volume(idx.to(dev), f, (64, 64, 64), 1)
+                out, valid = fn(v, p, bi.to(dev))
+                (out * wp.to(dev)).sum().backward()
+                return out, valid, f.grad, p.grad
+            run(DEV)
+            (out, valid, gf, gp), wall = _timed(lambda: run(DEV))
+            rout, rvalid, rgf, rgp = run("cpu")
+            same_valid = bool(torch.equal(valid.cpu(), rvalid))
+            log(f"[modules] {'neighbor_' if nb else ''}spvolume_linear_"
+                f"interp: {idx.shape[0]} active voxels, {pts.shape[0]} "
+                f"points ({int(valid.sum())} valid, the masks equal "
+                f"{same_valid})")
+            check(f"{'neighbor_' if nb else ''}spvolume_linear_interp "
+                  f"forward + backward: output, features' and points' "
+                  f"gradients", [(out, rout), (gf, rgf), (gp, rgp)], wall,
+                  1e-5)
+            if not same_valid:
+                failed.append("interp valid mask")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError(f"module ports disagree with the CPU: {failed}")
+    return rows
 
 
 _FAMILIES = [
@@ -3619,12 +4022,20 @@ def main():
     seg_launches += phase_hash_grid(runner)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_training(runner, tmp)
-    seg_launches += train["segment"]
+        seg_launches += train["segment"]
+        lora = phase_stablessdnerf(tmp)
+        seg_launches += lora["segment"]
+        paper = phase_paper_family(tmp)
+        seg_launches += paper["segment"]
+        modules = phase_modules(tmp)
+    log("[modules] " + json.dumps(modules))
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
         f"requests, tet 256, the retex, superres, image-to-3D (v1.1 and "
         f"v1.2) and text-to-3D requests, the unstructured tet grid, the "
-        f"hash grid and the two stage-2 training runs ({train['segment']} "
-        f"in {train['steps']} steps; staged copies "
+        f"hash grid, the two stage-2 training runs ({train['segment']} "
+        f"in {train['steps']} steps), the LoRA recipe's runs "
+        f"({lora['segment']} in {lora['steps']} steps) and the paper "
+        f"family's ({paper['segment']}); staged copies "
         f"{SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
@@ -3662,6 +4073,9 @@ def main():
     fhot = next(r for r in fwd_rows if r["shape"] == FWD_HOT)
     shot = next(r for r in seg_rows if r["case"] == SEGMENT_HOT)
     tgrad = next(r for r in seg_rows if r["case"] == "triplane_grad")
+    tlora = next(r for r in seg_rows if r["case"] == "triplane_grad_lora")
+    tpaper = next(r for r in seg_rows
+                  if r["case"] == "triplane_grad_paper")
     log(f"[kernels] times and bounds below at {HOT_SHAPE} "
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
         f"{FWD_HOT} (flash_fwd), {SEGMENT_HOT} (segment_sum: ms the whole "
@@ -3722,7 +4136,17 @@ def main():
              "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
              launches=train["segment"], steps=train["steps"],
-             step_ms=train["step_ms"], peak_gib=train["peak_gib"])}]}))
+             step_ms=train["step_ms"], peak_gib=train["peak_gib"]),
+         "training_lora": dict({k: tlora[k] for k in (
+             "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+             launches=lora["segment"], steps=lora["steps"],
+             step_ms=lora["step_ms"], loader_ms=lora["loader_ms"],
+             peak_gib=lora["peak_gib"], lora_params=lora["lora_params"]),
+         "training_paper": dict({k: tpaper[k] for k in (
+             "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+             launches=paper["segment"], runs=paper["runs"])}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

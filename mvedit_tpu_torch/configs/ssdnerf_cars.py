@@ -58,34 +58,50 @@ train_config = dict(
 
 
 class LatentDenoiser(nn.Module):
-    """(B, 3, C, H, W) latent, (B,) timesteps -> (B, 3, C, H, W); `cond`
-    is ignored (the denoiser is unconditional)."""
+    """(B, P, C, H, W) latent, (B,) timesteps -> (B, P, C, H, W); `cond`
+    is ignored (the denoiser is unconditional).
 
-    def __init__(self, planes=3, channels=12, ch=128, n_blocks=4):
+    layout "stack": the planes fold into channels, plane-major (channel
+    p * C + c), an (H, W) image of P * C channels; "tiled": the planes
+    sit side by side along the width, a (H, P * W) image of C channels
+    (the paper family's tiled recipe, `configs/_ssdnerf_paper_base.py`).
+    `groups`: the GroupNorms' group count."""
+
+    def __init__(self, planes=3, channels=12, ch=128, n_blocks=4,
+                 layout="stack", groups=32):
         super().__init__()
-        pc = planes * channels
-        self.ch, self.n_blocks = ch, n_blocks
+        if layout not in ("stack", "tiled"):
+            raise ValueError(f"unknown layout {layout!r}")
+        cin = channels if layout == "tiled" else planes * channels
+        self.ch, self.n_blocks, self.layout = ch, n_blocks, layout
         self.temb1 = Dense(ch, ch * 4)
         self.temb2 = Dense(ch * 4, ch * 4)
-        self.conv_in = Conv(pc, ch, 3, padding=1)
+        self.conv_in = Conv(cin, ch, 3, padding=1)
         for i in range(n_blocks):
-            self.add_module(f"norm{i}", GroupNorm(32, ch, 1e-6))
+            self.add_module(f"norm{i}", GroupNorm(groups, ch, 1e-6))
             self.add_module(f"conv{i}a", Conv(ch, ch, 3, padding=1))
             self.add_module(f"tproj{i}", Dense(ch * 4, ch))
             self.add_module(f"conv{i}b", Conv(ch, ch, 3, padding=1))
-        self.conv_out = Conv(ch, pc, 3, padding=1)
+        self.conv_out = Conv(ch, cin, 3, padding=1)
 
     def forward(self, x, t, cond=None):
         B, P, C, H, W = x.shape
         temb = self.temb1(timestep_embedding(t, self.ch))
         temb = F.silu(self.temb2(F.silu(temb)))
-        h = self.conv_in(x.reshape(B, P * C, H, W))
+        if self.layout == "tiled":
+            h = x.permute(0, 2, 3, 1, 4).reshape(B, C, H, P * W)
+        else:
+            h = x.reshape(B, P * C, H, W)
+        h = self.conv_in(h)
         for i in range(self.n_blocks):
             r = getattr(self, f"conv{i}a")(F.silu(
                 getattr(self, f"norm{i}")(h)))
             r = r + getattr(self, f"tproj{i}")(temb)[:, :, None, None]
             h = h + getattr(self, f"conv{i}b")(F.silu(r))
-        return self.conv_out(h).reshape(B, P, C, H, W)
+        out = self.conv_out(h)
+        if self.layout == "tiled":
+            return out.reshape(B, C, H, P, W).permute(0, 3, 1, 2, 4)
+        return out.reshape(B, P, C, H, W)
 
 
 def build_denoiser(generator=None, device=None):

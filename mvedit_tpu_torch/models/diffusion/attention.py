@@ -10,7 +10,9 @@ reference does:
   CPU tensors never do, as the reference skips it on its CPU backend;
 - otherwise, Lq * Lk > 4096 * 8192 goes to the chunked online-softmax;
 - everything else (cross-attention over 77 tokens, the VAE's single-head
-  D=512 mid-attention) to plain matmul attention.
+  D=512 mid-attention) to plain matmul attention, whose large score
+  tensors are recomputed in the backward rather than saved (a training
+  step through the UNet, the LoRA recipe's).
 
 `AttnMode` keeps the reference's fields. This port implements joint
 (cross-view) self-attention and IP-Adapter's decoupled cross-attention
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...kernels.flash_attention import (MAX_HEAD_DIM, attention_reference,
@@ -104,6 +107,26 @@ def _chunked_attention(q, k, v):
     return out.transpose(1, 2).to(q.dtype)
 
 
+# scores of at least this many elements are recomputed in the backward
+# instead of saved (f32: 256 MiB): saving them, the LoRA recipe's step
+# (L 4800, batch 8) peaked at 66.7 GiB alone on an NVIDIA H100 80GB HBM3
+# at 700 W (chip_smoke.py phase 20; PERF.md)
+RECOMPUTE_SCORES = 1 << 26
+
+
+def _plain_attention(q, k, v):
+    """`attention_reference`, through `torch.utils.checkpoint` where a
+    gradient is asked for and the scores are large: the backward runs the
+    same forward again, so the bits do not change."""
+    B, Lq, H, _ = q.shape
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad) \
+            and B * H * Lq * k.shape[1] >= RECOMPUTE_SCORES:
+        return torch.utils.checkpoint.checkpoint(
+            attention_reference, q, k, v, use_reentrant=False)
+    return attention_reference(q, k, v)
+
+
 def dot_product_attention(q, k, v):
     """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D)."""
     Lq, Lk, D = q.shape[1], k.shape[1], q.shape[-1]
@@ -112,7 +135,7 @@ def dot_product_attention(q, k, v):
         return flash_attention(q, k, v)
     if Lq * Lk > 4096 * 8192:
         return _chunked_attention(q, k, v)
-    return attention_reference(q, k, v)
+    return _plain_attention(q, k, v)
 
 
 class CrossAttention(nn.Module):

@@ -18,7 +18,7 @@ from .layers import Conv, Dense
 from .norm import GroupNorm
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding",
-           "SD15_UNET"]
+           "SD15_UNET", "SD21_UNET"]
 
 
 @dataclass(frozen=True)
@@ -36,6 +36,10 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+# SD2.1: 1024-wide text context, linear proj_in / proj_out, heads of 64
+# (5 / 10 / 20 a level)
+SD21_UNET = UNetConfig(cross_attention_dim=1024, use_linear_projection=True,
+                       head_dim=64, num_heads=0)
 
 
 def timestep_embedding(timesteps, dim, max_period=10000.0):

@@ -325,6 +325,10 @@ _RULES = {
     "loftr": _LOFTR,
     "latent_denoiser": _SAME_NAMES,
     "vae_preproc": _SAME_NAMES,
+    "aesthetic": _SAME_NAMES,
+    "ddpm_unet": _SAME_NAMES,
+    # module paths of any depth, named as their flax counterparts
+    "inception": [(r"(.+)", lambda m: m[1].replace("/", "."))],
 }
 
 
@@ -371,7 +375,8 @@ def torch_state_from_flax(tree, kind):
     """Flax params tree (numpy-convertible leaves) of `kind` in {'unet',
     'controlnet', 'vae', 'clip_text', 'clip_vision', 'image_proj',
     'resampler', 'tracer', 'dpt', 'loftr', 'latent_denoiser' (the SSDNeRF
-    cars denoiser), 'vae_preproc' (`VAEDecoderPreproc`)} -> {port key:
+    cars denoiser), 'vae_preproc' (`VAEDecoderPreproc`), 'inception',
+    'aesthetic' (`models/inception.py`), 'ddpm_unet'} -> {port key:
     torch.Tensor}.
     The perception nets' keys are their reference checkpoints' (what
     `convert_tracer` / `convert_dpt` / `convert_loftr` read); the DPT's

@@ -6,8 +6,9 @@ view after them is held out), and prints PSNR and SSIM.
   python -m mvedit_tpu_torch.tools.test_ssdnerf --config CFG --data DIR \\
       --work-dir work_dirs/cars [--recons-views 1]
 
-Runs on the card unless `--device cpu`. FID / KID (the Inception features)
-are not ported yet.
+Runs on the card unless `--device cpu`. Like the reference's CLI it
+reports no FID / KID; `tools.inception_stat` writes a dataset's Inception
+statistics and `utils/evaluation.py` has `fid_from_feats` / `kid_from_feats`.
 """
 import argparse
 import os

@@ -144,7 +144,11 @@ def main(argv=None):
     state = {"decoder": decoder, "decoder_opt": adam_init(decoder)}
     denoise_apply = None
     if with_diffusion:
-        net = cfg_mod.build_denoiser(gen, device)
+        # its own generator of the run's seed, as the reference builds it
+        # from PRNGKey(seed): `tools.test_ssdnerf` rebuilds it from seed 0,
+        # the frozen weights of a LoRA recipe included
+        net = cfg_mod.build_denoiser(
+            torch.Generator(device=device).manual_seed(args.seed), device)
         denoise_apply = module_apply(net)
         state["denoiser"] = module_params(net)
         state["denoiser_opt"] = adam_init(state["denoiser"])
@@ -172,7 +176,7 @@ def main(argv=None):
                               num_train_imgs=train_cfg.get("num_train_imgs"),
                               patch_size=train_cfg.get("patch_size"))
     cond_fn = getattr(cfg_mod, "make_cond_fn", None)
-    cond_fn = cond_fn() if cond_fn else None
+    cond_fn = cond_fn(device) if cond_fn else None
     times = types.SimpleNamespace(loader=[], step=[], metrics=[])
 
     def timed_batches():

@@ -41,12 +41,17 @@ Tolerances:
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
   no deterministic algorithm on the card); two tiny Zero123++ v1.2 RGB +
   normal passes and their postprocess, two SAM refinements, two tiny
-  text-to-3D requests, and three full-width SSDNeRF training steps (also
-  under `use_deterministic_algorithms`), from one seed are bit-equal.
+  text-to-3D requests, three full-width SSDNeRF training steps, two
+  full-width steps of the StableSSDNeRF LoRA recipe (its frozen base
+  keeping its bits) and of the paper family's stack and tiled recipes
+  (all also under `use_deterministic_algorithms`), and the sparse-volume
+  interpolation's gradients, from one seed are bit-equal.
 - SSDNeRF training's code gradient: the segment sum at a step's own
-  targets (the checks above); `grid_sample_2d`'s values and gradients on
-  the card within 1e-5 relative (L2) of the CPU's (sums in another
-  order).
+  targets, in the cars recipe, the LoRA recipe's patches and the paper
+  family's (3, 6, 128, 128) code (the checks above); the sparse-volume
+  interpolation on the card against the CPU within 1e-5 relative (L2);
+  `grid_sample_2d`'s values and gradients on the card within 1e-5
+  relative (L2) of the CPU's (sums in another order).
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
@@ -945,3 +950,198 @@ def test_one_seed_gives_one_training_run(cuda, monkeypatch, flag):
     assert KS.segment_sum.staged == staged
     assert all(torch.isfinite(x).all() for x in a)
     assert [torch.equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
+
+
+def _patch_rays(device, B=8, ps=32, seed=3):
+    """B scenes x one (ps, ps) patch of a view of the SRN rig, as the
+    loader's patch mode draws them."""
+    import numpy as np
+    from mvedit_tpu_torch.datasets.loader import pixel_rays
+    from mvedit_tpu_torch.utils import camera as cu
+    rng = np.random.default_rng(seed)
+    poses = cu.get_pose_from_angles(rng.uniform(0, 6.283, 50),
+                                    rng.uniform(-0.2, 1.2, 50), 1.3)[:, :3]
+    intr = np.tile(np.array([131.25, 131.25, 64, 64], np.float32), (50, 1))
+    vi = np.repeat(rng.integers(0, 50, B), ps * ps)
+    oy, ox = rng.integers(0, 128 - ps + 1, (2, B))
+    gy, gx = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+    yi = (oy[:, None] + gy.reshape(1, -1)).reshape(-1)
+    xi = (ox[:, None] + gx.reshape(1, -1)).reshape(-1)
+    o, d = pixel_rays(poses, intr, vi, yi, xi, (128, 128))
+    return (torch.as_tensor(o, device=device).reshape(B, ps * ps, 3),
+            torch.as_tensor(d, device=device).reshape(B, ps * ps, 3))
+
+
+@pytest.mark.parametrize("recipe", ["lora", "paper"])
+def test_segment_sum_training_recipes(cuda, recipe):
+    """The code gradient's sum in the LoRA recipe (8 scenes x a 32^2 patch
+    x 96 samples x 12 corners into 8 x 3 x 40 x 40 texels of 4 f32) and in
+    the paper family (8 x 4096 rays into 8 x 3 x 128 x 128 texels of 6):
+    the kernel's checks above."""
+    from mvedit_tpu_torch.configs._ssdnerf_paper_base import \
+        make_paper_config
+    from mvedit_tpu_torch.configs.stablessdnerf_cars_lpips import \
+        ssdnerf_config
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    from mvedit_tpu_torch.models.triplane import _plane_coords
+    from mvedit_tpu_torch.models.volume_renderer import sample_rays
+    from mvedit_tpu_torch.ops.grid_sample import corner_rows
+    if recipe == "lora":
+        cfg, (ro, rd) = ssdnerf_config, _patch_rays(cuda)
+    else:
+        cfg, (ro, rd) = make_paper_config(), _triplane_rays(cuda, B=8)
+    P, C, H, W = cfg.latent_shape
+    xyz = sample_rays(ro, rd, cfg.render)[0].reshape(8, -1, 3)
+    grid = _plane_coords(xyz, cfg.triplane).transpose(0, 1)
+    idx, _ = corner_rows(grid.reshape(8 * P, -1, 2), (H, W), "border")
+    idx = idx.reshape(-1)
+    assert idx.shape[0] == 8 * ro.shape[1] * 96 * 12
+    g = torch.Generator(device=cuda).manual_seed(4)
+    vals = torch.randn((idx.shape[0], C), generator=g, device=cuda)
+    _check_segment_sum(KS, idx, vals, 8 * P * H * W)
+
+
+def _lora_steps(cuda, n_steps=2):
+    """`n_steps` of the StableSSDNeRF step at full width (the SD2.1 UNet +
+    rank-32 LoRA, 8 scenes x a 32^2 patch x 96 samples, LPIPS, a seeded
+    1024-wide text condition) from seed 0 -> the LoRA, codes, decoder and
+    losses, and whether the frozen base kept its bits."""
+    from mvedit_tpu_torch.configs import stablessdnerf_cars_lpips as SR
+    from mvedit_tpu_torch.models import ssdnerf as MS
+    from mvedit_tpu_torch.models.diffusion import schedulers as S
+    from mvedit_tpu_torch.models.losses import lpips_init
+    from mvedit_tpu_torch.models.triplane import triplane_init
+    cfg = SR.ssdnerf_config
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    decoder = triplane_init(cfg.triplane, gen, cuda)
+    net = SR.build_denoiser(gen, cuda)
+    base = [p.clone() for p in net.unet.parameters()]
+    params = MS.module_params(net)
+    codes = torch.randn((8, *cfg.latent_shape), generator=gen,
+                        device=cuda) * 0.3
+    state = {"decoder": decoder, "decoder_opt": MS.adam_init(decoder),
+             "denoiser": params, "denoiser_opt": MS.adam_init(params),
+             "codes": codes, "code_m": torch.zeros_like(codes),
+             "code_v": torch.zeros_like(codes),
+             "code_steps": torch.zeros(8, dtype=torch.int32, device=cuda)}
+    step = MS.make_train_step(
+        MS.module_apply(net), cfg.triplane, cfg,
+        S.sd_schedule(prediction_type="v_prediction"),
+        lpips_params=lpips_init(torch.Generator(device=cuda).manual_seed(7),
+                                cuda), patch_size=32)
+    ro, rd = _patch_rays(cuda)
+    batch = {"rays_o": ro, "rays_d": rd,
+             "rgb": torch.rand((8, 1024, 3), generator=gen, device=cuda),
+             "cond": torch.randn((8, 77, 1024), generator=gen,
+                                 device=cuda)}
+    for _ in range(n_steps):
+        state, metrics = step(state, dict(batch), gen)
+    kept = all(torch.equal(a, b) for a, b in zip(base,
+                                                  net.unet.parameters()))
+    return MS.tree_leaves({k: v for k, v in state.items()
+                           if not k.endswith("_opt")}) + [
+        metrics["loss_render"], metrics["loss_diffusion"]], kept
+
+
+def _paper_steps(cuda, n_steps=2, config="ssdnerf_cars_recons1v"):
+    """`n_steps` of a paper recipe's stage-2 step at full width (8 scenes x
+    4096 rays x 96 samples, the (3, 6, 128, 128) code) from seed 0."""
+    import importlib
+    from mvedit_tpu_torch.models import ssdnerf as MS
+    from mvedit_tpu_torch.models.diffusion import schedulers as S
+    from mvedit_tpu_torch.models.triplane import triplane_init
+    mod = importlib.import_module(f"mvedit_tpu_torch.configs.{config}")
+    cfg = mod.ssdnerf_config
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    decoder = triplane_init(cfg.triplane, gen, cuda)
+    net = mod.build_denoiser(gen, cuda)
+    params = MS.module_params(net)
+    codes = torch.randn((8, *cfg.latent_shape), generator=gen,
+                        device=cuda) * 0.3
+    state = {"decoder": decoder, "decoder_opt": MS.adam_init(decoder),
+             "denoiser": params, "denoiser_opt": MS.adam_init(params),
+             "codes": codes, "code_m": torch.zeros_like(codes),
+             "code_v": torch.zeros_like(codes),
+             "code_steps": torch.zeros(8, dtype=torch.int32, device=cuda)}
+    step = MS.make_train_step(MS.module_apply(net), cfg.triplane, cfg,
+                              S.sd_schedule(prediction_type="v_prediction"))
+    ro, rd = _triplane_rays(cuda, B=8)
+    rgb = torch.rand((8, 4096, 3), generator=gen, device=cuda)
+    for _ in range(n_steps):
+        state, metrics = step(state, {"rays_o": ro, "rays_d": rd,
+                                      "rgb": rgb, "cond": None}, gen)
+    return MS.tree_leaves({k: v for k, v in state.items()
+                           if not k.endswith("_opt")}) + [
+        metrics["loss_render"], metrics["loss_diffusion"]]
+
+
+@pytest.mark.parametrize("flag", [False, True])
+@pytest.mark.parametrize("recipe", ["lora", "paper_stack", "paper_tiled"])
+def test_one_seed_gives_one_recipe_step(cuda, monkeypatch, recipe, flag):
+    """Two full-width steps of the StableSSDNeRF LoRA recipe and of the
+    paper family (stack; tiled at ch 80), twice from one seed: LoRA /
+    denoiser, codes, decoder and losses bit-equal, without and with
+    `torch.use_deterministic_algorithms(True)`; one segment sum a step;
+    the LoRA recipe's frozen base keeps its bits."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    if flag:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(flag)
+    try:
+        before = KS.segment_sum.launches
+        if recipe == "lora":
+            (a, kept_a), (b, kept_b) = _lora_steps(cuda), _lora_steps(cuda)
+            assert kept_a and kept_b
+        else:
+            config = "ssdnerf_cars_recons1v" + (
+                "_tiled" if recipe == "paper_tiled" else "")
+            a = _paper_steps(cuda, config=config)
+            b = _paper_steps(cuda, config=config)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert KS.segment_sum.launches == before + 4
+    assert all(torch.isfinite(x).all() for x in a)
+    assert [torch.equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
+
+
+@pytest.mark.parametrize("neighbor", [False, True])
+def test_spvolume_interp_gradient_on_card(cuda, neighbor):
+    """`spvolume_linear_interp` (and through `build_neighbor`) on a 64^3
+    volume ~40% active at 2^18 points: twice on the card bit-equal
+    (values and the gradients to the features, a segment sum, and to the
+    points); against the CPU: the valid masks equal, values and gradients
+    within 1e-5 relative (L2; the features' rows summed in another
+    order)."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    from mvedit_tpu_torch.ops import volume_interp as VI
+    g = torch.Generator().manual_seed(5)
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(n) for n in (2, 64, 64, 64)], indexing="ij"),
+        -1).reshape(-1, 4)
+    keep = torch.rand(grid.shape[0], generator=g) < 0.4
+    idx = grid[keep]
+    feats = torch.randn((idx.shape[0], 8), generator=g)
+    pts = torch.rand((1 << 18, 3), generator=g) * 2.2 - 1.1
+    bi = torch.randint(0, 2, (pts.shape[0], 1), generator=g)
+    w = torch.randn((pts.shape[0], 8), generator=g)
+    fn = VI.neighbor_spvolume_linear_interp if neighbor else \
+        VI.spvolume_linear_interp
+
+    def run(dev):
+        f = feats.to(dev, copy=True).requires_grad_(True)
+        p = pts.to(dev, copy=True).requires_grad_(True)
+        vol = VI.sparse_volume(idx.to(dev), f, (64, 64, 64), 2)
+        out, valid = fn(vol, p, bi.to(dev))
+        (out * w.to(dev)).sum().backward()
+        return [t.detach().cpu() for t in (out, valid, f.grad, p.grad)]
+    before = KS.segment_sum.launches
+    a, b = run(cuda), run(cuda)
+    assert KS.segment_sum.launches > before
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = run("cpu")
+    assert torch.equal(a[1], ref[1]) and bool(a[1].any())
+    for x, y in zip(a[:1] + a[2:], ref[:1] + ref[2:]):
+        assert torch.isfinite(x).all()
+        assert float((x - y).norm() / y.norm()) <= 1e-5
