@@ -24,8 +24,10 @@ image-to-3D requests (v1.1, and v1.2 with its generated normals), SAM,
 legacy Zero123, the unstructured tet grid, whole text-to-3D requests
 (direct and through the JSON server), the hash-grid field, SSDNeRF
 training through its CLIs (the cars recipe, StableSSDNeRF's LoRA recipe
-and the paper family) and the module-only ports (Inception, DDPMUNet,
-UNetVolume, the sparse-volume interpolation).
+and the paper family), the module-only ports (Inception, DDPMUNet,
+UNetVolume, the sparse-volume interpolation), GRM with the gaussian
+renderer, TSDF fusion with marching cubes, and the view / ray sharding
+over a 1-rank NCCL group.
 
 1. device: the card's name and power limit (nvidia-smi); the stand-in
    tokenizer's ids of the smoke's prompts in two fresh processes with
@@ -210,6 +212,31 @@ UNetVolume, the sparse-volume interpolation).
    `neighbor_spvolume_linear_interp` on a 64^3 volume ~40% active (~10^5
    voxels) at 2^20 points, with the gradients to the features and the
    points. Wall time each; any non-finite output fails.
+23. GRM and the gaussian renderer at full width: seeded `GRMConfig()`
+   (dim 512, depth 12, heads 8, patch 8; no GRM checkpoint exists) on 4
+   views of 512^2 of the knot (its normals, from a rig at distance 2.5)
+   with their Plücker rays: 16384 tokens in one flash attention a block
+   at (1, 16384, 8, 64), 2^20 gaussians from the upsampler; each view
+   rendered at `GSRasterConfig(512, 512)` (tile 16, K 256) and 8 Adam
+   steps on the gaussians' attributes against the views (encoder and
+   upsampler under no_grad), twice from one seed: renders, attributes and
+   the first step's gradients bit-equal; flash launches at GRM's shape
+   and segment-sum launches (one a render backward) > 0, nothing staged;
+   wall time of the encoder, the upsampler, one render forward and
+   backward, and the fit's peak memory;
+24. TSDF fusion: 32 RGB-D views of 512^2 of the knot (camera-space z, 0
+   off the knot) into `tsdf_rgbd_to_mesh` at its defaults (voxel 256,
+   prune 800, reduction 0.2), twice: bit-equal meshes with faces, the
+   median vertex distance to the knot at most 2 voxels; integration on
+   the card and extraction on the host timed apart; then
+   `extract_geometry` of phase 7's fitted field at 128, threshold 10;
+25. sharding at world size 1 over NCCL (the card is one GPU): the
+   sharded CFG step on 2 x 6 views of 512^2 at SD1.5 widths, the sharded
+   NeRF step on phase 7's field and a sharded 4-step mesh-fit chunk, each
+   bit-equal to its unsharded counterpart; one `run_3d_to_3d` at phase
+   7's settings and seed with the runner's `device_mesh` set, whose views
+   and GLB must be phase 7's first request's; wall times beside phase
+   7's.
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
@@ -217,7 +244,7 @@ denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
 phase 10; each request and the video in phase 11; each request in phases
 12, 13 and 17; phase 16; each training run and the recons eval in phases
-19-21; the segment sum over phases 6-21): a kernel of
+19-21; phases 23 and 25; the segment sum over phases 6-25): a kernel of
 a path with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
@@ -305,6 +332,11 @@ KERNEL_CASES += [((2, 32768, 8, 40), 1.0), ((2, 8192, 8, 80), 1.0)]
 # whose keys add the conditioning image's stored states (Lk = 19200)
 Z123_CASES = [(2, 9600, 8, 40), ((2, 9600, 8, 40), 19200)]
 KERNEL_CASES += [(shape, 1.0) for shape in Z123_CASES]
+# GRM's encoder at GRMConfig(): 4 views of 512^2 at patch 8 in one
+# sequence; and the 6-view joint attention's level 2 of the sharded CFG
+# step (phase 25; its level 1 is (2, 24576, 8, 40) above)
+GRM_SHAPE = (1, 16384, 8, 64)
+KERNEL_CASES += [(GRM_SHAPE, 1.0), ((2, 6144, 8, 80), 1.0)]
 # the shape whose times go into the JSON line: the request's hottest
 HOT_SHAPE = (8, 8192, 8, 40)
 # --ab: small ragged cases ((B, Lq, H, D), Lk) checked before the timing,
@@ -376,6 +408,10 @@ SEGMENT_CASES += [("triplane_grad_lora", 8 * 3 * 40 * 40,
                    8 * 1024 * 96 * 3 * 4, 4, "f32"),
                   ("triplane_grad_paper", 8 * 3 * 128 * 128,
                    8 * 4096 * 96 * 3 * 4, 6, "f32")]
+# the gaussian renderer's backward (phase 23): its candidate gathers'
+# gradient, 1024 tiles x 256 candidates of 2^20 gaussians into the (N, 10)
+# attribute table
+SEGMENT_CASES += [("gaussian_backward", 1 << 20, 1024 * 256, 10, "f32")]
 SEGMENT_HOT = "grid_level1"
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
@@ -438,6 +474,14 @@ LORA_STEPS = 6
 LORA_RECONS_STEPS = 25       # val_optim's 100 in the recons eval
 PAPER_STEPS = 4
 HYBRID_POINTS = 1 << 18
+RGBD_NU, RGBD_NV = 400, 48   # the knot of the RGB-D views (phases 23-24)
+GRM_VIEWS = 4                # GRM's input views of 512^2
+GRM_ADAM_STEPS = 8
+TSDF_VIEWS = 32
+TSDF_RES = 256               # tsdf_rgbd_to_mesh's voxel_resolution
+EXTRACT_RES = 128            # extract_geometry's lattice on phase 7's field
+SHARD_VIEWS = 6              # the sharded CFG step's views (2 x 6 images)
+SHARD_FIT_STEPS = 4          # the sharded mesh-fit chunk
 DEV = "cuda"
 TIMED_RUNS = 10
 # an H100 SXM's peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor
@@ -1860,6 +1904,13 @@ def phase_request(runner, tmp):
             f"parts")
         if not ok:
             raise AssertionError("the run_3d_to_3d request failed its checks")
+        if run == "cold":
+            # what phase 25's sharded request is held to
+            with open(dst, "rb") as f:
+                first = dict(rgb=out["renders"]["rgb"].clone(), glb=f.read(),
+                             walls=[wall])
+        else:
+            first["walls"].append(wall)
         total_fa += fa
         for k, v in parts.parts.items():
             total_parts[k] = total_parts.get(k, 0) + v
@@ -1873,7 +1924,7 @@ def phase_request(runner, tmp):
     if not all(same.values()):
         raise AssertionError("two requests of one seed gave two GLBs")
     check_shapes("request", shapes)
-    return total_parts, total_fa, dict(out=out, src=src)
+    return total_parts, total_fa, dict(out=out, src=src, first=first)
 
 
 def phase_tet256(runner, ctx):
@@ -3549,6 +3600,440 @@ def phase_modules(tmp):
     return rows
 
 
+def _knot_views(n_views, size):
+    """n_views of the knot at size^2 through the port's renderer, from a
+    surround rig at distance 2.5 and 40 degrees of view (the whole knot in
+    frame): (c2w (N, 3, 4), intrinsics (N, 4), rgb (N, H, W, 3) its
+    normals on white, alpha (N, H, W), camera-space depth z (N, H, W), 0
+    where nothing covers). The knot's tube at 400 x 48 (38400 faces) and
+    the mesh fit's raster config (K 1024), so that no tile drops faces:
+    the 250k-face knot at 512^2 overflows every tile's list."""
+    from mvedit_tpu_torch.apis.cameras import surround_rig
+    from mvedit_tpu_torch.models.mesh import RasterConfig, render_views
+    knot = torus_knot(nu=RGBD_NU, nv=RGBD_NV)
+    poses, intr = surround_rig(n_views, 2.5, 40, -0.6, 0.6, size,
+                               rng=np.random.default_rng(SEED))
+    poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32,
+                            device=DEV)
+    intr = torch.as_tensor(np.asarray(intr), dtype=torch.float32,
+                           device=DEV)
+    faces = torch.as_tensor(knot.f, dtype=torch.int64, device=DEV)
+    with torch.no_grad():
+        out = render_views(torch.as_tensor(knot.v, device=DEV), faces,
+                           torch.ones(faces.shape[0], dtype=torch.bool,
+                                      device=DEV),
+                           poses, intr, RasterConfig(
+                               height=size, width=size, span=2,
+                               k_per_tile=1024, k_big=64))
+    a = out["alpha"]
+    rgb = (out["normal"] * 0.5 + 0.5) * a + (1 - a)
+    depth = torch.where(out["alpha_hard"][..., 0] > 0, out["depth"],
+                        torch.zeros((), device=DEV))
+    return poses, intr, rgb.clamp(0, 1), a[..., 0], depth
+
+
+def _w2c(pose):
+    from mvedit_tpu_torch.models.mesh import pose_to_w2c
+    return pose_to_w2c(pose)
+
+
+def phase_grm():
+    """GRM and the gaussian renderer at full width (see the module doc):
+    the seeded GRMConfig() encoder and the upsampler on GRM_VIEWS views of
+    the knot, 2^20 gaussians rendered at GSRasterConfig(512, 512) and
+    fitted with GRM_ADAM_STEPS Adam steps against the views, twice with
+    one seed. Returns the flash launches at GRM_SHAPE, the segment-sum
+    launches and the times."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.apis.runner import init_random_
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          launch)
+    from mvedit_tpu_torch.models.grm import (GaussianUpsampler, GRMConfig,
+                                             GRMEncoder, pixels_to_gaussians,
+                                             plucker_rays)
+    from mvedit_tpu_torch.models.mesh.gaussians import (GSRasterConfig,
+                                                        render_gaussians)
+    poses, intr, images, _, _ = _knot_views(GRM_VIEWS, SIZE)
+    cfg = GSRasterConfig(SIZE, SIZE)
+    names = ("means", "scales", "quats", "colors", "opacities")
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run():
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+        gcfg = GRMConfig()
+        with torch.device(DEV):
+            enc, up = GRMEncoder(gcfg), GaussianUpsampler(gcfg.dim,
+                                                          gcfg.out_channels)
+        for net in (enc, up):
+            init_random_(net, gen).eval().requires_grad_(False)
+        shapes = {}
+        kernel, recording = _record_shapes(TA, shapes)
+        TA.flash_attention = recording
+        fa0, staged0 = flash_attention.launches, launch.staged
+        try:
+            with torch.no_grad():
+                plk = plucker_rays(poses, intr, SIZE, SIZE)
+                feat, t_enc = sync_time(lambda: enc(images, plk))
+                pm, t_up = sync_time(lambda: up(feat))
+                g = pixels_to_gaussians(pm, poses, intr)
+        finally:
+            TA.flash_attention = kernel
+        n = dict(flash=flash_attention.launches - fa0,
+                 staged=launch.staged - staged0, shapes=shapes)
+        attrs = [g[k].detach().clone().requires_grad_(True) for k in names]
+        opt = torch.optim.Adam(attrs, lr=1e-3)
+        seg0 = SS.segment_sum.launches
+        torch.cuda.reset_peak_memory_stats()
+        grads, t_fwd, t_bwd = None, [], []
+        for step in range(GRM_ADAM_STEPS):
+            opt.zero_grad(set_to_none=True)
+            for v in range(GRM_VIEWS):
+                out, tf = sync_time(lambda: render_gaussians(
+                    *attrs, _w2c(poses[v]), intr[v], cfg))
+                loss = (out["rgb"] - images[v]).abs().mean() / GRM_VIEWS
+                _, tb = sync_time(loss.backward)
+                t_fwd.append(tf)
+                t_bwd.append(tb)
+            if step == 0:
+                grads = [a.grad.clone() for a in attrs]
+            opt.step()
+        n["segment"] = SS.segment_sum.launches - seg0
+        with torch.no_grad():
+            renders = [render_gaussians(*attrs, _w2c(poses[v]), intr[v], cfg)
+                       for v in range(GRM_VIEWS)]
+        torch.cuda.synchronize()
+        return dict(feat=feat, renders=renders, attrs=attrs, grads=grads,
+                    n=n, times=dict(encoder=t_enc, upsampler=t_up,
+                                    render_fwd=statistics.median(t_fwd),
+                                    render_bwd=statistics.median(t_bwd)),
+                    peak=torch.cuda.max_memory_allocated(),
+                    loss=loss.item() * GRM_VIEWS, n_gauss=len(attrs[0]))
+
+    a, b = run(), run()
+    same = dict(
+        renders=all(torch.equal(x[k], y[k]) for x, y in
+                    zip(a["renders"], b["renders"]) for k in x),
+        attrs=all(torch.equal(x, y) for x, y in zip(a["attrs"], b["attrs"])),
+        grads=all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])),
+        feat=bool(torch.equal(a["feat"], b["feat"])))
+    finite = all(bool(torch.isfinite(r[k]).all()) for r in a["renders"]
+                 for k in r) and all(bool(torch.isfinite(x).all())
+                                     for x in a["grads"])
+    grm_calls = a["n"]["shapes"].get(GRM_SHAPE, 0)
+    ok = (all(same.values()) and finite and grm_calls > 0
+          and a["n"]["segment"] > 0 and a["n"]["staged"] == 0
+          and a["n_gauss"] == GRM_VIEWS * SIZE * SIZE)
+    t = a["times"]
+    log(f"[grm] GRMConfig() (dim 512, depth 12, heads 8, patch 8) on "
+        f"{GRM_VIEWS} knot views of {SIZE}^2: {a['n_gauss']} gaussians; "
+        f"encoder {t['encoder']:.4f} s, upsampler {t['upsampler']:.4f} s "
+        f"(the first run's cold, the second's warm: "
+        f"{b['times']['encoder']:.4f} / {b['times']['upsampler']:.4f} s), "
+        f"one render forward {t['render_fwd']:.4f} s and backward "
+        f"{t['render_bwd']:.4f} s (medians of the fit's "
+        f"{GRM_ADAM_STEPS * GRM_VIEWS}; GSRasterConfig({SIZE}, {SIZE}): tile "
+        f"16, K 256); {GRM_ADAM_STEPS} Adam steps x {GRM_VIEWS} views, "
+        f"last L1 {a['loss']:.4f}; peak {a['peak'] / 2**30:.2f} GiB in the "
+        f"fit; two runs bit-equal {same}, finite {finite} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[launches] grm: flash_attention {a['n']['flash']} (at "
+        f"{GRM_SHAPE}: {grm_calls}; staged {a['n']['staged']}), "
+        f"segment_sum {a['n']['segment']} in the fit (one a render "
+        f"backward)")
+    check_shapes("grm", a["n"]["shapes"])
+    if not ok:
+        raise AssertionError("the GRM / gaussian phase failed its checks")
+    return dict(flash=a["n"]["flash"] + b["n"]["flash"],
+                grm_calls=grm_calls + b["n"]["shapes"].get(GRM_SHAPE, 0),
+                segment=a["n"]["segment"] + b["n"]["segment"],
+                **b["times"])
+
+
+def phase_tsdf(runner, req_ctx):
+    """TSDF fusion and marching cubes (see the module doc): TSDF_VIEWS
+    RGB-D views of the knot into `tsdf_rgbd_to_mesh` at its defaults,
+    twice, the integration on the card and the extraction on the host
+    timed apart; then `extract_geometry` on phase 7's fitted field."""
+    from scipy.spatial import cKDTree
+    import mvedit_tpu_torch.models.mesh.tsdf as TT
+    from mvedit_tpu_torch.models.fields import ingp_point_decode
+    from mvedit_tpu_torch.ops.marching_cubes import extract_geometry
+    poses, intr, rgb, alpha, depth = _knot_views(TSDF_VIEWS, SIZE)
+    c2w = torch.cat([poses, torch.tensor([[[0.0, 0, 0, 1]]], device=DEV)
+                     .expand(len(poses), 1, 4)], 1)
+    parts = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return wrapped
+    saved = TT.tsdf_integrate, TT.tsdf_to_mesh
+    TT.tsdf_integrate = timed("integrate", saved[0])
+    TT.tsdf_to_mesh = timed("extract", saved[1])
+    try:
+        meshes = [TT.tsdf_rgbd_to_mesh(rgb, depth, c2w, intr,
+                                       voxel_resolution=TSDF_RES)
+                  for _ in range(2)]
+    finally:
+        TT.tsdf_integrate, TT.tsdf_to_mesh = saved
+    m = meshes[0]
+    same = {k: bool(np.array_equal(getattr(meshes[0], k),
+                                   getattr(meshes[1], k)))
+            for k in ("v", "f", "vc")}
+    # distance of the vertices to the knot: to its centre line, less the
+    # tube radius
+    centre = torus_knot(nu=200000, nv=3).v.reshape(200000, 3, 3).mean(1)
+    # the rendered tube is a 48-gon: its flat sides lie inside the circle
+    tube = 0.09 * np.cos(np.pi / RGBD_NV)
+    d = np.abs(cKDTree(centre).query(m.v)[0] - tube) if len(m.v) else \
+        np.array([np.inf])
+    voxel = 2.0 / TSDF_RES
+    med = float(np.median(d))
+    ok = all(same.values()) and len(m.f) > 0 and med <= 2 * voxel
+    log(f"[tsdf] tsdf_rgbd_to_mesh of {TSDF_VIEWS} knot views at {SIZE}^2 "
+        f"(voxel_resolution {TSDF_RES}, prune_thr 800, mesh_reduction "
+        f"0.2): {len(m.v)} verts, {len(m.f)} faces; integration on the "
+        f"card " + ", ".join(f"{x:.4f}" for x in parts["integrate"])
+        + " s; extraction on the host " + ", ".join(
+            f"{x:.4f}" for x in parts["extract"]) + f" s; median vertex "
+        f"distance to the knot {med:.5f} ({med / voxel:.3f} voxels, at most "
+        f"2), 90th percentile {float(np.percentile(d, 90)):.5f}; two runs "
+        f"bit-equal {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the TSDF phase failed its checks")
+    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV)
+    field = req_ctx["out"]["nerf_params"]
+    lo, hi = [], []
+
+    def density(x):
+        d = ingp_point_decode(field, x, cfg.ingp)[0]
+        lo.append(float(d.min()))
+        hi.append(float(d.max()))
+        return d
+    # at the reference's threshold, then (the grid cached) midway through
+    # the field's density range, which the seeded field's fit keeps low
+    runs = []
+    for thr in (10.0, None):
+        thr = thr if thr is not None else 0.5 * (min(lo) + max(hi))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            v, f = extract_geometry(density, resolution=EXTRACT_RES,
+                                    threshold=thr, device=DEV)
+        runs.append((thr, len(v), len(f), time.perf_counter() - t0))
+        if not (np.isfinite(v).all() and (len(f) == 0
+                                          or f.max() < len(v))):
+            raise AssertionError("extract_geometry failed its checks")
+    ok = runs[1][2] > 0
+    log(f"[tsdf] extract_geometry of phase 7's fitted field at "
+        f"{EXTRACT_RES} (the grid built or read from its cache on the "
+        f"host, the density in chunks on the card, the compaction on the "
+        f"host); density {min(lo):.4f} to {max(hi):.4f}: " + "; ".join(
+            f"threshold {thr:.4f}: {nv} verts, {nf} faces in {sec:.3f} s"
+            for thr, nv, nf, sec in runs) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("extract_geometry found no surface")
+    t_ex = runs[0][3]
+    return dict(integrate=parts["integrate"], extract=parts["extract"],
+                faces=len(m.f), extract_geometry_s=t_ex)
+
+
+def phase_sharded(runner, req_ctx):
+    """Sharding at world size 1 over NCCL (see the module doc): the
+    sharded CFG step, NeRF step and mesh-fit chunk against their unsharded
+    counterparts, bit for bit, then one `run_3d_to_3d` at phase 7's
+    settings with `device_mesh` set, whose views and GLB must be phase 7's
+    first request's. Returns the flash and segment-sum launches."""
+    import socket
+    import tempfile
+    from functools import partial
+
+    import torch.distributed as dist
+
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.models.diffusion import AttnMode
+    from mvedit_tpu_torch.models.fields import ingp_point_decode
+    from mvedit_tpu_torch.models.volume_renderer import render_rays
+    from mvedit_tpu_torch.parallel import (make_mesh,
+                                           make_sharded_denoise_step,
+                                           make_sharded_nerf_step)
+    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
+    from mvedit_tpu_torch.utils.geometry import get_ray_directions, get_rays
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    fa0, seg0 = flash_attention.launches, SS.segment_sum.launches
+    times = {}
+
+    def sync_time(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    try:
+        mesh = make_mesh()
+        # the CFG step on 2 x SHARD_VIEWS images of 512^2 at SD1.5 widths
+        m = runner.load_stable_diffusion()
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 25)
+        N = SHARD_VIEWS
+        lat = torch.randn((2 * N, SIZE // 8, SIZE // 8, 4), generator=gen,
+                          device=DEV)
+        t = torch.full((2 * N,), 500, dtype=torch.int32, device=DEV)
+        pos, neg = runner.encode_prompt(m, ["a golden torus knot"] * N,
+                                        [""] * N)
+        ctx = torch.cat([neg, pos], 0)
+        mode = AttnMode(num_views=N)
+        shapes = {}
+        kernel, recording = _record_shapes(TA, shapes)
+        TA.flash_attention = recording
+        try:
+            step = make_sharded_denoise_step(m.unet, mesh, mode, GS)
+
+            def plain():
+                with torch.inference_mode():
+                    u, c = m.unet(lat, t, ctx, mode=mode).chunk(2, 0)
+                    g = u + GS * (c - u)
+                    return torch.cat([g, g], 0)
+            # in turns, the first of each cold
+            for _ in range(2):
+                sharded = sync_time("denoise_sharded",
+                                    lambda: step(lat, t, ctx))
+                ref = sync_time("denoise_plain", plain)
+        finally:
+            TA.flash_attention = kernel
+        check_shapes("sharded", shapes)
+        same = dict(denoise=bool(torch.equal(sharded, ref)))
+
+        # the NeRF step on phase 7's dense field, a 128^2 patch of a view
+        cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV,
+                                 REQ_INIT_INV)
+        poses, intr, images, _, _ = _knot_views(1, SIZE)
+        dirs = get_ray_directions(SIZE, SIZE, intr[0])
+        ro, rd = get_rays(dirs, poses[0], norm=True)
+        h = min(64, SIZE // 4)
+        sl = (slice(SIZE // 2 - h, SIZE // 2 + h),) * 2
+        ro, rd = ro[sl].reshape(-1, 3), rd[sl].reshape(-1, 3)
+        target = images[0][sl].reshape(-1, 3)
+        decode = partial(ingp_point_decode, cfg=cfg.ingp)
+        src = req_ctx["out"]["nerf_params"]
+
+        def fresh():
+            return {"table": {k: v.detach().clone() for k, v in
+                              src["table"].items()},
+                    "mlp": [{k: v.detach().clone() for k, v in l.items()}
+                            for l in src["mlp"]]}
+        nstep, make_opt = make_sharded_nerf_step(decode, cfg.render, mesh)
+        p1 = fresh()
+        p1, _, loss1 = sync_time("nerf_sharded", lambda: nstep(
+            p1, make_opt(p1), ro, rd, target))
+        p2 = fresh()
+        opt2 = make_opt(p2)
+
+        def plain_nerf():
+            opt2.zero_grad(set_to_none=True)
+            out = render_rays(partial(decode, p2), ro, rd, cfg.render,
+                              bg_color=1.0)
+            loss = (out["rgb"] - target).abs().mean()
+            loss.backward()
+            for q in opt2.param_groups[0]["params"]:
+                if q.grad is None:
+                    q.grad = torch.zeros_like(q)
+            opt2.step()
+            return loss.detach()
+        loss2 = sync_time("nerf_plain", plain_nerf)
+        from mvedit_tpu_torch.models.fields import field_leaves
+        same["nerf"] = bool(torch.equal(loss1, loss2)) and all(
+            torch.equal(a, b) for a, b in zip(field_leaves(p1),
+                                              field_leaves(p2)))
+
+        # one mesh-fit chunk of SHARD_FIT_STEPS, sharded and not
+        m.lpips_params = runner.load_lpips()
+        rposes, rintr, rlights = _rig(SIZE)
+        init = runner.load_init_mesh(torus_knot(), rposes, rintr, SIZE,
+                                     rlights)
+        targets = {"images": init["images"], "masks": init["masks"],
+                   "poses": torch.as_tensor(rposes, device=DEV),
+                   "intrinsics": torch.as_tensor(rintr, device=DEV),
+                   "cam_weights": torch.ones(REQ_VIEWS, device=DEV),
+                   "cam_lights": torch.as_tensor(rlights, device=DEV)}
+        fits = []
+        for dm in (mesh, None):
+            m.device_mesh = dm
+            pipe = MVEdit3DPipeline(m, cfg)
+            tet_grid, state, opt = pipe._init_mesh_phase(fresh(), device=DEV)
+            run, _, _ = pipe._mesh_fit_fns(tet_grid, SHARD_FIT_STEPS)
+            g2 = torch.Generator(device=DEV).manual_seed(SEED + 26)
+            fits.append(sync_time(
+                "mesh_fit_" + ("sharded" if dm else "plain"),
+                lambda: run(state, opt, targets,
+                            sched=pipe._sched_weights(0.65, "mesh"),
+                            generator=g2, lpips_params=m.lpips_params)))
+        m.device_mesh = None
+        (s1, _, o1), (s2, _, o2) = fits
+        same["mesh_fit"] = bool(torch.equal(o1["loss"], o2["loss"])) and \
+            bool(torch.equal(s1["sdf"], s2["sdf"])) and \
+            bool(torch.equal(s1["deform"], s2["deform"]))
+        del fits, s1, s2, o1, o2
+
+        # phase 7's first request, sharded
+        first = req_ctx["first"]
+        runner.device_mesh = mesh
+        with tempfile.TemporaryDirectory() as tmp:
+            # phase 7's input, written again (its directory is gone)
+            from mvedit_tpu_torch.models.mesh import Mesh
+            knot, src_glb = torus_knot(), os.path.join(tmp, "knot.glb")
+            Mesh(v=knot.v, f=knot.f).write_glb(src_glb)
+            dst = os.path.join(tmp, "sharded.glb")
+            out = sync_time("request_sharded", lambda: runner.run_3d_to_3d(
+                src_glb, "a golden torus knot, studio light",
+                seed=SEED, steps=REQ_STEPS, num_views=REQ_VIEWS,
+                init_inverse_steps=REQ_INIT_INV, n_inverse_steps=REQ_N_INV,
+                tet_init_inverse_steps=REQ_TET_INIT, out_path=dst))
+            with open(dst, "rb") as f:
+                glb = f.read()
+        same["request_views"] = bool(torch.equal(out["renders"]["rgb"],
+                                                 first["rgb"]))
+        same["request_glb"] = glb == first["glb"]
+    finally:
+        runner.device_mesh = None
+        dist.destroy_process_group()
+    n = dict(flash=flash_attention.launches - fa0,
+             segment=SS.segment_sum.launches - seg0)
+    ok = all(same.values()) and n["flash"] > 0 and n["segment"] > 0
+    log(f"[sharded] world size 1 over NCCL: the CFG step on 2 x {N} views "
+        f"of {SIZE}^2 (SD1.5), the NeRF step on phase 7's field (128^2 "
+        f"rays), a {SHARD_FIT_STEPS}-step mesh-fit chunk, and phase 7's "
+        f"request with device_mesh set; bit-equal to unsharded {same}; "
+        f"wall (s) " + ", ".join(f"{k} " + " / ".join(
+            f"{x:.4f}" for x in v) for k, v in times.items())
+        + f"; phase 7's requests (cold / warm) "
+        + " / ".join(f"{x:.3f}" for x in first["walls"]) + " s "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[launches] sharded: flash_attention {n['flash']}, segment_sum "
+        f"{n['segment']}")
+    if not ok:
+        raise AssertionError("the sharded phase failed its checks")
+    return n
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -4029,13 +4514,20 @@ def main():
         seg_launches += paper["segment"]
         modules = phase_modules(tmp)
     log("[modules] " + json.dumps(modules))
+    grm = phase_grm()
+    seg_launches += grm["segment"]
+    phase_tsdf(runner, req_ctx)
+    sharded = phase_sharded(runner, req_ctx)
+    seg_launches += sharded["segment"]
     log(f"[launches] segment_sum: {seg_launches} over the mesh phase, the "
         f"requests, tet 256, the retex, superres, image-to-3D (v1.1 and "
         f"v1.2) and text-to-3D requests, the unstructured tet grid, the "
         f"hash grid, the two stage-2 training runs ({train['segment']} "
         f"in {train['steps']} steps), the LoRA recipe's runs "
         f"({lora['segment']} in {lora['steps']} steps) and the paper "
-        f"family's ({paper['segment']}); staged copies "
+        f"family's ({paper['segment']}), GRM's gaussian fits "
+        f"({grm['segment']}) and the sharded phase ({sharded['segment']}); "
+        f"staged copies "
         f"{SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
         raise AssertionError("the paths did not launch segment_sum, or "
@@ -4076,6 +4568,8 @@ def main():
     tlora = next(r for r in seg_rows if r["case"] == "triplane_grad_lora")
     tpaper = next(r for r in seg_rows
                   if r["case"] == "triplane_grad_paper")
+    ghot = next(r for r in rows if r["shape"] == GRM_SHAPE)
+    gseg = next(r for r in seg_rows if r["case"] == "gaussian_backward")
     log(f"[kernels] times and bounds below at {HOT_SHAPE} "
         f"(flash_attention), the {RASTER_HOT} config (raster_select), "
         f"{FWD_HOT} (flash_fwd), {SEGMENT_HOT} (segment_sum: ms the whole "
@@ -4092,8 +4586,13 @@ def main():
          "source": "mvedit_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash + retex["flash"]
-         + superres["flash"] + i23["flash"] + v12["flash"] + t23["flash"],
+         + superres["flash"] + i23["flash"] + v12["flash"] + t23["flash"]
+         + grm["flash"] + sharded["flash"],
          "text_to_3d_launches": t23["flash"],
+         "grm": dict({k: ghot[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+                     shape=list(GRM_SHAPE), launches=grm["grm_calls"],
+                     encoder_s=grm["encoder"]),
          "max_abs_err": worst,
          "ms": hot["ms"], "plain_ms": hot["plain_ms"],
          "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
@@ -4146,7 +4645,12 @@ def main():
          "training_paper": dict({k: tpaper[k] for k in (
              "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
-             launches=paper["segment"], runs=paper["runs"])}]}))
+             launches=paper["segment"], runs=paper["runs"]),
+         "gaussian_backward": dict({k: gseg[k] for k in (
+             "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+             launches=grm["segment"], render_fwd_s=grm["render_fwd"],
+             render_bwd_s=grm["render_bwd"])}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -86,6 +86,9 @@ class Adapter3DRunner(EndpointsMixin):
         self.seed = seed
         self.tiny = tiny_models
         self.device = torch.device(device)
+        # a `parallel.make_mesh` DeviceMesh: the MVEdit pipeline's requests
+        # are then sharded over its ranks (`models.device_mesh`)
+        self.device_mesh = None
         self.constants = C.CONSTANTS
         self._cache = {}
         tok_dir = checkpoint_dir and os.path.join(checkpoint_dir, "tokenizer")
@@ -174,6 +177,7 @@ class Adapter3DRunner(EndpointsMixin):
                              subdir="text_encoder")
         m.schedule = S.sd_schedule()
         m.text_cfg = text_cfg
+        m.device_mesh = self.device_mesh
         return m
 
     def load_controlnets(self, kinds=("tile", "depth")):

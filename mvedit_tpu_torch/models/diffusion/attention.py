@@ -14,7 +14,8 @@ reference does:
   tensors are recomputed in the backward rather than saved (a training
   step through the UNet, the LoRA recipe's).
 
-`AttnMode` keeps the reference's fields. This port implements joint
+`AttnMode` keeps the reference's fields, plus `views` for a batch
+sharded over ranks (`parallel.ViewShard`). This port implements joint
 (cross-view) self-attention and IP-Adapter's decoupled cross-attention
 (`ip_to_k` / `ip_to_v` over the image tokens, added with `ip_scale`; its 4
 or 16 keys route to the plain attention) and Zero123++'s reference
@@ -48,6 +49,8 @@ class AttnMode:
     ip_tokens: int = 0          # >0 -> decoupled IP-Adapter cross-attn
     ip_scale: float = 1.0
     reference: str = "none"     # none | write | read (zero123++ ref attn)
+    # a `parallel.ViewShard` when this rank holds part of the batch
+    views: object = None
 
 
 class RefStates:
@@ -167,11 +170,21 @@ class CrossAttention(nn.Module):
         if context is None and mode.reference == "read" \
                 and ref_kv is not None:
             ctx = torch.cat([ctx, ref_kv.to(ctx.dtype)], 1)
-        if context is None and mode.num_views > 1:
-            # fold views into the sequence axis (attention.py:199-207)
-            x = x.reshape(B // mode.num_views, mode.num_views * L, C)
-            ctx = ctx.reshape(x.shape[0], -1, ctx.shape[-1])
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        nv = mode.num_views
+        if context is None and nv > 1 and mode.views is not None \
+                and not mode.views.holds_whole_groups(nv):
+            # this rank holds part of a view group: its queries attend over
+            # the group's keys and values, gathered across the ranks
+            q = self.to_q(x).reshape(1, B * L, -1)
+            k, v = mode.views.group_kv(
+                torch.cat([self.to_k(ctx), self.to_v(ctx)], -1), nv).chunk(
+                    2, -1)
+        else:
+            if context is None and nv > 1:
+                # fold views into the sequence axis (attention.py:199-207)
+                x = x.reshape(B // nv, nv * L, C)
+                ctx = ctx.reshape(x.shape[0], -1, ctx.shape[-1])
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
         def split(t):
             return t.reshape(t.shape[0], t.shape[1], self.heads,
@@ -185,7 +198,7 @@ class CrossAttention(nn.Module):
                 split(q), split(self.ip_to_k(ip_context)),
                 split(self.ip_to_v(ip_context)))
             out = out + mode.ip_scale * ip_out.reshape(out.shape)
-        return self.to_out[0](out.reshape(B, L, -1))
+        return self.to_out[0](out.reshape(B, L, self.heads * self.dim_head))
 
 
 class _GEGLU(nn.Module):

@@ -327,6 +327,11 @@ _RULES = {
     "vae_preproc": _SAME_NAMES,
     "aesthetic": _SAME_NAMES,
     "ddpm_unet": _SAME_NAMES,
+    "grm": [(r"patch_embed", "patch_embed"),
+            (r"blocks_(\d+)/(norm[12])", r"blocks.\1.\2"),
+            (r"blocks_(\d+)/(qkv|proj)", r"blocks.\1.attn.\2"),
+            (r"blocks_(\d+)/(fc[12])", r"blocks.\1.mlp.\2"),
+            (r"(norm|conv1|conv2)", r"\1")],
     # module paths of any depth, named as their flax counterparts
     "inception": [(r"(.+)", lambda m: m[1].replace("/", "."))],
 }
@@ -376,7 +381,8 @@ def torch_state_from_flax(tree, kind):
     'controlnet', 'vae', 'clip_text', 'clip_vision', 'image_proj',
     'resampler', 'tracer', 'dpt', 'loftr', 'latent_denoiser' (the SSDNeRF
     cars denoiser), 'vae_preproc' (`VAEDecoderPreproc`), 'inception',
-    'aesthetic' (`models/inception.py`), 'ddpm_unet'} -> {port key:
+    'aesthetic' (`models/inception.py`), 'ddpm_unet', 'grm' (`models/
+    grm.py`'s encoder or upsampler)} -> {port key:
     torch.Tensor}.
     The perception nets' keys are their reference checkpoints' (what
     `convert_tracer` / `convert_dpt` / `convert_loftr` read); the DPT's

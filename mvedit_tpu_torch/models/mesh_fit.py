@@ -19,12 +19,14 @@ them from a `torch.Generator` when none are given.
 """
 import math
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
 from ..ops.clip import clip
 from ..ops.segment import gather_rows, segment_add
 from ..ops.tonemapping import Tonemapping
+from ..parallel import sharded as P
 from . import losses as L
 from .fields import field_leaves
 from .mesh.dmtet import marching_tets, marching_tets_compact
@@ -119,10 +121,16 @@ def init_sdf_from_density(density_fn, grid, thresh=5.0, scale=0.05,
     return ((sigma - thresh) * scale).clamp(-1.0, 1.0)
 
 
-def normal_consistency_loss(verts, faces, face_mask):
+def _identity(x):
+    return x
+
+
+def normal_consistency_loss(verts, faces, face_mask, reduce=_identity):
     """Mean (1 - cos) between each face normal and the mean face normal of
     its three vertices (a static-shape stand-in for edge-paired normal
-    consistency)."""
+    consistency). `reduce` sums the vertex accumulation and the loss's
+    numerator and denominator over the ranks when the faces are a rank's
+    share (`parallel.reduce_sum`)."""
     faces = faces.long()
     v0, v1, v2 = (gather_rows(verts, faces[:, i]) for i in range(3))
     fn = torch.linalg.cross(v1 - v0, v2 - v0)
@@ -135,18 +143,20 @@ def normal_consistency_loss(verts, faces, face_mask):
     # sequential index_adds, kept by the fixed-order sum
     tgt = faces.t().reshape(-1)
     fw = (fn * w[:, None]).repeat(3, 1)
-    vsum = segment_add(tgt, torch.cat([fw, w.repeat(3)[:, None]], 1), V)
+    vsum = reduce(segment_add(tgt, torch.cat([fw, w.repeat(3)[:, None]], 1),
+                              V))
     vsum, deg = vsum[:, :3].to(verts.dtype), vsum[:, 3].to(verts.dtype)
     vn = vsum / deg[:, None].clamp(min=1.0)
     vn = vn * torch.rsqrt((vn * vn).sum(-1, keepdim=True) + 1e-20)
     cos = sum((fn * gather_rows(vn, faces[:, i])).sum(-1)
               for i in range(3)) / 3
-    return ((1.0 - cos) * w).sum() / w.sum().clamp(min=1.0)
+    return reduce(((1.0 - cos) * w).sum()) / reduce(w.sum()).clamp(min=1.0)
 
 
-def laplacian_loss(verts, faces, face_mask, vert_mask):
+def laplacian_loss(verts, faces, face_mask, vert_mask, reduce=_identity):
     """Uniform Laplacian smoothing over the extracted mesh: neighbour sums
-    accumulated from the (masked) face buffer."""
+    accumulated from the (masked) face buffer (`reduce` sums them over the
+    ranks, as in `normal_consistency_loss`)."""
     faces = faces.long()
     w = face_mask.to(verts.dtype)[:, None]
     # each edge (a, b) adds b's position to a and a's to b, edges in the
@@ -157,8 +167,9 @@ def laplacian_loss(verts, faces, face_mask, vert_mask):
         src += [faces[:, b], faces[:, a]]
     tgt, src = torch.cat(tgt), torch.cat(src)
     ws = w.repeat(6, 1)
-    acc = segment_add(tgt, torch.cat([gather_rows(verts, src) * ws, ws], 1),
-                      verts.shape[0])
+    acc = reduce(segment_add(
+        tgt, torch.cat([gather_rows(verts, src) * ws, ws], 1),
+        verts.shape[0]))
     nsum, deg = acc[:, :3].to(verts.dtype), acc[:, 3].to(verts.dtype)
     lap = verts - nsum / deg[:, None].clamp(min=1.0)
     m = (vert_mask & (deg > 0)).to(verts.dtype)
@@ -219,7 +230,17 @@ def _draw_views(targets, cfg: MeshFitConfig, n_steps, generator):
                                       device=dev)}
 
 
-def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
+def _sharded_shading(color_fn, mesh):
+    """shading_fun(field, xyz, normal, view_dir) -> rgb; under a mesh each
+    rank shades its rows of the (H, W) map, gathered back after."""
+    def shade(field, xyz):
+        if mesh is None or xyz.shape[0] % mesh.size():
+            return color_fn(field, xyz)
+        return P.all_gather_cat(color_fn(field, P.shard(xyz, mesh)), mesh)
+    return shade
+
+
+def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig, mesh=None):
     """On a `StructuredTetGrid` or a `TetGrid`, build `fit(state, opt,
     targets, sched=None, draws=None,
     generator=None, lpips_params=None)`, `make_optimizer(state)` and
@@ -240,6 +261,12 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
     (face_cap 0: twice vert_cap), or with no caps through `marching_tets`'
     full buffers; its cell is 2 / (round(V^(1/3)) - 1), as the
     reference's. It takes no `freeze_topology` (ValueError).
+
+    mesh: a `parallel.make_mesh` DeviceMesh. Each rank then shades its
+    share of the rendered maps' pixel rows and sums the regularisers over
+    its share of the face samples (the draws are the whole step's on every
+    rank); every rank computes the whole loss and the gradients are
+    all-reduced (`parallel.sharded`).
     """
     tm = Tonemapping()
     structured = isinstance(grid, StructuredTetGrid)
@@ -255,6 +282,7 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
         face_cap = (cfg.face_cap or 2 * vert_cap) if vert_cap \
             else grid.max_faces
     subsample = bool(cfg.reg_face_samples) and cfg.reg_face_samples < face_cap
+    shade = _sharded_shading(color_fn, mesh)
 
     def _deform(state):
         return torch.tanh(state["deform"]) * (cfg.deform_scale * cell)
@@ -297,9 +325,14 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
             reg_faces, reg_mask = mt["faces"][reg_ids], mt["face_mask"][reg_ids]
         else:
             reg_faces, reg_mask = mt["faces"], mt["face_mask"]
+        reduce = _identity
+        if mesh is not None and reg_faces.shape[0] % mesh.size() == 0:
+            reg_faces, reg_mask = P.shard(reg_faces, mesh), \
+                P.shard(reg_mask, mesh)
+            reduce = partial(P.reduce_sum, mesh=mesh)
 
         def shading_fun(xyz, normal, view_dir):
-            return color_fn(state["field"], xyz)
+            return shade(state["field"], xyz)
 
         out = render_views(mt["verts"], mt["faces"], mt["face_mask"],
                            batch["poses"], batch["intrinsics"], cfg.raster,
@@ -327,10 +360,11 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
             total = total + _patch_lpips(lpips_params, cfg, rgb, batch,
                                          *crop) * sw["patch_rgb"]
         total = total + laplacian_loss(mt["verts"], reg_faces, reg_mask,
-                                       mt["vert_mask"]) * cfg.laplacian_weight
+                                       mt["vert_mask"], reduce) \
+            * cfg.laplacian_weight
         if cfg.normal_consistency_weight > 0:
             total = total + normal_consistency_loss(
-                mt["verts"], reg_faces, reg_mask) \
+                mt["verts"], reg_faces, reg_mask, reduce) \
                 * cfg.normal_consistency_weight
         return total
 
@@ -383,6 +417,8 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                P.all_reduce_mean_grads_(params, mesh)
             opt.step()
             losses.append(loss.detach())
         return state, opt, {"loss": torch.stack(losses), "mt": extract(state)}
@@ -391,13 +427,16 @@ def make_mesh_fit(grid, color_fn, cfg: MeshFitConfig):
     return fit, make_optimizer, extract
 
 
-def make_texture_refine(color_fn, cfg: MeshFitConfig, n_steps: int = 24):
+def make_texture_refine(color_fn, cfg: MeshFitConfig, n_steps: int = 24,
+                        mesh=None):
     """Texture-only refinement on a fixed (decimated) mesh: only the albedo
     field keeps optimising. Returns `refine(field, opt, verts, faces,
     targets, sched=None, lpips_params=None, draws=None, generator=None) ->
     (field, opt, losses (n_steps,))` and `make_optimizer(field)`; draws as
-    `make_mesh_fit`'s without "reg_faces" (`refine.draw`)."""
+    `make_mesh_fit`'s without "reg_faces" (`refine.draw`). `mesh` shards
+    the pixel rows' shading as in `make_mesh_fit`."""
     tm = Tonemapping()
+    shade = _sharded_shading(color_fn, mesh)
 
     def make_optimizer(field):
         leaves = field_leaves(field)
@@ -408,7 +447,7 @@ def make_texture_refine(color_fn, cfg: MeshFitConfig, n_steps: int = 24):
 
     def loss_fn(field, batch, verts, faces, fmask, sw, lpips_params, crop):
         def shading_fun(xyz, normal, view_dir):
-            return color_fn(field, xyz)
+            return shade(field, xyz)
 
         out = render_views(verts, faces, fmask, batch["poses"],
                            batch["intrinsics"], cfg.raster,
@@ -454,6 +493,8 @@ def make_texture_refine(color_fn, cfg: MeshFitConfig, n_steps: int = 24):
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                P.all_reduce_mean_grads_(leaves, mesh)
             opt.step()
             losses.append(loss.detach())
         return field, opt, torch.stack(losses)

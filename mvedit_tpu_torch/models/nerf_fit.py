@@ -26,6 +26,7 @@ from ..ops.clip import clip
 from ..ops.image import erode, gaussian_blur, highpass
 from ..ops.tonemapping import Tonemapping
 from ..utils.geometry import depth_to_normal, get_ray_directions, get_rays
+from ..parallel import sharded as P
 from . import losses as L
 from .fields import field_leaves
 from .volume_renderer import (OccupancyGrid, RenderConfig, render_rays,
@@ -122,7 +123,7 @@ def default_schedule_weights(cfg: NerfFitConfig):
 
 
 def make_nerf_fit(point_decode_fn: Callable, cfg: NerfFitConfig,
-                  render_size: int, use_lpips: bool = False):
+                  render_size: int, use_lpips: bool = False, mesh=None):
     """Build `fit(params, opt, grid, targets, sched=None, lpips_params=None,
     draws=None, generator=None) -> (params, opt, grid, {"loss": (n_steps,)})`
     and `make_optimizer(params)`.
@@ -134,6 +135,11 @@ def make_nerf_fit(point_decode_fn: Callable, cfg: NerfFitConfig,
     normal_weights]. draws: {"cam_ids", "oy", "ox": (n_steps, patch_bs),
     "jitter": (n_steps, rays, samples), "grid_jitter": (refreshes, G, G,
     G, 3)}, see `fit.draw`.
+
+    mesh: a `parallel.make_mesh` DeviceMesh. Each rank then renders its
+    slice of the step's rays (the draws are the whole step's on every
+    rank), the ray outputs are gathered back, every rank computes the
+    whole loss, and the gradients are all-reduced (`parallel.sharded`).
     """
     tm = Tonemapping()
     refresh_steps = list(range(0, cfg.n_steps, cfg.update_extra_interval))
@@ -147,10 +153,18 @@ def make_nerf_fit(point_decode_fn: Callable, cfg: NerfFitConfig,
 
     def loss_fn(params, grid, patch, jitter, sw, lpips_params):
         B, ps = cfg.patch_bs, cfg.patch_size
-        out = render_rays(partial(point_decode_fn, params),
-                          patch["rays_o"].reshape(-1, 3),
-                          patch["rays_d"].reshape(-1, 3), cfg.render,
-                          grid=grid, jitter=jitter)
+        rays_o = patch["rays_o"].reshape(-1, 3)
+        rays_d = patch["rays_d"].reshape(-1, 3)
+        # rays that do not split evenly over the ranks run whole on each
+        sharded = mesh is not None and rays_o.shape[0] % mesh.size() == 0
+        if sharded:
+            rays_o, rays_d, jitter = (None if x is None else P.shard(x, mesh)
+                                      for x in (rays_o, rays_d, jitter))
+        out = render_rays(partial(point_decode_fn, params), rays_o, rays_d,
+                          cfg.render, grid=grid, jitter=jitter)
+        if sharded:
+            out = {k: P.all_gather_cat(out[k], mesh) for k in
+                   ("rgb", "alpha", "inv_depth", "weights", "deltas")}
         rgb = out["rgb"].reshape(B, ps, ps, 3)
         alpha = out["alpha"].reshape(B, ps, ps, 1)
         inv_depth = out["inv_depth"].reshape(B, ps, ps)
@@ -251,6 +265,8 @@ def make_nerf_fit(point_decode_fn: Callable, cfg: NerfFitConfig,
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                P.all_reduce_mean_grads_(leaves, mesh)
             opt.step()
             losses.append(loss.detach())
             if s in refresh_steps:

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.image import resize_bilinear
-from ..diffusion.attention import dot_product_attention
+from ..diffusion.attention import dot_product_attention, uses_flash
 from ..diffusion.norm import GroupNorm, LayerNorm
 from .efficientnet import Conv2d, Linear
 
@@ -180,7 +180,11 @@ class ViTBlock(nn.Module):
 
     def forward(self, x):
         B, N, C = x.shape
-        q, k, v = self.attn.qkv(self.norm1(x)).chunk(3, dim=-1)
+        qkv = self.attn.qkv(self.norm1(x))
+        if qkv.is_cuda and uses_flash(N, N, C // self.heads):
+            # the kernel reads bf16, as the reference's casts to it
+            qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
 
         def split(t):
             return t.reshape(B, N, self.heads, C // self.heads)

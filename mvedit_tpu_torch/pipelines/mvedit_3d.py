@@ -19,10 +19,17 @@ product (counterpart of `mvedit_tpu/pipelines/mvedit_3d.py`).
 keeps one role: the fits run in chunks of that many steps, and the frozen
 marching-tets topology (mesh fit) and the occupancy grid (NeRF fit) are
 refreshed at the start of each chunk, at the same steps as in the
-reference. Not ported, as TPU-only: device-mesh sharding, the executable
-evictions, `_mem_debug`, the fixed view chunks of the re-render (views
-render one after another here); nor the debug tile dumps and their
-`debug` options.
+reference. Not ported, as TPU-only: the executable evictions,
+`_mem_debug`, the fixed view chunks of the re-render (views render one
+after another here); nor the debug tile dumps and their `debug` options.
+
+`models.device_mesh` (a `parallel.make_mesh` DeviceMesh) shards a request
+over the ranks of a process group, as the reference's over its chips: the
+denoise and VAE view batches (`parallel.ShardedViews`: each net call takes
+this rank's rows and gathers its outputs back), the NeRF fit's rays, the
+mesh fit's and the texture refine's pixel rows and regulariser faces.
+Every rank draws the whole request from its generator, and the weights
+are broadcast from the first rank at the start of each request.
 
 Every random draw comes from a draw source (`GeneratorDraws`, one
 `torch.Generator`), so a caller can inject another one, such as the JAX
@@ -45,6 +52,7 @@ from ..models.volume_renderer import OccupancyGrid, RenderConfig
 from ..native import decimate_qem, native_available
 from ..ops.image import edge_dilation, resize_bilinear
 from ..ops.rotation import prune_cameras
+from ..parallel.sharded import ShardedViews, replicate_
 from ..utils.geometry import normalize_depth
 from ..utils.profiling import phase_timer
 
@@ -242,6 +250,23 @@ class MVEdit3DPipeline:
         self._decode_fn = partial(_ingp_decode, ingp_cfg=cfg.ingp)
         self._color_fn = partial(_ingp_color, ingp_cfg=cfg.ingp)
         self._fit_cache = {}
+        self.device_mesh = getattr(models, "device_mesh", None)
+
+    # ---------------- sharding ------------------------------------------
+
+    def _shard_batch(self, fn):
+        """fn over this rank's rows of its batch, gathered back."""
+        return fn if self.device_mesh is None \
+            else ShardedViews(fn, self.device_mesh)
+
+    def _replicate_params(self):
+        """The first rank's weights on every rank."""
+        if self.device_mesh is None:
+            return
+        m = self.m
+        replicate_([[*n.parameters(), *n.buffers()] for n in
+                    (m.unet, m.vae, *m.controlnets)]
+                   + [getattr(m, "lpips_params", None)], self.device_mesh)
 
     # ---------------- phases --------------------------------------------
 
@@ -255,7 +280,7 @@ class MVEdit3DPipeline:
         """fn over the view axis in chunks of `diff_bs` (the remainder
         padded up to one chunk), in inference mode, as float32."""
         from .denoise import chunk_view_batches
-        run = chunk_view_batches(fn, self.cfg.diff_bs)
+        run = self._shard_batch(chunk_view_batches(fn, self.cfg.diff_bs))
 
         def call(x):
             with torch.inference_mode():
@@ -268,13 +293,16 @@ class MVEdit3DPipeline:
                               make_chunked_noise_pred_2pass,
                               make_noise_pred_1pass, make_noise_pred_2pass)
         cfg = self.cfg
-        # diff_bs view chunking is exact in use_reference mode
+        # diff_bs view chunking is exact in use_reference mode; under a
+        # device mesh each chunk's net calls are split over the ranks, so
+        # that one rank does the unsharded arithmetic
         chunked = cfg.use_reference and 0 < cfg.diff_bs < num_views
         key = ("denoise", "chunked" if chunked else num_views, cfg.mode)
         if key not in self._fit_cache:
             ip_ctx = getattr(self.m, "ip_context", None)
-            dm = DenoiseModels(unet=self.m.unet,
-                               controlnets=tuple(self.m.controlnets),
+            dm = DenoiseModels(unet=self._shard_batch(self.m.unet),
+                               controlnets=tuple(self._shard_batch(c) for c
+                                                 in self.m.controlnets),
                                num_views=num_views,
                                use_reference=cfg.use_reference,
                                ip_tokens=0 if ip_ctx is None
@@ -310,7 +338,8 @@ class MVEdit3DPipeline:
                     patch_bs=cfg.patch_bs, n_steps=steps,
                     alpha_soften=cfg.alpha_soften, bg_width=cfg.entropy_d)
                 self._fit_cache[key] = (fit_cfg,) + NF.make_nerf_fit(
-                    self._decode_fn, fit_cfg, rs, use_lpips=use_lpips)
+                    self._decode_fn, fit_cfg, rs, use_lpips=use_lpips,
+                    mesh=self.device_mesh)
             return self._fit_cache[key]
 
         chunks = self._chunks(n_steps)
@@ -365,7 +394,7 @@ class MVEdit3DPipeline:
                     freeze_topology=(cfg.freeze_mesh_topology
                                      and cfg.structured_tets))
                 self._fit_cache[key] = (mcfg,) + MF.make_mesh_fit(
-                    tet_grid, self._color_fn, mcfg)
+                    tet_grid, self._color_fn, mcfg, mesh=self.device_mesh)
             return self._fit_cache[key]
 
         chunks = self._chunks(n_steps)
@@ -462,6 +491,7 @@ class MVEdit3DPipeline:
         cfg, m = self.cfg, self.m
         sch = m.schedule
         draws = draws if draws is not None else GeneratorDraws(generator)
+        self._replicate_params()
         dev = targets["images"].device
         vae_dec, vae_enc = self._vae_decode(), self._vae_encode()
         lpips_params = getattr(m, "lpips_params", None) \
@@ -834,7 +864,8 @@ class MVEdit3DPipeline:
                         patch_size=min(cfg.patch_size, cfg.render_size))
                     refine, make_opt = MF.make_texture_refine(
                         self._color_fn, mcfg,
-                        n_steps=cfg.mesh_simplify_texture_steps)
+                        n_steps=cfg.mesh_simplify_texture_steps,
+                        mesh=self.device_mesh)
                     sw = {**MF.default_mesh_schedule_weights(mcfg),
                           "lr": cfg.end_lr,
                           "patch_rgb": cfg.end_patch_rgb_weight}

@@ -55,6 +55,14 @@ Tolerances:
 - LPIPS in bf16 (the runner's cast at full size) against f32 on the same
   seeded VGG16 and 128^2 patches: within `LPIPS_BF16_RTOL` (5e-2) of the
   f32 distance.
+- GRM, the gaussian renderer, TSDF and sharding: flash attention at
+  GRM's (1, 16384, 8, 64), read as it is, and a `ViTBlock` at that
+  length through the kernel; the gaussian
+  renderer's backward segment sum at a render's own candidate ids (the
+  checks above) and a render's gradients bit-equal run to run;
+  `tsdf_integrate` on the card against the CPU (weights equal but for at
+  most 0.1% of the observed voxels, the rest within 1e-5); the sharded
+  CFG and NeRF steps over a 1-rank NCCL group, bit-equal twice.
 Dispatch: a CUDA tensor launches the kernel (the launch counters move), a
 CPU tensor takes the plain version.
 """
@@ -1145,3 +1153,160 @@ def test_spvolume_interp_gradient_on_card(cuda, neighbor):
     for x, y in zip(a[:1] + a[2:], ref[:1] + ref[2:]):
         assert torch.isfinite(x).all()
         assert float((x - y).norm() / y.norm()) <= 1e-5
+
+
+def test_flash_attention_grm_shape(cuda):
+    """GRM's encoder at GRMConfig(): 4 views of 512^2 at patch 8 in one
+    sequence, (1, 16384, 8, 64), read as they are (no staged copy), within
+    `FA.agreement` of the plain version; and a `ViTBlock` at that length
+    takes the kernel with its qkv in bf16."""
+    from mvedit_tpu_torch.models.segmentors.dpt import ViTBlock
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((1, 16384, 8, 64), generator=g, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    assert FA.plan(q, k, v, 64 ** -0.5) == "direct"
+    before, staged = FA.flash_attention.launches, FA.launch.staged
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    r = FA.agreement(out, FA.attention_reference(q, k, v))
+    assert r["ok"], r
+    blk = ViTBlock(512, 8).to(cuda)
+    x = torch.randn((1, 16384, 512), generator=g, device=cuda)
+    with torch.no_grad():
+        y = blk(x)
+    assert FA.flash_attention.launches == before + 2
+    assert FA.launch.staged == staged
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+
+
+def test_segment_sum_gaussian_backward(cuda):
+    """The gaussian renderer's backward at a render's own candidate ids
+    (1024 tiles x 256 of 2^20 gaussians, the (N, 10) attribute table):
+    the kernel's checks above; and a render's attribute gradients bit-equal
+    run to run, through one segment sum."""
+    from mvedit_tpu_torch.kernels import segment_sum as KS
+    from mvedit_tpu_torch.models.mesh.gaussians import (GSRasterConfig,
+                                                        bin_gaussians,
+                                                        project_gaussians,
+                                                        render_gaussians)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    N = 1 << 20
+    means = torch.rand((N, 3), generator=g, device=cuda) * 1.6 - 0.8
+    means[:, 2] += 2.5
+    scales = torch.rand((N, 3), generator=g, device=cuda) * 0.01 + 0.002
+    quats = torch.randn((N, 4), generator=g, device=cuda)
+    colors = torch.rand((N, 3), generator=g, device=cuda)
+    opac = torch.rand((N,), generator=g, device=cuda)
+    pose = torch.eye(3, 4, device=cuda)
+    intr = torch.tensor([700.0, 700.0, 256.0, 256.0], device=cuda)
+    cfg = GSRasterConfig(512, 512)
+    uv, depth, _, radius = project_gaussians(means, scales, quats, pose,
+                                             intr, cfg)
+    live = (depth > cfg.near) & (opac > cfg.opacity_thr)
+    cand, valid = bin_gaussians(uv, depth, radius, live, cfg)
+    assert cand.shape == (1024, 256) and float(valid.float().mean()) > 0.9
+    vals = torch.randn((cand.numel(), 10), generator=g, device=cuda)
+    _check_segment_sum(KS, cand.reshape(-1), vals, N)
+
+    def grads():
+        attrs = [t.clone().requires_grad_(True) for t in
+                 (means, scales, quats, colors, opac)]
+        out = render_gaussians(*attrs, pose, intr, cfg)
+        (out["rgb"].sum() + out["depth"].sum()).backward()
+        return [out["rgb"].detach()] + [a.grad for a in attrs]
+    before = KS.segment_sum.launches
+    a = grads()
+    assert KS.segment_sum.launches == before + 1
+    b = grads()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_tsdf_integrate_on_card_matches_cpu(cuda):
+    """`tsdf_integrate` of 8 analytic-sphere RGB-D views of 64^2 at G 64 on
+    the card against the CPU: the weights equal but for voxels whose
+    projection lands the other way of a rounding tie (at most 0.1% of the
+    observed), the tsdf and colour within 1e-5 elsewhere."""
+    import numpy as np
+    from mvedit_tpu_torch.apis.cameras import surround_rig
+    from mvedit_tpu_torch.models.mesh import tsdf_integrate
+    N, hw, r = 8, 64, 0.5
+    poses, intr = surround_rig(N, 2.0, 40, -0.6, 0.6, hw,
+                               rng=np.random.default_rng(0))
+    c2w = np.concatenate([poses, np.tile([[[0, 0, 0, 1.0]]], (N, 1, 1))], 1)
+    w2cs = np.linalg.inv(c2w).astype(np.float32)
+    u, v = np.meshgrid(np.arange(hw) + 0.5, np.arange(hw) + 0.5,
+                       indexing="xy")
+    depths = np.zeros((N, hw, hw), np.float32)
+    for i in range(N):
+        fx, fy, cx, cy = intr[i]
+        d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
+        c = w2cs[i, :3, 3]
+        a, b = np.sum(d * d, -1), -2 * np.sum(d * c, -1)
+        disc = b * b - 4 * a * (np.sum(c * c) - r * r)
+        t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        depths[i] = np.where((disc > 0) & (t > 0), t, 0)
+    rgbs = np.random.default_rng(1).random((N, hw, hw, 3)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (rgbs, depths, w2cs,
+                                          intr.astype(np.float32))]
+    cpu = tsdf_integrate(*args, resolution=64)
+    gpu = tsdf_integrate(*(x.to(cuda) for x in args), resolution=64)
+    gpu = {k: x.cpu() for k, x in gpu.items()}
+    differ = gpu["weight"] != cpu["weight"]
+    observed = int((cpu["weight"] > 0).sum())
+    assert observed > 10000 and int(differ.sum()) <= 0.001 * observed
+    keep = ~differ
+    for k in ("tsdf", "color"):
+        d = (gpu[k] - cpu[k]).abs()[keep]
+        assert float(d.max()) <= 1e-5, k
+
+
+def _nccl_step(cuda):
+    """A 1-rank NCCL group: the sharded CFG step of the tiny UNet on 2 x 2
+    views and the sharded NeRF step of the tiny field; the group torn
+    down after."""
+    import socket
+
+    import torch.distributed as dist
+    from mvedit_tpu_torch.models.diffusion import AttnMode
+    from mvedit_tpu_torch.models.fields import ingp_init, ingp_point_decode
+    from mvedit_tpu_torch.models.volume_renderer import RenderConfig
+    from mvedit_tpu_torch.parallel import (make_mesh,
+                                           make_sharded_denoise_step,
+                                           make_sharded_nerf_step)
+    from mvedit_tpu_torch.testing import TINY_INGP, make_tiny_models
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        g = torch.Generator(device=cuda).manual_seed(4)
+        m = make_tiny_models(g, n_cn=0)
+        lat = torch.randn((4, 8, 8, 4), generator=g, device=cuda)
+        t = torch.full((4,), 500, dtype=torch.int32, device=cuda)
+        ctx = torch.randn((4, 8, 32), generator=g, device=cuda)
+        eps = make_sharded_denoise_step(m.unet, mesh, AttnMode(num_views=2),
+                                        5.0)(lat, t, ctx)
+        p = ingp_init(TINY_INGP, g, cuda)
+        step, make_opt = make_sharded_nerf_step(
+            lambda q, x: ingp_point_decode(q, x, TINY_INGP),
+            RenderConfig(num_samples=16, grid_size=8), mesh)
+        ro = torch.rand((256, 3), generator=g, device=cuda) * 0.4 - 0.2
+        ro[:, 2] = -2.0
+        rd = torch.tensor([[0.0, 0.0, 1.0]], device=cuda).expand(256, 3)
+        p, _, loss = step(p, make_opt(p), ro, rd,
+                          torch.rand((256, 3), generator=g, device=cuda))
+        from mvedit_tpu_torch.models.fields import field_leaves
+        return [eps, loss] + [x.detach().clone() for x in field_leaves(p)]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_step_bit_equal_twice(cuda):
+    """The sharded steps over a 1-rank NCCL group, twice from one seed:
+    the same bits."""
+    a, b = _nccl_step(cuda), _nccl_step(cuda)
+    assert torch.isfinite(a[0]).all() and torch.isfinite(a[1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

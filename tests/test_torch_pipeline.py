@@ -150,7 +150,9 @@ def test_port_imports_with_jax_blocked():
     """Every module of the port imports with `jax`, `jaxlib`, `flax`,
     `optax` and `mvedit_tpu` blocked; the tiny request then runs to its
     GLB, decimation included, and so does a tiny `run_retex` with the front
-    view and IP-Adapter."""
+    view and IP-Adapter. GRM with the gaussian renderer, TSDF fusion with
+    marching cubes, and `parallel.dryrun` over a 1-rank gloo group run
+    there too."""
     code = r'''
 import importlib, pkgutil, sys
 class Block:
@@ -187,6 +189,43 @@ rt = Adapter3DRunner(tiny_models=True, device="cpu").run_retex(
     n_inverse_steps=2, front_view_id=0, in_image=img,
     out_path=os.path.join(d, "retex.glb"))
 assert Mesh.load(os.path.join(d, "retex.glb")).albedo is not None
+new = {"mvedit_tpu_torch." + m for m in (
+    "models.grm", "models.mesh.gaussians", "models.mesh.tsdf",
+    "ops.marching_cubes", "parallel", "parallel.sharded", "testing")}
+assert new <= set(sys.modules), new - set(sys.modules)
+import socket, torch, torch.distributed as dist
+from mvedit_tpu_torch.models.grm import (GRMConfig, GRMEncoder,
+    GaussianUpsampler, pixels_to_gaussians, plucker_rays)
+from mvedit_tpu_torch.models.mesh.gaussians import (GSRasterConfig,
+    render_gaussians)
+from mvedit_tpu_torch.models.mesh import tsdf_rgbd_to_mesh
+from mvedit_tpu_torch.ops.marching_cubes import extract_geometry
+poses = torch.tensor([[[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.0]]] * 2)
+intr = torch.tensor([[32.0, 32.0, 16.0, 16.0]] * 2)
+with torch.no_grad():
+    feat = GRMEncoder(GRMConfig(dim=32, depth=1, heads=4))(
+        torch.rand(2, 32, 32, 3), plucker_rays(poses, intr, 32, 32))
+    g = pixels_to_gaussians(GaussianUpsampler(32)(feat), poses, intr)
+    img = render_gaussians(g["means"], g["scales"], g["quats"], g["colors"],
+                           g["opacities"], torch.eye(3, 4), intr[0],
+                           GSRasterConfig(32, 32, k_per_tile=64))
+assert img["rgb"].shape == (32, 32, 3)
+v, fc = extract_geometry(lambda p: 20 * (0.5 - p.norm(dim=-1)),
+                         resolution=16, threshold=5.0, device="cpu")
+assert len(fc) > 0
+c2w = torch.eye(4)[None].repeat(2, 1, 1)
+c2w[:, 2, 3] = -2.0
+m = tsdf_rgbd_to_mesh(torch.rand(2, 16, 16, 3), torch.full((2, 16, 16), 2.0),
+                      c2w, intr / 2, voxel_resolution=16, prune_thr=0,
+                      mesh_reduction=0.0, device="cpu")
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=1, rank=0)
+from mvedit_tpu_torch.parallel import dryrun
+dryrun(1)
+dist.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "mvedit_tpu"))
 assert not bad, bad
