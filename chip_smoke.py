@@ -236,7 +236,30 @@ over a 1-rank NCCL group.
    bit-equal to its unsharded counterpart; one `run_3d_to_3d` at phase
    7's settings and seed with the runner's `device_mesh` set, whose views
    and GLB must be phase 7's first request's; wall times beside phase
-   7's.
+   7's;
+26. the last slice: (a) `apis/viewer.py::MeshViewer` at 512^2 on phase
+   7's output GLB (a coarser knot when that one overflows a raster tile
+   at the viewer's default capacities), a 60-frame turntable to a
+   file: the median ms a frame, raster launches equal to the frames, the
+   overflowing tiles (`rasterize.tile_load`), the covered share; (b)
+   `SSDNeRFViewer` on phase 17's text-to-3D sample (its code sample and
+   triplane decoder): `export_vdb` at 256 (16.7M densities on the card,
+   `utils/vdb.py::dumps` on the host), `export_mesh` at 128 (phase 24's
+   lattice; 256 would build its lattice on the host for ~110 s) at the
+   midpoint of the density's range, a screenshot, a 6-view grid and a
+   short video; (c) phase 7's request again with `debug=1` (the per-step
+   tiles of `utils/debug_viz.py`), cut to 2 steps for the time limit (so
+   its GLB is not held to phase 7's): one PNG a view a step, the time
+   spent writing them; (d) the web UI's
+   adapters (`apis/webui.py::endpoint_adapters`) on the card with their
+   positional contracts: `3d_preproc` on the knot, `image_segmentation`
+   on phase 12's input, `mesh_to_video` on phase 11's GLB; (e) the tools,
+   in-process: `convert_weights --all` over phase 9's SRVGG and tile
+   ControlNet laid out under MANIFEST names (a runner of its output gives
+   phase 9's outputs), `generate_tets` at 128 (cold, timed), the endpoint
+   walkthrough `example_api_local --tiny` on the card, and (after phase
+   22) `checkpoint_cleaner --save-inf --yes` on phase 19's work dir (one
+   step left, no optimiser state).
 
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
@@ -244,7 +267,8 @@ denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
 phase 6; the request, part by part, in phase 7; the retex request in
 phase 10; each request and the video in phase 11; each request in phases
 12, 13 and 17; phase 16; each training run and the recons eval in phases
-19-21; phases 23 and 25; the segment sum over phases 6-25): a kernel of
+19-21; phases 23 and 25; the viewer's turntable, the debug request and
+the adapters in phase 26; the segment sum over phases 6-26): a kernel of
 a path with no launch
 there fails the run, and so does an input that the flash or the raster
 wrapper had to stage (copy) for its kernel. Without a CUDA device the
@@ -480,6 +504,24 @@ GRM_ADAM_STEPS = 8
 TSDF_VIEWS = 32
 TSDF_RES = 256               # tsdf_rgbd_to_mesh's voxel_resolution
 EXTRACT_RES = 128            # extract_geometry's lattice on phase 7's field
+VIEWER_SIZE = 512            # MeshViewer's default render size
+VIEWER_FRAMES = 60           # render_turntable's default
+# the knots the viewer falls back to (nu, nv) where a mesh overflows its
+# default raster capacities (K 256 + 64) at 512^2
+VIEWER_KNOTS = [(RGBD_NU, RGBD_NV), (200, 24), (100, 16)]
+EXPORT_RES = 256             # the SSDNeRF viewer's export default
+# export_mesh's lattice (256 in the viewer): at 256 the host's cold
+# build of the 256^3 tet lattice took 111.7 s on the H100's host, too
+# much of the smoke's time limit; 128 is phase 24's lattice, built once
+# for both
+EXPORT_MESH_RES = EXTRACT_RES
+EXPORT_VIDEO_FRAMES = 12     # export_video (60)
+TETS_TOOL_RES = 128          # generate_tets' default
+# the debug request (phase 26 c), phase 7's cut further in depth for the
+# smoke's time limit (phase 7's: REQ_STEPS, REQ_N_INV, REQ_TET_INIT)
+DEBUG_STEPS = 2
+DEBUG_N_INV = 8
+DEBUG_TET_INIT = 8
 SHARD_VIEWS = 6              # the sharded CFG step's views (2 x 6 images)
 SHARD_FIT_STEPS = 4          # the sharded mesh-fit chunk
 DEV = "cuda"
@@ -2088,8 +2130,10 @@ def phase_checkpoint(tmp):
             raise AssertionError(f"the {fmt} checkpoint round trip changed "
                                  f"the outputs")
         del dst, out
-    del src, enhance, cn, ref, states
+    del src, enhance, cn, states
     torch.cuda.empty_cache()
+    # what phase 26's convert_weights round trip is held to
+    return dict(ref=ref, outputs=outputs)
 
 
 def phase_retex(runner, tmp):
@@ -4034,6 +4078,417 @@ def phase_sharded(runner, req_ctx):
     return n
 
 
+def _viewer_overflow(viewer, azis):
+    """Per turntable frame, the tiles whose pair list overflows the
+    viewer's raster capacity and the big triangles beyond its big list:
+    (overflowing tiles summed over the frames, the most in one frame,
+    pairs dropped, big triangles dropped)."""
+    import importlib
+    from mvedit_tpu_torch.models.mesh import pose_to_w2c
+    from mvedit_tpu_torch.utils.camera import get_pose_from_angles
+    RZ = importlib.import_module("mvedit_tpu_torch.models.mesh.rasterize")
+    cfg, dev = viewer.raster_cfg, viewer.verts.device
+    fmask = torch.ones(viewer.faces.shape[0], dtype=torch.bool, device=dev)
+    intr = torch.as_tensor(viewer.intrinsics, device=dev)
+    tiles, most, pairs_dropped, big_dropped = 0, 0, 0, 0
+    for a in azis:
+        pose = get_pose_from_angles(np.asarray([a], np.float32),
+                                    np.asarray([viewer.elev], np.float32),
+                                    viewer.distance)[0, :3]
+        pts = RZ.project_mesh(viewer.verts,
+                              pose_to_w2c(torch.as_tensor(pose, device=dev)),
+                              intr, cfg.near)
+        pairs, big = RZ.tile_load(pts, viewer.faces, fmask, cfg)
+        over = int((pairs > cfg.k_per_tile).sum())
+        tiles += over
+        most = max(most, over)
+        pairs_dropped += int((pairs - cfg.k_per_tile).clamp(min=0).sum())
+        big_dropped += max(0, big - cfg.k_big)
+    return tiles, most, pairs_dropped, big_dropped
+
+
+def phase_viewer(tmp):
+    """Phase 26 (a): `MeshViewer` at its defaults (512^2, the default raster
+    capacities) on phase 7's warm GLB, or on the first of VIEWER_KNOTS
+    that overflows no tile where that one does; a VIEWER_FRAMES turntable
+    written to a file. Returns the raster launches."""
+    from mvedit_tpu_torch.apis.viewer import MeshViewer
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import Mesh
+    azis = np.linspace(0, 2 * np.pi, VIEWER_FRAMES, endpoint=False)
+    glb = Mesh.load(os.path.join(tmp, "out_warm.glb"))
+    viewer = MeshViewer(glb, render_size=VIEWER_SIZE, device=DEV)
+    over = _viewer_overflow(viewer, azis)
+    log(f"[viewer] phase 7's GLB: {len(glb.f)} faces, uvs "
+        f"{glb.vt is not None and len(glb.vt) == len(glb.v)}; at "
+        f"{VIEWER_SIZE}^2 with K {viewer.raster_cfg.k_per_tile} + "
+        f"{viewer.raster_cfg.k_big}: {over[0]} overflowing tiles over "
+        f"{VIEWER_FRAMES} frames ({over[2]} pairs and {over[3]} big "
+        f"triangles dropped)")
+    what = "phase 7's GLB"
+    # the knot, ever coarser, until no frame overflows
+    for nu, nv in VIEWER_KNOTS:
+        if not (over[0] or over[3]):
+            break
+        knot = torus_knot(nu=nu, nv=nv)
+        mesh = Mesh(v=knot.v, f=knot.f)
+        mesh.auto_normal()
+        viewer = MeshViewer(mesh, render_size=VIEWER_SIZE, device=DEV)
+        over = _viewer_overflow(viewer, azis)
+        what = f"the {len(knot.f)}-face knot"
+        log(f"[viewer] {what}: {over[0]} overflowing tiles over the frames "
+            f"({over[2]} pairs and {over[3]} big triangles dropped)")
+    if over[0] or over[3]:
+        raise AssertionError("the viewed mesh overflows the viewer's tiles")
+    render, frames, frames_ms = viewer.render_fn, [], []
+
+    def timed(pose, intr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(pose, intr)        # a host array: the frame is done
+        frames_ms.append((time.perf_counter() - t0) * 1e3)
+        frames.append(img)
+        return img
+    viewer.render_fn = timed
+    RS.raster_select.launches = 0
+    staged = RS.raster_select.staged
+    t0 = time.perf_counter()
+    path = viewer.render_turntable(VIEWER_FRAMES,
+                                   os.path.join(tmp, "viewer.mp4"))
+    wall = time.perf_counter() - t0
+    launches = RS.raster_select.launches
+    frames = np.stack(frames)
+    cover = float((frames < 1).any(-1).mean())
+    ok = (launches == len(frames) == VIEWER_FRAMES
+          and os.path.getsize(path) > 0 and np.isfinite(frames).all()
+          and cover > 0.01 and RS.raster_select.staged == staged)
+    log(f"[viewer] MeshViewer on {what}, {VIEWER_FRAMES}-frame turntable "
+        f"to {os.path.basename(path)} ({os.path.getsize(path)} bytes) in "
+        f"{wall:.3f} s: {statistics.median(frames_ms):.3f} ms a frame "
+        f"(median; first {frames_ms[0]:.3f}), raster_select {launches} "
+        f"launches, covered share {cover:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the mesh viewer failed its checks")
+    return launches
+
+
+def phase_ssdnerf_viewer(runner, tmp):
+    """Phase 26 (b): `SSDNeRFViewer` around phase 17's sample (the port's
+    code sample and triplane decoder at the preview's camera): generate,
+    `export_vdb` at EXPORT_RES and `export_mesh` at EXPORT_MESH_RES, a
+    screenshot, a 6-view
+    grid and a short video."""
+    from mvedit_tpu_torch.apis import cameras as C
+    from mvedit_tpu_torch.apis.viewer import SSDNeRFViewer
+    from mvedit_tpu_torch.models.nerf_fit import make_image_renderer
+    from mvedit_tpu_torch.models.ssdnerf import tanh_code
+    from mvedit_tpu_torch.utils import camera as cam_utils
+    c = C.CONSTANTS
+    size = 160
+    scene = {}
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=DEV)
+
+    def sample_fn(prompt, negative_prompt, seed, steps, cfg_scale):
+        out = runner.run_stablessdnerf(prompt, seed=seed, steps=steps)
+        cfg = out["ssdnerf_cfg"]
+        scene["cfg"] = cfg
+        scene["params"] = {"decoder": out["decoder"],
+                           "code": tanh_code(out["code"])}
+        scene["decode"] = decode = runner._triplane_decode(cfg)
+        render = make_image_renderer(decode, size, size, cfg.render,
+                                     chunk=size * size, use_grid=False)
+
+        def render_fn(pose, intr):
+            with torch.no_grad():
+                img = render(scene["params"], f32(pose), f32(intr))
+            return img["rgb"].float().clamp(0, 1).cpu().numpy()
+        return out["code"], render_fn
+
+    def density_fn(xyz):
+        return scene["decode"](scene["params"], xyz)[0]
+
+    viewer = SSDNeRFViewer(
+        sample_fn, cam_utils.intrinsics_from_fov(c["ssdnerf_fov"], size,
+                                                 size),
+        density_fn=density_fn, distance=c["ssdnerf_camera_distance"],
+        elev=0.3, device=DEV)
+    t0 = time.perf_counter()
+    code = viewer.generate(T23_PROMPT, seed=SEED, steps=T23_STEPS)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sigma = viewer.export_vdb(os.path.join(tmp, "t23.vdb"),
+                              resolution=EXPORT_RES)
+    t_vdb = time.perf_counter() - t0
+    vdb_bytes = os.path.getsize(os.path.join(tmp, "t23.vdb"))
+    active = int((sigma > 0.01).sum())
+    lo, hi = float(sigma.min()), float(sigma.max())
+    thr = 0.5 * (lo + hi)
+    t0 = time.perf_counter()
+    mesh = viewer.export_mesh(os.path.join(tmp, "t23_export.glb"),
+                              resolution=EXPORT_MESH_RES, threshold=thr)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shot = viewer.export_screenshot(os.path.join(tmp, "t23_shot.png"))
+    grid = viewer.export_multi_view(os.path.join(tmp, "t23_mv_{}.png"), 6)
+    video = viewer.export_video(os.path.join(tmp, "t23_turn.mp4"),
+                                num_frames=EXPORT_VIDEO_FRAMES)
+    t_img = time.perf_counter() - t0
+    ok = (tuple(code.shape) == tuple(scene["cfg"].latent_shape)
+          and sigma.shape == (EXPORT_RES,) * 3 and np.isfinite(sigma).all()
+          and vdb_bytes > 0 and len(mesh.f) > 0
+          and shot.shape == (size, size, 3) and grid.shape[0] == 6
+          and np.isfinite(grid).all() and os.path.getsize(video) > 0)
+    log(f"[ssdnerf_viewer] generate ({T23_STEPS} steps) {t_gen:.3f} s; "
+        f"export_vdb at {EXPORT_RES}^3: {sigma.size} densities on the card,"
+        f" {active} active voxels (> 0.01), {vdb_bytes} bytes, "
+        f"{t_vdb:.3f} s; density range [{lo:.4f}, {hi:.4f}] (the "
+        f"reference's export threshold 10 "
+        f"{'is' if lo < 10 < hi else 'is not'} inside it); export_mesh at "
+        f"{EXPORT_MESH_RES}, threshold {thr:.4f}: "
+        f"{len(mesh.f)} faces in {t_mesh:.3f} s; "
+        f"screenshot, 6-view grid and a {EXPORT_VIDEO_FRAMES}-frame video "
+        f"({os.path.basename(video)}) in {t_img:.3f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the SSDNeRF viewer failed its checks")
+
+
+def phase_debug_request(runner, tmp, req_ctx):
+    """Phase 26 (c): phase 7's request with `debug=1`, cut in depth to
+    DEBUG_STEPS diffusion steps (and DEBUG_N_INV / DEBUG_TET_INIT fit
+    steps) to keep the smoke under its time limit, so its GLB is not held
+    to phase 7's (the tiny CPU parity request holds a GLB with and
+    without the tiles to equal bytes): one tile PNG a view a step, the
+    time inside `save_tiled_viz` as the tiles' added wall. Returns the
+    flash, raster and segment-sum launches."""
+    import mvedit_tpu_torch.models.diffusion.attention as TA
+    import mvedit_tpu_torch.utils.debug_viz as DV
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import flash_attention
+    from mvedit_tpu_torch.models.mesh import Mesh
+    from mvedit_tpu_torch.utils import profiling as PR
+    out_dir = os.path.join(tmp, "debug_tiles")
+    build, save, tiles_s = runner._cfg_from_schema, DV.save_tiled_viz, []
+
+    def with_debug(*a, **k):
+        return dataclasses.replace(build(*a, **k), debug=1,
+                                   debug_dir=out_dir)
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        save(*a, **k)
+        tiles_s.append(time.perf_counter() - t0)
+    runner._cfg_from_schema = with_debug
+    DV.save_tiled_viz = timed_save
+    shapes = {}
+    kernel, recording = _record_shapes(TA, shapes)
+    TA.flash_attention = recording
+    flash_attention.launches = RS.raster_select.launches = 0
+    SS.segment_sum.launches = 0
+    pt = PR.PhaseTimer()
+    PR.set_phase_timer(pt)
+    dst = os.path.join(tmp, "out_debug.glb")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        runner.run_3d_to_3d(
+            req_ctx["src"], "a golden torus knot, studio light", seed=SEED,
+            steps=DEBUG_STEPS, num_views=REQ_VIEWS,
+            init_inverse_steps=REQ_INIT_INV, n_inverse_steps=DEBUG_N_INV,
+            tet_init_inverse_steps=DEBUG_TET_INIT, out_path=dst)
+        torch.cuda.synchronize()
+    finally:
+        del runner._cfg_from_schema
+        DV.save_tiled_viz = save
+        TA.flash_attention = kernel
+        PR.set_phase_timer(None)
+    wall = time.perf_counter() - t0
+    n = dict(flash=flash_attention.launches,
+             raster=RS.raster_select.launches,
+             segment=SS.segment_sum.launches)
+    back = Mesh.load(dst)
+    views = sum(sig[2] for sig in pt.sigs["render_all"])
+    pngs = sorted(os.listdir(out_dir))
+    ok = (len(back.f) > 0 and back.albedo is not None
+          and np.isfinite(back.albedo).all() and len(pngs) == views > 0
+          and len(tiles_s) == pt.counts["render_all"]
+          and min(n.values()) > 0)
+    log(f"[debug] phase 7's request with debug=1, cut to {DEBUG_STEPS} "
+        f"steps (n_inverse_steps {DEBUG_N_INV}, tet_init_inverse_steps "
+        f"{DEBUG_TET_INIT}; phase 7: {REQ_STEPS}, {REQ_N_INV}, "
+        f"{REQ_TET_INIT}): {wall:.3f} s wall, {sum(tiles_s):.3f} s of it "
+        f"writing {len(pngs)} tiles for {views} views over "
+        f"{pt.counts['render_all']} steps; GLB {len(back.f)} faces; "
+        f"flash_attention {n['flash']}, raster_select {n['raster']}, "
+        f"segment_sum {n['segment']} launches {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the debug request failed its checks")
+    check_shapes("debug", shapes)
+    return n
+
+
+def phase_webui_adapters(runner, tmp, knot_glb, image, video_glb):
+    """Phase 26 (d): three of the web UI's endpoint adapters on the card,
+    each with its positional contract (`endpoint_signature`). Returns the
+    raster launches."""
+    from mvedit_tpu_torch.apis import webui
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    fns = webui.endpoint_adapters(runner)
+    values = {"mesh": knot_glb, "image": image, "front_view_id": 0,
+              "distance": 4.0, "elevation": 10.0, "fov": 30, "length": 2,
+              "resolution": 256, "lossless": False, "layer": "RGB"}
+    RS.raster_select.launches = 0
+    res, secs = {}, {}
+    for name, over in (("3d_preproc", {}), ("image_segmentation", {}),
+                       ("mesh_to_video", {"mesh": video_glb})):
+        args = [dict(values, **over)[k]
+                for k in webui.endpoint_signature(name)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fns[name](*args)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    path, state, fvid = res["3d_preproc"]
+    rgba = res["image_segmentation"]
+    video = res["mesh_to_video"]
+    launches = RS.raster_select.launches
+    ok = (os.path.getsize(path) > 0 and json.loads(state)["scale"] > 0
+          and fvid == 0 and rgba.dtype == np.uint8
+          and rgba.shape == image.shape[:2] + (4,)
+          and np.abs(rgba[..., :3].astype(np.int32)
+                     - image[..., :3]).max() <= 1
+          and os.path.getsize(video) > 0 and launches > 0)
+    log(f"[webui] adapters on the card: 3d_preproc {secs['3d_preproc']:.3f}"
+        f" s (scale {json.loads(state)['scale']:.4f}); image_segmentation "
+        f"{secs['image_segmentation']:.3f} s ({rgba.shape} RGBA, "
+        f"{float((rgba[..., 3] > 127).mean()):.4f} foreground); "
+        f"mesh_to_video {secs['mesh_to_video']:.3f} s "
+        f"({os.path.basename(video)}); raster_select {launches} launches "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the web UI adapters failed their checks")
+    return launches
+
+
+def phase_tools(tmp, ckpt):
+    """Phase 26 (e): `convert_weights --all` over phase 9's SRVGG and tile
+    ControlNet under MANIFEST names (a runner of its output must give
+    phase 9's outputs), `generate_tets` at TETS_TOOL_RES with an empty
+    cache, and the endpoint walkthrough at `--tiny` on the card."""
+    import shutil
+    import tempfile
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    from mvedit_tpu_torch.tools import (convert_weights, example_api_local,
+                                        generate_tets)
+    zoo, out = os.path.join(tmp, "zoo"), os.path.join(tmp, "zoo_out")
+    for name, src in (
+            ("control_v11f1e_sd15_tile", os.path.join(
+                tmp, "checkpoint_safetensors", "controlnet_tile",
+                "controlnet_tile.safetensors")),
+            ("realesr-general-x4v3", os.path.join(
+                tmp, "checkpoint_bin", "image_enhancer",
+                "pytorch_model.bin"))):
+        os.makedirs(os.path.join(zoo, name))
+        fname = "diffusion_pytorch_model.safetensors" \
+            if src.endswith(".safetensors") else "pytorch_model.bin"
+        shutil.copyfile(src, os.path.join(zoo, name, fname))
+    t0 = time.perf_counter()
+    report = convert_weights.main(["--all", "--src", zoo, "--out-dir", out])
+    t_conv = time.perf_counter() - t0
+    dst = Adapter3DRunner(checkpoint_dir=out, seed=SEED + 400, device=DEV)
+    got = ckpt["outputs"](dst.load_image_enhancer(),
+                          dst.load_controlnets(("tile",))[0])
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, ckpt["ref"]))
+    laid = [k for k, v in report.items() if v.startswith("ok")]
+    ok = equal and sorted(laid) == ["control_v11f1e_sd15_tile",
+                                    "realesr-general-x4v3"] and all(
+        "(0 unmatched, 0 missing)" in report[k] for k in laid)
+    log(f"[tools] convert_weights --all: {len(laid)} entries laid out in "
+        f"{t_conv:.3f} s ({'; '.join(report[k] for k in laid)}), "
+        f"{sum(v == 'missing' for v in report.values())} missing; a runner "
+        f"of the output gives phase 9's outputs: {equal} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the convert_weights round trip failed")
+    del dst, got
+    torch.cuda.empty_cache()
+    cache = os.environ.get("MVEDIT_TORCH_TET_CACHE")
+    with tempfile.TemporaryDirectory() as empty:
+        os.environ["MVEDIT_TORCH_TET_CACHE"] = empty
+        try:
+            t0 = time.perf_counter()
+            path = generate_tets.main(["--resolution", str(TETS_TOOL_RES),
+                                       "--out", os.path.join(
+                                           tmp, "tets", "tets.npz")])
+            t_tets = time.perf_counter() - t0
+        finally:
+            if cache is None:
+                del os.environ["MVEDIT_TORCH_TET_CACHE"]
+            else:
+                os.environ["MVEDIT_TORCH_TET_CACHE"] = cache
+    with np.load(path) as d:
+        nv, nt = len(d["vertices"]), len(d["indices"])
+    ok = nt > 0 and nv > 0
+    log(f"[tools] generate_tets --resolution {TETS_TOOL_RES}: {nv} verts, "
+        f"{nt} tets in {t_tets:.3f} s (cold) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate_tets wrote no grid")
+    # the tiny models' f32 attention inputs are staged for the flash
+    # kernel by design: the walkthrough's staged copies stay out of the
+    # paths' counts, which must be 0
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.kernels import segment_sum as SS
+    from mvedit_tpu_torch.kernels.flash_attention import launch
+    staged = (launch.staged, RS.raster_select.staged, SS.segment_sum.staged)
+    t0 = time.perf_counter()
+    try:
+        walk = example_api_local.main([
+            "--tiny", "--device", DEV, "--out-dir",
+            os.path.join(tmp, "walkthrough")])
+    finally:
+        walk_staged = (launch.staged - staged[0],
+                       RS.raster_select.staged - staged[1],
+                       SS.segment_sum.staged - staged[2])
+        launch.staged, RS.raster_select.staged, SS.segment_sum.staged = \
+            staged
+    t_walk = time.perf_counter() - t0
+    ok = (walk["3d_to_3d"] and walk["zero123plus_to_mesh"]
+          and os.path.exists(walk["video"]))
+    log(f"[tools] example_api_local --tiny on the card: {len(walk)} "
+        f"endpoints in {t_walk:.3f} s; staged copies of the tiny models' "
+        f"inputs (flash, raster, segment sum): {walk_staged} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the walkthrough failed its checks")
+
+
+def phase_cleaner(tmp):
+    """Phase 26 (e), after phase 22: `checkpoint_cleaner --save-inf --yes`
+    on phase 19's first training work dir: one step left, without
+    optimiser states, its floats in float16."""
+    from mvedit_tpu_torch.runner.trainer import CheckpointHook
+    from mvedit_tpu_torch.tools import checkpoint_cleaner
+    work = os.path.join(tmp, "train_first")
+    before = sorted(d for d in os.listdir(work) if d.startswith("step_"))
+    checkpoint_cleaner.main([work, "--save-inf", "--yes"])
+    after = sorted(d for d in os.listdir(work) if d.startswith("step_"))
+    state, step = CheckpointHook.load(work)
+    floats = [x.dtype for x in _leaves(state) if torch.is_tensor(x)
+              and x.is_floating_point()]
+    ok = (len(before) > 1 and after == [f"step_{step}"]
+          and not any(k.endswith("_opt") for k in state)
+          and "decoder" in state and floats
+          and set(floats) == {torch.float16})
+    log(f"[tools] checkpoint_cleaner --save-inf on phase 19's work dir: "
+        f"{before} -> {after}, kept keys {sorted(state)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("checkpoint_cleaner failed its checks")
+
+
 _FAMILIES = [
     ("flash kernel", r"flash_fwd_kernel"),
     ("raster select kernel", r"raster_select_kernel"),
@@ -4421,6 +4876,7 @@ def main():
     args = ap.parse_args()
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_tokenizer()
     if args.time_fits or args.time_retex:
@@ -4489,7 +4945,7 @@ def main():
         req_launches, req_flash, req_ctx = phase_request(runner, tmp)
         phase_tet256(runner, req_ctx)
         seg_launches += SS.segment_sum.launches
-        phase_checkpoint(tmp)
+        ckpt = phase_checkpoint(tmp)
         retex = phase_retex(runner, tmp)
         seg_launches += retex["segment"]
         superres = phase_superres(runner, tmp)
@@ -4500,6 +4956,18 @@ def main():
         seg_launches += v12["segment"]
         t23 = phase_text_to_3d(runner, tmp)
         seg_launches += t23["segment"]
+        # phase 26, the last slice, on the outputs of phases 7-17
+        t26 = time.perf_counter()
+        viewer_raster = phase_viewer(tmp)
+        phase_ssdnerf_viewer(runner, tmp)
+        debug = phase_debug_request(runner, tmp, req_ctx)
+        seg_launches += debug["segment"]
+        webui_raster = phase_webui_adapters(
+            runner, tmp, req_ctx["src"],
+            (i23_input(runner) * 255).astype(np.uint8),
+            os.path.join(tmp, "superres_first.glb"))
+        phase_tools(tmp, ckpt)
+        log(f"[phase 26] (a)-(e) took {time.perf_counter() - t26:.3f} s")
     phase_sam(runner)
     phase_zero123(runner)
     unst = phase_tet_unstructured(runner, req_ctx)
@@ -4513,6 +4981,7 @@ def main():
         paper = phase_paper_family(tmp)
         seg_launches += paper["segment"]
         modules = phase_modules(tmp)
+        phase_cleaner(tmp)
     log("[modules] " + json.dumps(modules))
     grm = phase_grm()
     seg_launches += grm["segment"]
@@ -4526,7 +4995,8 @@ def main():
         f"in {train['steps']} steps), the LoRA recipe's runs "
         f"({lora['segment']} in {lora['steps']} steps) and the paper "
         f"family's ({paper['segment']}), GRM's gaussian fits "
-        f"({grm['segment']}) and the sharded phase ({sharded['segment']}); "
+        f"({grm['segment']}), the sharded phase ({sharded['segment']}) "
+        f"and phase 26's debug request ({debug['segment']}); "
         f"staged copies "
         f"{SS.segment_sum.staged})")
     if seg_launches == 0 or SS.segment_sum.staged:
@@ -4546,13 +5016,14 @@ def main():
     # bool masks, contiguous: read as they are
     log(f"[launches] raster_select staged copies over the mesh phase, the "
         f"requests, tet 256, retex, superres, image-to-3D (v1.1 and v1.2), "
-        f"text-to-3D and the unstructured tet grid: "
+        f"text-to-3D, the unstructured tet grid and phase 26: "
         f"{RS.raster_select.staged}; tile 32: {superres['tile32']} "
         f"launches, all in phase 11")
     if RS.raster_select.staged:
         raise AssertionError("the raster wrapper staged path inputs")
     if args.profile:
         phase_profile(runner, args.profile, mesh_ctx)
+    log(f"[time] the whole run so far: {time.perf_counter() - t_start:.1f} s")
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
     z123 = [dict({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
@@ -4587,7 +5058,7 @@ def main():
          "replaces": "mvedit_tpu/models/diffusion/attention.py:111",
          "launches": launches + req_flash + retex["flash"]
          + superres["flash"] + i23["flash"] + v12["flash"] + t23["flash"]
-         + grm["flash"] + sharded["flash"],
+         + grm["flash"] + sharded["flash"] + debug["flash"],
          "text_to_3d_launches": t23["flash"],
          "grm": dict({k: ghot[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
@@ -4603,8 +5074,10 @@ def main():
          "launches": sum(mesh_launches.values())
          + sum(req_launches.values()) + retex["raster"]
          + superres["raster"] + i23["raster"] + v12["raster"]
-         + unst["raster"] + t23["raster"],
+         + unst["raster"] + t23["raster"] + viewer_raster
+         + debug["raster"] + webui_raster,
          "text_to_3d_launches": t23["raster"],
+         "viewer_launches": viewer_raster,
          "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),
          "mismatched_ids": sum(r["mismatched"] for r in raster_rows),

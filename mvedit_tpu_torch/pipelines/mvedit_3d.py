@@ -21,7 +21,12 @@ marching-tets topology (mesh fit) and the occupancy grid (NeRF fit) are
 refreshed at the start of each chunk, at the same steps as in the
 reference. Not ported, as TPU-only: the executable evictions,
 `_mem_debug`, the fixed view chunks of the re-render (views render one
-after another here); nor the debug tile dumps and their `debug` options.
+after another here).
+
+`debug` >= 1 writes the reference's per-step debug tiles
+(`utils/debug_viz.py::save_tiled_viz`: [targets | renders] per view, one
+PNG a view a step) into `debug_dir` after each re-render; only then are
+the renders and targets copied to the host.
 
 `models.device_mesh` (a `parallel.make_mesh` DeviceMesh) shards a request
 over the ranks of a process group, as the reference's over its chips: the
@@ -35,6 +40,8 @@ Every random draw comes from a draw source (`GeneratorDraws`, one
 `torch.Generator`), so a caller can inject another one, such as the JAX
 package's draws in the parity tests.
 """
+import os
+import tempfile
 from dataclasses import dataclass, field
 from functools import partial
 
@@ -154,6 +161,12 @@ class MVEdit3DConfig:
     render: RenderConfig = field(default_factory=RenderConfig)
     mode: str = "2-pass"
     use_reference: bool = True
+    # per-step tile dumps (the reference's --debug {0,1,2}, mvedit_3d_
+    # pipeline.py:392-408): 0 off, >= 1 writes [targets | renders] tiles
+    # per view per denoise step into debug_dir
+    debug: int = 0
+    debug_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "mvedit_debug"))
 
     def view_buckets(self):
         b = [self.num_views]
@@ -232,6 +245,10 @@ class GeneratorDraws:
 
 def _take(x, ids):
     return None if x is None else x[ids]
+
+
+def _host(maps):
+    return {k: v.detach().float().cpu().numpy() for k, v in maps.items()}
 
 
 class MVEdit3DPipeline:
@@ -727,6 +744,11 @@ class MVEdit3DPipeline:
             if pt is not None:
                 pt.tick("render_all", ctrl_images,
                         sig=(mesh_state is None, rs, len(bsel)))
+            if cfg.debug:
+                from ..utils.debug_viz import save_tiled_viz
+                save_tiled_viz(cfg.debug_dir, i, _host(renders), _host(
+                    {k: tgt[k][bj] for k in ("images", "masks", "normals")
+                     if tgt.get(k) is not None}))
 
             if t is not None:
                 lat_3d = vae_enc(ctrl_images * 2 - 1)

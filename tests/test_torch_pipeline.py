@@ -22,10 +22,16 @@ Tolerances:
   ROADMAP Queue 3), and the mesh fits amplify it; the per-module tests
   hold each step tightly.
 
+With `debug=1` in both configs (each runner's `_cfg_from_schema`
+wrapped), both requests write the per-step debug tiles: the same file
+names, each tile within mean |d| <= 0.05 (the albedo's tolerance); the
+port's GLB bytes equal a second port request's without them.
+
 Also here: the port imports with JAX, flax and `mvedit_tpu` blocked, and a
 port-only rehearsal of the branches the tiny request skips (the render-size ramp, the SRVGG enhancer, LPIPS,
 decimation + texture refinement) on the CPU.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -34,6 +40,7 @@ import types
 import jax
 import numpy as np
 import torch
+from PIL import Image
 
 from mvedit_tpu.apis import Adapter3DRunner as JRunner
 from mvedit_tpu.models.diffusion import schedulers as JS
@@ -104,12 +111,25 @@ def _record(monkeypatch, module):
     return calls
 
 
+def _debug_tiles(monkeypatch, runner, out_dir):
+    """Every MVEdit config `runner` builds gets `debug=1` and `out_dir`."""
+    build = type(runner)._cfg_from_schema
+
+    def with_debug(self, *a, **k):
+        return dataclasses.replace(build(self, *a, **k), debug=1,
+                                   debug_dir=out_dir)
+    monkeypatch.setattr(type(runner), "_cfg_from_schema", with_debug)
+
+
 def test_run_3d_to_3d_matches_jax(tmp_path, monkeypatch):
     src = _torus_glb(str(tmp_path / "torus.glb"))
     jr = JRunner(tiny_models=True, seed=0)
     jr.tokenizer = StableHashTokenizer()
     tr = TRunner(tiny_models=True, seed=0, device="cpu")
     _bridge(jr, tr)
+    # the debug tiles on in both requests, through their configs
+    for runner, tag in ((jr, "jax"), (tr, "port")):
+        _debug_tiles(monkeypatch, runner, str(tmp_path / f"debug_{tag}"))
     calls_j, calls_t = _record(monkeypatch, JS), _record(monkeypatch, TS)
     out_j = jr.run_3d_to_3d(src, "a red torus", seed=1,
                             out_path=str(tmp_path / "jax.glb"))
@@ -145,20 +165,43 @@ def test_run_3d_to_3d_matches_jax(tmp_path, monkeypatch):
             m = load(str(tmp_path / path))
             assert len(m.f) > 0 and m.albedo is not None
 
+    # the debug tiles: one a view a step, the same names in both packages,
+    # each within the albedo's mean |d| <= 0.05
+    names = sorted(os.listdir(tmp_path / "debug_jax"))
+    assert names == sorted(os.listdir(tmp_path / "debug_port"))
+    # 3 views x (the first fit and 2 timesteps)
+    assert names == [f"{i:03d}_{v:03d}.png" for i in range(3)
+                     for v in range(3)]
+    for name in names:
+        a, b = (np.asarray(Image.open(tmp_path / d / name), np.float32)
+                / 255 for d in ("debug_jax", "debug_port"))
+        assert a.shape == b.shape
+        assert np.abs(a - b).mean() <= 0.05, name
+    # the port's GLB is the same without them
+    monkeypatch.setattr(type(tr), "_cfg_from_schema",
+                        type(tr)._cfg_from_schema)
+    tr.run_3d_to_3d(src, "a red torus", seed=1,
+                    out_path=str(tmp_path / "port_nodebug.glb"),
+                    draws=JaxDraws(jax.random.PRNGKey(1), ingp))
+    assert (tmp_path / "port_nodebug.glb").read_bytes() == \
+        (tmp_path / "port.glb").read_bytes()
+
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports with `jax`, `jaxlib`, `flax`,
-    `optax` and `mvedit_tpu` blocked; the tiny request then runs to its
-    GLB, decimation included, and so does a tiny `run_retex` with the front
-    view and IP-Adapter. GRM with the gaussian renderer, TSDF fusion with
-    marching cubes, and `parallel.dryrun` over a 1-rank gloo group run
-    there too."""
+    `optax` and `mvedit_tpu` blocked, and `gradio` and `dearpygui` too; the
+    tiny request then runs to its GLB, decimation included, and so does a
+    tiny `run_retex` with the front view and IP-Adapter. GRM with the
+    gaussian renderer, TSDF fusion with marching cubes, and
+    `parallel.dryrun` over a 1-rank gloo group run there too; `build_app`
+    raises `ImportError` and a `MeshViewer` frame renders."""
     code = r'''
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "optax", "mvedit_tpu"):
+        if top in ("jax", "jaxlib", "flax", "optax", "mvedit_tpu",
+                   "gradio", "dearpygui"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import mvedit_tpu_torch
@@ -191,8 +234,21 @@ rt = Adapter3DRunner(tiny_models=True, device="cpu").run_retex(
 assert Mesh.load(os.path.join(d, "retex.glb")).albedo is not None
 new = {"mvedit_tpu_torch." + m for m in (
     "models.grm", "models.mesh.gaussians", "models.mesh.tsdf",
-    "ops.marching_cubes", "parallel", "parallel.sharded", "testing")}
+    "ops.marching_cubes", "parallel", "parallel.sharded", "testing",
+    "ops.morton", "utils.vdb", "utils.debug_viz", "apis.viewer",
+    "apis.webui", "tools.generate_tets", "tools.glb_to_obj",
+    "tools.kitti_preproc", "tools.checkpoint_cleaner",
+    "tools.convert_weights", "tools.example_api_local")}
 assert new <= set(sys.modules), new - set(sys.modules)
+from mvedit_tpu_torch.apis import viewer, webui
+try:
+    webui.build_app(None)
+    raise AssertionError("build_app ran without gradio")
+except ImportError:
+    pass
+frame = viewer.MeshViewer(Mesh.load(os.path.join(d, "in.glb")),
+                          render_size=32, device="cpu").frame(0.3)
+assert frame.shape == (32, 32, 3) and (frame < 1).any()
 import socket, torch, torch.distributed as dist
 from mvedit_tpu_torch.models.grm import (GRMConfig, GRMEncoder,
     GaussianUpsampler, pixels_to_gaussians, plucker_rays)
