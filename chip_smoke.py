@@ -13,6 +13,8 @@
                                              # a render-all, timed
     python3 chip_smoke.py --time-retex       # retex requests timed, one
                                              # with its segment sums traced
+    python3 chip_smoke.py --request-only     # phase 7's requests alone, the
+                                             # GLBs' sha256 printed
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
@@ -82,11 +84,16 @@ over a 1-rank NCCL group.
    32 convs), on the torus knot written to a GLB. Cut in depth only:
    steps 8 (of 24), init_inverse_steps 32 (of 256), n_inverse_steps 16
    (of 80), tet_init_inverse_steps 24 (of 120). The warm request's wall
-   time, phase times (`utils.profiling.PhaseTimer`) and peak memory are
-   printed; the raster kernel's launches are counted in `load_init_mesh`,
-   the mesh fit, the re-render and the bake, each on its own; the cold
-   and the warm request share one seed, and their GLBs' vertices, faces
-   and albedo must be bit-equal;
+   time, phase times (`utils.profiling.PhaseTimer`: each phase's total
+   and its `steady` median of warm ticks) and peak memory are printed;
+   the raster kernel's launches are counted in `load_init_mesh`, the
+   mesh fit, the re-render and the bake, each on its own; the cold and
+   the warm request share one seed, and their GLBs' vertices, faces and
+   albedo must be bit-equal (their sha256 printed). Then
+   `models.mesh.render_mesh_attrs` once on the warm GLB at the fit's
+   raster config (512^2, K 1024 + 64), bit-equal to `project_mesh`,
+   `rasterize` and `interpolate` composed by hand, its raster launch
+   counted, its time a call;
 8. tet 256 on the request's fitted field: the switch, 8 fit steps (of
    120), then the bake with `mesh_reduction` 0.5: QEM decimation, 4 steps
    (of 24) of texture refinement, the UV bake;
@@ -195,7 +202,11 @@ over a 1-rank NCCL group.
    step; the state holds the LoRA alone, the frozen base is bit-equal to
    its initial value, and the two runs are bit-equal (LoRA, codes,
    decoder, optimizer states, EMA); then `tools/test_ssdnerf.py
-   --recons-views 1` on one scene (25 of 100 val_optim steps);
+   --recons-views 1` on one scene (25 of 100 val_optim steps). The CLIs
+   seed the frozen weights from CPU generators (one base on every
+   device): each `build_denoiser` must get one, and the seeded builds
+   (`train_ssdnerf.init_models`, `test_ssdnerf.eval_denoiser`) are timed
+   beside one build of the same base from the card's generator;
 21. the paper family at its (3, 6, 128, 128) code on phase 19's 8 scenes
    (8 scenes x 4096 rays x 96 samples a step, 4 steps each):
    `stage1_cars_recons16v_16bit_filesystem`, `ssdnerf_cars_recons1v`
@@ -264,7 +275,8 @@ over a 1-rank NCCL group.
 Every phase asserts; any failure exits non-zero before the last line. The
 launch counters are set to 0 before each path and read after it (the
 denoise path of phases 4-5; `load_init_mesh`, the fit and the re-render in
-phase 6; the request, part by part, in phase 7; the retex request in
+phase 6; the request, part by part, and `render_mesh_attrs` in phase 7;
+the retex request in
 phase 10; each request and the video in phase 11; each request in phases
 12, 13 and 17; phase 16; each training run and the recons eval in phases
 19-21; phases 23 and 25; the viewer's turntable, the debug request and
@@ -293,6 +305,12 @@ under `torch.profiler` with every segment sum on a stream of its own:
 the device time of that stream's kernels); with `--time-fits`, both. An
 earlier commit's package is timed the same way as with `--time-fits`.
 
+`--request-only` does phases 1-2 and then only phase 7's two requests,
+printing their GLBs' sha256; a copy of the script inside an unpacked
+earlier commit runs that commit's package, so that two trees' GLBs can be
+compared on one card (the endpoints seed on the card, so a change that
+leaves them alone leaves the bytes equal).
+
 `--profile OUT_DIR` then runs `torch.profiler` over one warm
 `run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
 chunks and two warm NeRF-fit chunks at 256^2, reads the trace
@@ -303,6 +321,7 @@ chrome traces, to OUT_DIR.
 import argparse
 import dataclasses
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -533,7 +552,12 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_EXP = 3.9e12
-R = torch.profiler.record_function   # named ranges, read by --profile
+
+
+def R(name):
+    """A named range of --profile's trace: the port's `annotate`."""
+    from mvedit_tpu_torch.utils.profiling import annotate
+    return annotate(name)
 
 
 def log(*a):
@@ -1932,8 +1956,12 @@ def phase_request(runner, tmp):
             f"{losses.numel()} fit losses (first {float(losses[0]):.4f}, "
             f"last {float(losses[-1]):.4f}) {'ok' if ok else 'FAIL'}")
         for name, sec in pt.report().items():
+            # (an earlier commit's timer, under --request-only, has none)
+            st = pt.steady(name) if hasattr(pt, "steady") else None
             log(f"[request] {run}   phase {name}: {sec:.3f} s over "
-                f"{pt.counts[name]} ticks: " + ", ".join(
+                f"{pt.counts[name]} ticks, steady (median warm tick) "
+                f"{'none warm' if st is None else f'{st:.3f} s'}: "
+                + ", ".join(
                     f"{d:.3f} {sg}" for d, sg in zip(pt.durations[name],
                                                      pt.sigs[name])))
         log(f"[launches] {run} request: flash_attention {fa} (staged "
@@ -1963,10 +1991,68 @@ def phase_request(runner, tmp):
                                    getattr(glbs[1], k)))
             for k in ("v", "f", "albedo")}
     log(f"[request] cold and warm GLBs bit-equal (one seed): {same}")
+    for run in ("cold", "warm"):
+        with open(os.path.join(tmp, f"out_{run}.glb"), "rb") as f:
+            log(f"[request] {run} GLB sha256 "
+                f"{hashlib.sha256(f.read()).hexdigest()}")
     if not all(same.values()):
         raise AssertionError("two requests of one seed gave two GLBs")
     check_shapes("request", shapes)
     return total_parts, total_fa, dict(out=out, src=src, first=first)
+
+
+def phase_mesh_attrs(tmp):
+    """`models.mesh.render_mesh_attrs` once on phase 7's warm GLB at the
+    fit's raster config (512^2, span 2, K 1024 + 64) from the rig's first
+    pose, with the vertex positions and a seeded colour as attributes:
+    bit-equal to `project_mesh`, `rasterize` and `interpolate` composed by
+    hand, one raster launch; then its time (CUDA events, median of
+    TIMED_RUNS calls; these launches are not counted). Returns the
+    launches."""
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import (Mesh, RasterConfig,
+                                              interpolate, pose_to_w2c,
+                                              project_mesh, rasterize,
+                                              render_mesh_attrs)
+    from mvedit_tpu_torch.models.mesh.rasterize import tile_load
+    glb = Mesh.load(os.path.join(tmp, "out_warm.glb"))
+    poses, intr, _ = _rig(SIZE)
+    v = torch.as_tensor(glb.v, dtype=torch.float32, device=DEV)
+    f = torch.as_tensor(glb.f, dtype=torch.int64, device=DEV)
+    valid = torch.ones(len(f), dtype=torch.bool, device=DEV)
+    w2c = pose_to_w2c(torch.as_tensor(poses[0, :3], device=DEV))
+    k = torch.as_tensor(intr[0], dtype=torch.float32, device=DEV)
+    cfg = RasterConfig(SIZE, SIZE, span=2, k_per_tile=1024, k_big=64)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    attrs = {"xyz": v, "color": torch.rand(v.shape, generator=gen,
+                                          device=DEV)}
+
+    def call():
+        return render_mesh_attrs(v, f, valid, w2c, k, cfg, attrs)
+    RS.raster_select.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    launches = RS.raster_select.launches
+    pts = project_mesh(v, w2c, k, cfg.near)
+    ref = rasterize(pts, f, valid, cfg)
+    for name, a in attrs.items():
+        ref[name] = interpolate(a, ref, f)
+    same = {n: bool(torch.equal(out[n], ref[n])) for n in ref}
+    pairs, big = tile_load(pts, f, valid, cfg)
+    over = int((pairs > cfg.k_per_tile).sum())
+    ms = median_ms(call)
+    covered = float((out["tri_id"] >= 0).float().mean())
+    ok = launches == 1 and all(same.values()) and set(out) == set(ref) \
+        and covered > 0.01 and bool(torch.isfinite(out["color"]).all())
+    log(f"[mesh_attrs] render_mesh_attrs on phase 7's GLB ({len(glb.f)} "
+        f"faces) at {SIZE}^2, K {cfg.k_per_tile} + {cfg.k_big}: raster_select "
+        f"{launches} launch, covered share {covered:.4f}, {over} overflowing "
+        f"tiles, {big} big triangles; bit-equal to the composed calls: "
+        f"{same}; {ms:.3f} ms a call (median of {TIMED_RUNS}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("render_mesh_attrs failed its checks")
+    return launches
 
 
 def phase_tet256(runner, ctx):
@@ -3375,13 +3461,33 @@ def phase_stablessdnerf(tmp):
                 "import (ssdnerf_config, train_config, build_denoiser, "
                 f"make_cond_fn)\ncaptions = {cap_path!r}\n")
     built, real = [], S.build_denoiser
+    real_init, real_eval = train_ssdnerf.init_models, \
+        test_ssdnerf.eval_denoiser
+    gen_devices = []
 
-    def build(*a, **k):
+    def build(generator=None, device=None):
         # the frozen base as built, on the host, to compare after the run
-        net = real(*a, **k)
+        gen_devices.append(generator.device.type)
+        net = real(generator, device)
         built.append((net, {n: v.cpu() for n, v in
                             net.unet.state_dict().items()}))
         return net
+
+    def timed(fn, tag):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log(f"[stablessdnerf] {tag}: {time.perf_counter() - t0:.3f} s "
+                f"(seeded weights drawn from CPU generators, then copied "
+                f"to the card)")
+            return out
+        return wrapped
+    train_ssdnerf.init_models = timed(real_init, "init_models (decoder, "
+                                      "SD2.1 UNet + LoRA, LPIPS)")
+    test_ssdnerf.eval_denoiser = timed(real_eval, "eval_denoiser (the "
+                                       "seed-0 SD2.1 UNet + LoRA)")
 
     def train(config, work, *extra):
         return train_ssdnerf.main(["--config", config, "--data", data,
@@ -3398,6 +3504,9 @@ def phase_stablessdnerf(tmp):
                                            "stablessdnerf", runs=2)
     finally:
         S.build_denoiser = real
+    log(f"[stablessdnerf] build_denoiser's generators: {gen_devices}")
+    if gen_devices != ["cpu", "cpu"]:
+        raise AssertionError("a CLI seeded the frozen base on the card")
     net, base0 = built[0]
     n_lora = sum(v.numel() for v in outs[0].trainer.state[
         "denoiser"].values())
@@ -3417,6 +3526,15 @@ def phase_stablessdnerf(tmp):
         raise AssertionError("the LoRA recipe's state, base or runs differ")
     del built[:], net, base0
     torch.cuda.empty_cache()
+    # what the CPU draws cost: the same build from the card's generator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = real(torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    torch.cuda.synchronize()
+    log(f"[stablessdnerf] build_denoiser from the card's generator (no "
+        f"CPU draws), for comparison: {time.perf_counter() - t0:.3f} s")
+    del net
+    torch.cuda.empty_cache()
     SS.segment_sum.launches = 0
     t0 = time.perf_counter()
     got = test_ssdnerf.main(["--config", cfg, "--data", data, "--work-dir",
@@ -3431,6 +3549,8 @@ def phase_stablessdnerf(tmp):
         f"prior on): PSNR {got['psnr']:.3f}, SSIM {got['ssim']:.4f}, "
         f"{wall:.3f} s with the models' build; segment_sum "
         f"{SS.segment_sum.launches} launches {'ok' if ok else 'FAIL'}")
+    train_ssdnerf.init_models, test_ssdnerf.eval_denoiser = real_init, \
+        real_eval
     if not ok:
         raise AssertionError("the LoRA recipe's recons eval failed")
     steps = [x for o in outs for x in o.step_seconds[1:]]
@@ -4870,6 +4990,11 @@ def main():
     ap.add_argument("--time-fits", action="store_true",
                     help="only time a warm NeRF-fit chunk and a render-all "
                          "(host clock, median of several)")
+    ap.add_argument("--request-only", action="store_true",
+                    help="phases 1-2 and phase 7's two requests only (their "
+                         "GLBs' sha256 printed); a copy of the script "
+                         "inside an unpacked earlier commit runs that "
+                         "commit's package")
     ap.add_argument("--time-retex", action="store_true",
                     help="only time retex requests and trace one "
                          "request's segment sums (with --time-fits: both)")
@@ -4897,6 +5022,11 @@ def main():
         return
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
+    if args.request_only:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_request(Adapter3DRunner(seed=SEED, device=DEV), tmp)
+        return
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.kernels import segment_sum as SS
     from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
@@ -4943,6 +5073,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         SS.segment_sum.launches = 0
         req_launches, req_flash, req_ctx = phase_request(runner, tmp)
+        attrs_raster = phase_mesh_attrs(tmp)
         phase_tet256(runner, req_ctx)
         seg_launches += SS.segment_sum.launches
         ckpt = phase_checkpoint(tmp)
@@ -5075,8 +5206,9 @@ def main():
          + sum(req_launches.values()) + retex["raster"]
          + superres["raster"] + i23["raster"] + v12["raster"]
          + unst["raster"] + t23["raster"] + viewer_raster
-         + debug["raster"] + webui_raster,
+         + debug["raster"] + webui_raster + attrs_raster,
          "text_to_3d_launches": t23["raster"],
+         "render_mesh_attrs_launches": attrs_raster,
          "viewer_launches": viewer_raster,
          "tile32_launches": superres["tile32"],
          "max_abs_err": max(r["key_err"] for r in raster_rows),

@@ -62,7 +62,11 @@ _CHECKPOINT_FILES = ("diffusion_pytorch_model.safetensors",
 @torch.no_grad()
 def init_random_(module, generator):
     """Seeded init in place, after flax's defaults: weights of rank >= 2
-    N(0, 1/fan_in), biases 0, norm weights 1, zero-initialised heads 0."""
+    N(0, 1/fan_in), biases 0, norm weights 1, zero-initialised heads 0.
+    The weights are drawn on the generator's device and copied to the
+    parameters', so that a CPU generator of one seed gives the same weights
+    on every device (the CPU's and the card's generators give different
+    streams)."""
     for name, p in module.named_parameters():
         if any(z in name for z in _ZERO_INIT) or name.endswith("bias"):
             p.zero_()
@@ -70,9 +74,9 @@ def init_random_(module, generator):
             p.fill_(1.0)
         else:
             fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device, dtype=p.dtype)
-                    * fan_in ** -0.5)
+            dev = generator.device if generator is not None else p.device
+            p.copy_(torch.randn(p.shape, generator=generator, device=dev,
+                                dtype=p.dtype) * fan_in ** -0.5)
     return module
 
 

@@ -110,7 +110,9 @@ class LoRADenoiser(nn.Module):
 
 def build_denoiser(generator=None, device=None):
     """The seeded SD2.1 UNet (flax's default init), frozen, with a seeded
-    rank-32 LoRA on every to_q / to_k / to_v / to_out, on `device`."""
+    rank-32 LoRA on every to_q / to_k / to_v / to_out, on `device`. The
+    weights are drawn on the generator's device: the CLIs pass a CPU
+    generator, so that one seed gives one base on every device."""
     from mvedit_tpu_torch.apis.runner import init_random_
     with torch.device(device or "cpu"):
         unet = UNet2DCondition(SD21_UNET)
@@ -134,11 +136,12 @@ def _tokenizer():
 
 def make_cond_fn(device=None):
     """The frozen text tower: captions -> (B, 77, 1024) embeddings on
-    `device`. Weights seeded (seed 1, the JAX recipe's key); the tokenizer
+    `device`. Weights seeded from a CPU generator (seed 1, the JAX
+    recipe's key), the same on every device; the tokenizer
     is CLIP's BPE where `$MVEDIT_CHECKPOINT_DIR/tokenizer/vocab.json`
     exists, else the stand-in `HashTokenizer`."""
     from mvedit_tpu_torch.apis.runner import init_random_
-    generator = torch.Generator(device=device or "cpu").manual_seed(1)
+    generator = torch.Generator().manual_seed(1)
     with torch.device(device or "cpu"):
         net = CLIPTextModel(SD21_TEXT)
     with torch.no_grad():

@@ -1,23 +1,66 @@
-// Quadric-error-metric mesh decimation on the host, exposed to Python
-// through ctypes (`mvedit_tpu_torch/native/__init__.py`). A copy of the
+// Host mesh processing, exposed to Python through ctypes
+// (`mvedit_tpu_torch/native/__init__.py`). A copy of the vertex weld and the
 // decimation in `mvedit_tpu/native/mesh_native.cpp`, so that both packages
-// simplify a mesh to the same faces: it stands in for Open3D's
-// simplify_quadric_decimation after the DMTet extraction.
+// weld and simplify a mesh to the same vertices and faces: the decimation
+// stands in for Open3D's simplify_quadric_decimation after the DMTet
+// extraction.
 //
 // Exposed C API (plain arrays, the caller allocates the outputs at the
 // input's sizes):
-//   decimate_qem: edge-collapse simplification to ~target_faces; returns
-//                 (face count << 32) | vertex count.
+//   weld_vertices: spatial-hash merge of the vertices that fall into one
+//                  cell of edge eps; returns the new vertex count.
+//   decimate_qem:  edge-collapse simplification to ~target_faces; returns
+//                  (face count << 32) | vertex count.
 
 #include <cstdint>
 #include <cstring>
 #include <cmath>
 #include <vector>
 #include <queue>
+#include <unordered_map>
 #include <algorithm>
 #include <functional>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// weld_vertices: merge vertices closer than eps. Returns new vertex count.
+// remap[v_old] = v_new index into out_verts, in first-seen order.
+// ---------------------------------------------------------------------------
+int64_t weld_vertices(const float* verts, int64_t n_verts, float eps,
+                      float* out_verts, int64_t* remap) {
+    struct Key { int64_t x, y, z; };
+    struct KeyHash {
+        size_t operator()(const Key& k) const {
+            return (size_t)(k.x * 73856093LL ^ k.y * 19349663LL
+                            ^ k.z * 83492791LL);
+        }
+    };
+    struct KeyEq {
+        bool operator()(const Key& a, const Key& b) const {
+            return a.x == b.x && a.y == b.y && a.z == b.z;
+        }
+    };
+    const float inv = eps > 0 ? 1.0f / eps : 1e12f;
+    std::unordered_map<Key, int64_t, KeyHash, KeyEq> grid;
+    grid.reserve((size_t)n_verts);
+    int64_t n_out = 0;
+    for (int64_t i = 0; i < n_verts; ++i) {
+        const float* p = verts + 3 * i;
+        Key k{(int64_t)std::floor(p[0] * inv),
+              (int64_t)std::floor(p[1] * inv),
+              (int64_t)std::floor(p[2] * inv)};
+        auto it = grid.find(k);
+        if (it == grid.end()) {
+            grid.emplace(k, n_out);
+            std::memcpy(out_verts + 3 * n_out, p, 3 * sizeof(float));
+            remap[i] = n_out++;
+        } else {
+            remap[i] = it->second;
+        }
+    }
+    return n_out;
+}
 
 // ---------------------------------------------------------------------------
 // Quadric-error-metric decimation (Garland-Heckbert). Simplifies in place

@@ -67,7 +67,8 @@ def pixel_rays(poses, intrinsics, vi, yi, xi, hw):
     """(rays_o, rays_d) (n, 3) float32 of pixels (vi, yi, xi): view vi's
     c2w `poses` (V, 3, 4) and [fx, fy, cx, cy] `intrinsics` (V, 4), pixel
     centres of an (h, w) = `hw` image, directions normalised; the bits of
-    the JAX package's `get_cam_rays` on the CPU."""
+    the JAX package's `get_cam_rays` on the CPU (`utils.geometry.
+    get_cam_rays` gives the same rays of whole images within rounding)."""
     poses = np.asarray(poses, np.float32)[vi]
     intr = np.asarray(intrinsics, np.float32)[vi]
     dx = (pixel_centres(xi, hw[1]) - intr[:, 2]) / intr[:, 0]

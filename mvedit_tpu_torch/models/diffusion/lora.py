@@ -23,7 +23,8 @@ def init_lora(generator, params, rank=8, match=None, std=0.01):
     """{path: {"a": N(0, std^2) (rank, in), "b": zeros (out, rank)}} for
     every 2-D `path.weight` of `params` ({name: tensor}, in its order)
     whose path contains one of `match` (None: the attention projections
-    to_q / to_k / to_v / to_out)."""
+    to_q / to_k / to_v / to_out). `a` is drawn on the generator's device
+    and moved to the weight's."""
     keys = match or _MATCH
     lora = {}
     for name, w in params.items():
@@ -33,9 +34,10 @@ def init_lora(generator, params, rank=8, match=None, std=0.01):
         if not any(m in path for m in keys):
             continue
         d_out, d_in = w.shape
+        dev = generator.device if generator is not None else w.device
         lora[path] = {
-            "a": torch.randn((rank, d_in), generator=generator,
-                             device=w.device) * std,
+            "a": (torch.randn((rank, d_in), generator=generator, device=dev)
+                  * std).to(w.device),
             "b": torch.zeros((d_out, rank), device=w.device),
         }
     return lora

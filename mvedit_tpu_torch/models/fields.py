@@ -26,12 +26,14 @@ __all__ = ["mlp_init", "mlp_apply", "INGPConfig", "ingp_init",
 
 
 def mlp_init(dims, generator=None, device=None):
-    """Xavier-uniform MLP params for layer sizes `dims`, zero biases."""
+    """Xavier-uniform MLP params for layer sizes `dims`, zero biases; drawn
+    on the generator's device and moved to `device`."""
     params = []
+    draw = generator.device if generator is not None else device
     for d_in, d_out in zip(dims[:-1], dims[1:]):
         bound = (6.0 / (d_in + d_out)) ** 0.5
-        w = torch.rand((d_in, d_out), generator=generator, device=device)
-        params.append({"w": w * (2 * bound) - bound,
+        w = torch.rand((d_in, d_out), generator=generator, device=draw)
+        params.append({"w": (w * (2 * bound) - bound).to(device),
                        "b": torch.zeros((d_out,), device=device)})
     return params
 

@@ -1,4 +1,4 @@
-"""Losses (counterpart of `mvedit_tpu/models/losses.py`): L1, TV, the
+"""Losses (counterpart of `mvedit_tpu/models/losses.py`): L1, MSE, TV, the
 opacity entropy and LPIPS.
 
 LPIPS is the VGG16 feature stack with the linear calibration heads, as
@@ -17,8 +17,8 @@ import torch.nn.functional as F
 
 from ..ops.clip import clip
 
-__all__ = ["l1_loss", "tv_loss", "entropy_loss", "lpips_init", "lpips_apply",
-           "lpips_params_from_flax", "lpips_params_from_torch",
+__all__ = ["l1_loss", "mse_loss", "tv_loss", "entropy_loss", "lpips_init",
+           "lpips_apply", "lpips_params_from_flax", "lpips_params_from_torch",
            "deterministic_convs"]
 
 
@@ -51,6 +51,10 @@ def _abs(x):
 
 def l1_loss(pred, target, weight=None):
     return _weighted_mean(_abs(pred - target), weight)
+
+
+def mse_loss(pred, target, weight=None):
+    return _weighted_mean((pred - target) ** 2, weight)
 
 
 def tv_loss(x, target=None, weight=None, power=1.5):
@@ -94,13 +98,15 @@ _SCALE = (0.458, 0.448, 0.450)
 
 def lpips_init(generator=None, device=None, dtype=torch.float32):
     """Seeded LPIPS params at VGG16's published widths: conv weights
-    N(0, 1/fan_in), zero biases, heads 1/c (the reference's random init)."""
+    N(0, 1/fan_in), zero biases, heads 1/c (the reference's random init),
+    drawn on the generator's device and moved to `device`."""
     convs, c_in = [], 3
+    draw = generator.device if generator is not None else device
     for v in _VGG16_CFG:
         if v == "M":
             continue
-        w = torch.randn((v, c_in, 3, 3), generator=generator, device=device,
-                        dtype=dtype) / (9 * c_in) ** 0.5
+        w = (torch.randn((v, c_in, 3, 3), generator=generator, device=draw,
+                         dtype=dtype) / (9 * c_in) ** 0.5).to(device)
         convs.append({"w": w, "b": torch.zeros((v,), device=device,
                                                dtype=dtype)})
         c_in = v

@@ -1,7 +1,8 @@
 """Mesh stack of the port: structured and unstructured marching tets, the
 tile rasterizer, the multi-view renderer and UV bake, texture sampling,
 TSDF fusion, and the host-side mesh container."""
-from .rasterize import RasterConfig, interpolate, project_mesh, rasterize
+from .rasterize import (RasterConfig, interpolate, project_mesh, rasterize,
+                        render_mesh_attrs)
 from .container import Mesh
 from .renderer import (bake_texture, camera_weights_uv, pose_to_w2c,
                        render_views, vertex_normals)
@@ -14,7 +15,8 @@ from .texture import (bake_multiview, build_mipmaps, sample_texture,
 from .tsdf import tsdf_integrate, tsdf_rgbd_to_mesh, tsdf_to_mesh
 
 __all__ = ["RasterConfig", "project_mesh", "rasterize", "interpolate",
-           "vertex_normals", "pose_to_w2c", "render_views", "bake_texture",
+           "render_mesh_attrs", "vertex_normals", "pose_to_w2c",
+           "render_views", "bake_texture",
            "camera_weights_uv", "build_mipmaps", "sample_texture",
            "uv_screen_derivatives", "bake_multiview", "Mesh",
            "StructuredTetGrid", "marching_tets_structured",

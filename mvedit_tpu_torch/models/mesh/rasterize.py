@@ -32,7 +32,7 @@ from ...ops.clip import clip
 from ...ops.segment import gather_rows
 
 __all__ = ["RasterConfig", "project_mesh", "candidates", "tile_load",
-           "rasterize", "interpolate"]
+           "rasterize", "interpolate", "render_mesh_attrs"]
 
 
 @dataclass(frozen=True)
@@ -273,3 +273,15 @@ def interpolate(attr, rast, faces):
     out = gather_rows(attr, f[..., 0]) * (1 - u - v) \
         + gather_rows(attr, f[..., 1]) * u + gather_rows(attr, f[..., 2]) * v
     return out * (rast["tri_id"] >= 0)[..., None].to(out.dtype)
+
+
+def render_mesh_attrs(verts, faces, face_valid, pose_w2c, intrinsics,
+                      cfg: RasterConfig, attrs=None):
+    """`project_mesh`, `rasterize` and `interpolate` of each per-vertex
+    attribute of the dict `attrs`: the raster maps with one (H, W, C) map
+    per attribute name added."""
+    pts = project_mesh(verts, pose_w2c, intrinsics, cfg.near)
+    out = rasterize(pts, faces, face_valid, cfg)
+    for name, a in (attrs or {}).items():
+        out[name] = interpolate(a, out, faces)
+    return out

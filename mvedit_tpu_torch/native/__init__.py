@@ -1,9 +1,12 @@
-"""Host-side mesh decimation (counterpart of `mvedit_tpu/native`).
+"""Host-side mesh welding and decimation (counterpart of
+`mvedit_tpu/native`).
 
-`decimate_qem` calls the quadric-error-metric edge collapse of
-`csrc/mesh_native.cpp`, built with g++ at first use into `_build/` and
-bound through ctypes. `native_available()` says whether the library built;
-the pipeline skips decimation without it, as the reference does.
+`weld_vertices` (the spatial-hash vertex merge) and `decimate_qem` (the
+quadric-error-metric edge collapse) call `csrc/mesh_native.cpp`, built
+with g++ at first use into `_build/` and bound through ctypes.
+`native_available()` says whether the library built. Without it
+`weld_vertices` takes the reference's numpy fallback (quantise and
+unique), and the pipeline skips decimation, as the reference does.
 """
 import ctypes
 import os
@@ -12,7 +15,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["decimate_qem", "native_available"]
+__all__ = ["weld_vertices", "decimate_qem", "native_available"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_HERE), "csrc", "mesh_native.cpp")
@@ -43,6 +46,10 @@ def _load():
         except (OSError, subprocess.SubprocessError):
             _failed = True
             return None
+        lib.weld_vertices.restype = ctypes.c_int64
+        lib.weld_vertices.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64)]
         lib.decimate_qem.restype = ctypes.c_int64
         lib.decimate_qem.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
@@ -58,6 +65,30 @@ def native_available():
 
 def _ptr(arr, typ):
     return arr.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def weld_vertices(verts, faces, eps=1e-6):
+    """Merge the vertices of (verts (V, 3), faces (F, 3)) that share a cell
+    of edge `eps`: the library keeps each cell's first vertex in input
+    order (cells at floor(v / eps)); without the library, the reference's
+    fallback keeps one vertex per rounded key, in sorted key order.
+    Returns (verts', faces') float32 / int32."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
+        raise ValueError("face index out of range")
+    lib = _load()
+    if lib is None:
+        key = np.round(verts / max(eps, 1e-12)).astype(np.int64)
+        _, first, remap = np.unique(key, axis=0, return_index=True,
+                                    return_inverse=True)
+        return verts[first], remap.reshape(-1)[faces].astype(np.int32)
+    out_v = np.empty_like(verts)
+    remap = np.empty((len(verts),), np.int64)
+    n = lib.weld_vertices(_ptr(verts, ctypes.c_float), len(verts),
+                          ctypes.c_float(eps), _ptr(out_v, ctypes.c_float),
+                          _ptr(remap, ctypes.c_int64))
+    return out_v[:n].copy(), remap[faces].astype(np.int32)
 
 
 def decimate_qem(verts, faces, target_faces):

@@ -1,5 +1,4 @@
-"""Image-space ops (counterpart of `mvedit_tpu/ops/image.py`; `fill_holes`
-waits for its slice).
+"""Image-space ops (counterpart of `mvedit_tpu/ops/image.py`).
 
 - `gaussian_blur` / `highpass`: the Gaussian high-pass applied to normal
   maps before LPIPS;
@@ -8,7 +7,9 @@ waits for its slice).
   with a triangle kernel widened by the scale when it shrinks (antialias);
   `F.interpolate(mode="bilinear", antialias=True)` is the same filter;
 - `edge_dilation`: iterative fill of the pixels outside a mask from their
-  valid 3x3 neighbours, used to pad texture atlases.
+  valid 3x3 neighbours, used to pad texture atlases;
+- `fill_holes`: grayscale reconstruction by erosion, which raises the dark
+  basins that do not touch the border.
 """
 import torch
 import torch.nn.functional as F
@@ -16,7 +17,9 @@ import torch.nn.functional as F
 from .clip import clip
 
 __all__ = ["gaussian_kernel1d", "gaussian_blur", "highpass", "erode",
-           "resize_bilinear", "edge_dilation"]
+           "resize_bilinear", "edge_dilation", "fill_holes"]
+
+_FILL_CHECK = 16        # fill_holes' steps between two convergence checks
 
 
 def gaussian_kernel1d(sigma, radius=None, device=None):
@@ -92,3 +95,36 @@ def edge_dilation(img, mask, n_iters=16):
         im = torch.where(m[..., None] > 0, im, filled)
         m = torch.maximum(m, (msum > 0).float())
     return im
+
+
+@torch.no_grad()
+def fill_holes(image, max_iters=None):
+    """Fill the dark holes of a grayscale (H, W) image, leaving the border:
+    reconstruction by erosion (skimage's `reconstruction(seed, image,
+    method="erosion")`) from the seed `image.max()` everywhere but the
+    1-pixel border. It iterates `f <- max(minpool3x3(f), image)` to its
+    fixed point, at most `max_iters` (default H + W, the longest path a
+    value can travel) steps after the first, as the reference does; the
+    fixed point is tested every `_FILL_CHECK` steps, so that the card is
+    not waited for after each. Returns float32 (H, W)."""
+    img = torch.as_tensor(image, dtype=torch.float32)
+    H, W = img.shape
+    if max_iters is None:
+        max_iters = H + W
+    f = torch.full_like(img, float(img.max()))
+    f[0, :], f[-1, :], f[:, 0], f[:, -1] = img[0, :], img[-1, :], \
+        img[:, 0], img[:, -1]
+
+    def step(x):
+        # the min-pool pads with +inf, as the reference's reduce_window
+        return torch.maximum(-F.max_pool2d(-x[None, None], 3, 1, 1)[0, 0],
+                             img)
+    left = max_iters + 1
+    while left > 0:
+        for _ in range(min(_FILL_CHECK, left) - 1):
+            f = step(f)
+        prev, f = f, step(f)
+        left -= min(_FILL_CHECK, left)
+        if torch.equal(f, prev):
+            break
+    return f

@@ -37,8 +37,9 @@ def parse_args(argv=None):
 
 def load_inception(checkpoint_dir, device):
     """`InceptionV3Features` on `device`: from `checkpoint_dir/inception/`,
-    or seeded (flax's default init: conv weights N(0, 1 / fan_in), BN
-    scale 1, bias 0, running mean 0 and var 1)."""
+    or seeded from a CPU generator of seed 0, the same on every device
+    (flax's default init: conv weights N(0, 1 / fan_in), BN scale 1, bias
+    0, running mean 0 and var 1)."""
     from ..apis.runner import _CHECKPOINT_FILES, init_random_
     from ..models.diffusion.weights import load_torch_state
     from ..models.inception import InceptionV3Features
@@ -58,7 +59,7 @@ def load_inception(checkpoint_dir, device):
                            f"{unexpected[:5]}")
     else:
         with torch.no_grad():
-            init_random_(net, torch.Generator(device=device).manual_seed(0))
+            init_random_(net, torch.Generator().manual_seed(0))
         print("WARNING: seeded inception weights; features are only "
               "self-consistent")
     return net.eval()

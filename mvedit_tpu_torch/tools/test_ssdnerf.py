@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["main"]
+__all__ = ["eval_denoiser", "main"]
 
 
 def parse_args(argv=None):
@@ -32,6 +32,14 @@ def parse_args(argv=None):
     ap.add_argument("--recons-steps", type=int, default=100)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
+
+
+def eval_denoiser(cfg_mod, device):
+    """The denoiser the recons eval uses: the config's `build_denoiser`
+    from a CPU generator of seed 0, whatever seed the run trained with
+    (the reference rebuilds it from PRNGKey(0)); the checkpoint's params,
+    a LoRA recipe's LoRA alone, go on top of it."""
+    return cfg_mod.build_denoiser(torch.Generator().manual_seed(0), device)
 
 
 def main(argv=None):
@@ -81,8 +89,7 @@ def main(argv=None):
         schedule = S.sd_schedule(prediction_type="v_prediction")
         denoise_apply = None
         if "denoiser" in state and hasattr(cfg_mod, "build_denoiser"):
-            denoise_apply = module_apply(cfg_mod.build_denoiser(
-                torch.Generator(device=device).manual_seed(0), device))
+            denoise_apply = module_apply(eval_denoiser(cfg_mod, device))
         val_optim = make_val_optim(
             denoise_apply, cfg.triplane, cfg, schedule,
             n_steps=args.recons_steps,

@@ -13,7 +13,10 @@ cache_dtype, cache_backend ("filesystem": one file a scene under
 use_lpips, lpips_weight. The run ends with `scene_cache.npz` (or the
 filesystem cache's `steps.npz`) in the work dir; `--resume` reloads the
 last checkpoint, its EMA and that cache. Runs on the card unless
-`--device cpu`.
+`--device cpu`. The seeded initial weights come from CPU generators, so
+that one seed gives one set of them on every device (`init_models`); the
+run's own draws (rays, timesteps, noise) come from a generator on the
+device.
 """
 import argparse
 import importlib.util
@@ -24,7 +27,7 @@ import types
 import numpy as np
 import torch
 
-__all__ = ["load_config", "main"]
+__all__ = ["load_config", "init_models", "main"]
 
 
 def load_config(path):
@@ -114,6 +117,29 @@ def make_eval_fn(dataset, cache, cfg, n_scenes, device):
     return eval_fn
 
 
+def init_models(cfg_mod, seed, device):
+    """The run's seeded initial weights on `device`: the triplane decoder
+    and, unless `no_diffusion`, the denoiser, each from a CPU generator of
+    `seed`, and the LPIPS params, where the recipe uses them, from one of
+    seed 7. A LoRA recipe's checkpoints hold the LoRA alone, and
+    `tools.test_ssdnerf` rebuilds the frozen base: CPU generators make
+    that base the same whatever device trains or evaluates. Returns
+    (decoder, denoiser module or None, LPIPS params or None)."""
+    from ..models.triplane import triplane_init
+    train_cfg = cfg_mod.train_config
+    decoder = triplane_init(cfg_mod.ssdnerf_config.triplane,
+                            torch.Generator().manual_seed(seed), device)
+    net = None
+    if not train_cfg.get("no_diffusion", False):
+        net = cfg_mod.build_denoiser(torch.Generator().manual_seed(seed),
+                                     device)
+    lpips_params = None
+    if train_cfg.get("use_lpips"):
+        from ..models.losses import lpips_init
+        lpips_params = lpips_init(torch.Generator().manual_seed(7), device)
+    return decoder, net, lpips_params
+
+
 def main(argv=None):
     """Trains; returns a namespace of the trainer, the cache, the EMA, each
     step's metrics (floats) and the per-step host times of the loader and
@@ -124,7 +150,6 @@ def main(argv=None):
     from ..models.diffusion import schedulers as S
     from ..models.ssdnerf import (adam_init, make_train_step,
                                   module_apply, module_params)
-    from ..models.triplane import triplane_init
     from ..runner.trainer import (CheckpointHook, EmaHook, EvalHook,
                                   LogHook, Trainer)
 
@@ -139,24 +164,17 @@ def main(argv=None):
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     schedule = S.sd_schedule(prediction_type="v_prediction")
-    with_diffusion = not train_cfg.get("no_diffusion", False)
-    decoder = triplane_init(cfg.triplane, gen, device)
+    # the denoiser from the run's seed, as the reference builds it from
+    # PRNGKey(seed); `tools.test_ssdnerf` rebuilds it from seed 0, the
+    # frozen weights of a LoRA recipe included
+    decoder, net, lpips_params = init_models(cfg_mod, args.seed, device)
+    with_diffusion = net is not None
     state = {"decoder": decoder, "decoder_opt": adam_init(decoder)}
     denoise_apply = None
     if with_diffusion:
-        # its own generator of the run's seed, as the reference builds it
-        # from PRNGKey(seed): `tools.test_ssdnerf` rebuilds it from seed 0,
-        # the frozen weights of a LoRA recipe included
-        net = cfg_mod.build_denoiser(
-            torch.Generator(device=device).manual_seed(args.seed), device)
         denoise_apply = module_apply(net)
         state["denoiser"] = module_params(net)
         state["denoiser_opt"] = adam_init(state["denoiser"])
-    lpips_params = None
-    if train_cfg.get("use_lpips"):
-        from ..models.losses import lpips_init
-        lpips_params = lpips_init(
-            torch.Generator(device=device).manual_seed(7), device)
     step_fn = make_train_step(denoise_apply, cfg.triplane, cfg, schedule,
                               with_diffusion=with_diffusion,
                               lpips_params=lpips_params,

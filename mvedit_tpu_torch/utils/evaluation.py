@@ -4,8 +4,9 @@
 - `eval_psnr`, `eval_ssim` (an 11 x 11 gaussian window, the reference's
   skimage-compatible constants);
 - `fid_from_feats` (Frechet distance) and `kid_from_feats` (polynomial
-  kernel MMD over subsets) on (N, D) feature arrays. The Inception network
-  that makes the features is not ported yet."""
+  kernel MMD over subsets) on (N, D) feature arrays, such as the
+  InceptionV3 pool3 features of `models/inception.py` (`tools.
+  inception_stat` writes a dataset's)."""
 import math
 
 import numpy as np

@@ -10,8 +10,8 @@ import torch
 
 from ..ops.clip import clip
 
-__all__ = ["get_ray_directions", "get_rays", "depth_to_normal",
-           "normalize_depth"]
+__all__ = ["get_ray_directions", "get_rays", "get_cam_rays",
+           "depth_to_normal", "normalize_depth"]
 
 
 def _normalize(v, eps=1e-12):
@@ -42,6 +42,13 @@ def get_rays(directions, c2w, norm=False):
     if norm:
         rays_d = _normalize(rays_d)
     return rays_o, rays_d
+
+
+def get_cam_rays(c2w, intrinsics, h, w):
+    """World rays (rays_o, rays_d) (*, h, w, 3) through the pixel centres
+    of c2w (*, 3, 4) and [fx, fy, cx, cy] `intrinsics` (*, 4), the
+    directions normalised."""
+    return get_rays(get_ray_directions(h, w, intrinsics), c2w, norm=True)
 
 
 def _pad_edge(x, dim, before):

@@ -23,6 +23,9 @@ GLB written and read back.
   entries whose gradient nearly cancels take their sign from rounding;
   ROADMAP Queue 3).
 - GLB: the port's writer and reader keep faces, UVs and the albedo (8 bit).
+- `weld_vertices` and `decimate_qem` (the host library, a copy of the JAX
+  package's): vertices and faces equal to JAX's, in the same order; the
+  weld also through both packages' numpy fallback.
 """
 import jax
 import jax.numpy as jnp
@@ -225,3 +228,49 @@ def test_decimate_qem_matches_jax(ratio):
     np.testing.assert_array_equal(vt, vj)
     with pytest.raises(ValueError):
         decimate_qem(v, f + len(v), target)
+
+
+def _duplicated_mesh(n_unique=12000, n_dup=8000, n_faces=30000):
+    """20k vertices in [-1, 1]^3, 8000 of them repeats of others (half
+    exact, half moved by 1e-8, below the weld's eps), shuffled, and random
+    faces over them."""
+    rng = np.random.default_rng(8)
+    base = rng.uniform(-1, 1, (n_unique, 3)).astype(np.float32)
+    dup = base[rng.integers(0, n_unique, n_dup)]
+    dup[n_dup // 2:] += np.float32(1e-8)
+    v = np.concatenate([base, dup])[rng.permutation(n_unique + n_dup)]
+    return v, rng.integers(0, len(v), (n_faces, 3)).astype(np.int32)
+
+
+@pytest.mark.parametrize("route", ["library", "fallback"])
+@pytest.mark.parametrize("mesh", ["test_native", "duplicated"])
+def test_weld_vertices_matches_jax(monkeypatch, mesh, route):
+    """`tests/test_native.py::test_weld_vertices`'s mesh and a seeded
+    20k-vertex mesh with duplicates: the same vertices and remapped faces
+    as JAX's, in the same order, through the library and through the
+    fallback both packages take without it."""
+    import mvedit_tpu.native as JN
+    import mvedit_tpu_torch.native as TN
+    if route == "fallback":
+        monkeypatch.setattr(JN, "_load", lambda: None)
+        monkeypatch.setattr(TN, "_load", lambda: None)
+    else:
+        assert TN.native_available() and JN.native_available()
+    if mesh == "test_native":
+        v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1e-9, 0, 0],
+                      [1, 0, 0]], np.float32)
+        f = np.array([[0, 1, 2], [3, 4, 2]], np.int32)
+    else:
+        v, f = _duplicated_mesh()
+    vt, ft = TN.weld_vertices(v, f, eps=1e-6)
+    vj, fj = JN.weld_vertices(v, f, eps=1e-6)
+    assert vt.dtype == np.float32 and ft.dtype == np.int32
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(ft, fj)
+    if mesh == "test_native":
+        assert len(vt) == 3
+        np.testing.assert_array_equal(ft[0], ft[1])
+    else:
+        # merged vertices share a cell (or a rounded key) of edge eps
+        assert 12000 <= len(vt) < 16000
+        assert np.abs(vt[ft] - v[f]).max() < 1e-6

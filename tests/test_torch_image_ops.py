@@ -6,7 +6,8 @@ where the NeRF fit differentiates through it (`depth_to_normal`,
 `highpass`), gradient: f32 arithmetic in another order. `resize_bilinear`
 is pinned against `jax.image.resize(..., "bilinear")`, whose triangle
 filter widens by the shrink factor (antialias) when it shrinks.
-`prune_cameras` keeps the same ids.
+`prune_cameras` keeps the same ids. `fill_holes` (a fixed point of
+min-pools and maxima, exact in f32) and `get_cam_rays` within 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from mvedit_tpu.apis.cameras import surround_rig
+from mvedit_tpu.utils import camera as JC
 from mvedit_tpu.ops import image as JI
 from mvedit_tpu.ops import rotation as JR
 from mvedit_tpu.utils import geometry as JG
@@ -100,6 +102,54 @@ def test_rays_and_depth_to_normal_match_jax():
     d = _t(inv_z).requires_grad_(True)
     (TG.depth_to_normal(d, _t(dirs)) * _t(w)).sum().backward()
     _close(d.grad, g_j, 1e-4 * float(np.abs(g_j).max()))
+
+
+def _basin():
+    # `tests/test_ops.py::test_fill_holes`'s image: a dark basin inside a
+    # bright ring whose lowest pass is 0.7
+    img = np.zeros((16, 16), np.float32)
+    img[4:13, 4:13] = 1.0
+    img[6:11, 6:11] = 0.2
+    img[8, 4:6] = 0.7
+    return img
+
+
+@pytest.mark.parametrize("max_iters", [None, 3])
+@pytest.mark.parametrize("case", ["basin", "random"])
+def test_fill_holes_matches_jax(case, max_iters):
+    """Equal to JAX's `fill_holes`, cut short by `max_iters` too, and
+    idempotent."""
+    img = _basin() if case == "basin" else \
+        np.random.default_rng(5).random((64, 96)).astype(np.float32)
+    out = TI.fill_holes(_t(img), max_iters=max_iters)
+    _close(out, JI.fill_holes(jnp.asarray(img), max_iters=max_iters), 1e-6)
+    if max_iters is None:
+        _close(TI.fill_holes(out), out, 1e-6)
+    if case == "basin" and max_iters is None:
+        _close(out[6:11, 6:11], np.full((5, 5), 0.7, np.float32), 1e-6)
+        _close(out[img == 0.0], np.zeros(int((img == 0).sum())), 1e-6)
+    if case == "random":
+        assert (out > _t(img)).any()    # it filled something
+
+
+def test_get_cam_rays_matches_jax():
+    """`tests/test_camera_geometry.py::test_get_rays_world`'s call, and a
+    seeded rig of 3 views at 20 x 24."""
+    intr = np.array([100.0, 100.0, 16.0, 16.0], np.float32)
+    pose = JC.get_pose_from_angles(np.array([0.0]), np.array([0.0]), 2.0)
+    c2w = pose[:, :3, :].astype(np.float32)
+    for a, b in zip(TG.get_cam_rays(_t(c2w), _t(intr), 32, 32),
+                    JG.get_cam_rays(jnp.asarray(c2w), jnp.asarray(intr),
+                                    32, 32)):
+        assert a.shape == (1, 32, 32, 3)
+        _close(a, b, 1e-6)
+    poses, intr = surround_rig(3, 2.5, 40, -0.2, 0.5, 24,
+                               rng=np.random.default_rng(6))
+    poses, intr = poses[:, :3].astype(np.float32), intr.astype(np.float32)
+    for a, b in zip(TG.get_cam_rays(_t(poses), _t(intr), 20, 24),
+                    JG.get_cam_rays(jnp.asarray(poses), jnp.asarray(intr),
+                                    20, 24)):
+        _close(a, b, 1e-6)
 
 
 def test_prune_cameras_matches_jax():

@@ -67,6 +67,12 @@ Tolerances:
   against its CPU frame (the raster's face ids equal, depths within
   1e-5, the shading within 1e-5, with a texture 1e-4); `morton3d`, its
   inverse and `packbits` on the card equal to the CPU's.
+- seeded frozen weights: the training CLI's builds for the StableSSDNeRF
+  recipe at full width (`train_ssdnerf.init_models`: decoder, SD2.1 UNet,
+  LoRA, LPIPS), the recipe's 1024-wide text tower and `inception_stat`'s
+  net, built for the card, bit-equal to their CPU builds (CPU generators).
+- `render_mesh_attrs` on the card: face ids equal to the CPU's, every map
+  within 1e-5, one raster launch.
 Dispatch: a CUDA tensor launches the kernel (the launch counters move), a
 CPU tensor takes the plain version.
 """
@@ -1396,3 +1402,60 @@ def test_morton3d_on_card_matches_cpu(cuda):
         morton3d(c)))
     g = torch.rand(1 << 16, generator=torch.Generator().manual_seed(0))
     assert torch.equal(packbits(g.cuda(), 0.5).cpu(), packbits(g, 0.5))
+
+
+@pytest.mark.parametrize("part", ["train", "cond", "inception"])
+def test_seeded_builds_on_card_equal_cpu_builds(cuda, part):
+    """One seed, one set of frozen weights on every device: the builders
+    draw from CPU generators and move the weights to the card."""
+    from mvedit_tpu_torch.configs import stablessdnerf_cars_lpips as SR
+    from mvedit_tpu_torch.models.ssdnerf import module_params, tree_leaves
+    from mvedit_tpu_torch.tools import inception_stat, train_ssdnerf
+    cpu = torch.device("cpu")
+
+    def build(dev):
+        if part == "train":
+            dec, net, lp = train_ssdnerf.init_models(SR, 0, dev)
+            return [dec, dict(net.unet.named_parameters()),
+                    module_params(net), lp]
+        if part == "cond":
+            return dict(SR.make_cond_fn(dev).net.named_parameters())
+        return inception_stat.load_inception(None, dev).state_dict()
+    on_card, on_cpu = tree_leaves(build(cuda)), tree_leaves(build(cpu))
+    assert len(on_card) == len(on_cpu) > 0
+    assert all(a.is_cuda for a in on_card)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+
+
+def test_render_mesh_attrs_on_card_matches_cpu(cuda):
+    """One raster launch; face ids equal to the plain selection's on the
+    card's own projected vertices, every map within 1e-5 of the CPU's."""
+    import numpy as np
+    from mvedit_tpu_torch.kernels import raster_select as RS
+    from mvedit_tpu_torch.models.mesh import (RasterConfig, interpolate,
+                                              project_mesh, rasterize,
+                                              render_mesh_attrs)
+    from mvedit_tpu_torch.models.mesh.renderer import pose_to_w2c
+    from mvedit_tpu_torch.utils.camera import get_pose_from_angles
+    rng = np.random.default_rng(3)
+    verts = torch.from_numpy(rng.normal(0, 0.4, (3000, 3)).astype(
+        np.float32))
+    faces = torch.from_numpy(rng.integers(0, 3000, (5000, 3)))
+    valid = torch.ones(5000, dtype=torch.bool)
+    w2c = pose_to_w2c(torch.as_tensor(get_pose_from_angles(
+        np.array([0.4]), np.array([0.2]), 2.5)[0, :3], dtype=torch.float32))
+    intr = torch.tensor([300.0, 300.0, 128.0, 128.0])
+    cfg = RasterConfig(256, 256, k_per_tile=1024, k_big=64, span=2)
+    before = RS.raster_select.launches
+    card = render_mesh_attrs(verts.to(cuda), faces.to(cuda), valid.to(cuda),
+                             w2c.to(cuda), intr.to(cuda), cfg,
+                             {"xyz": verts.to(cuda)})
+    assert RS.raster_select.launches == before + 1
+    pts = project_mesh(verts.to(cuda), w2c.to(cuda), intr.to(cuda),
+                       cfg.near).cpu()
+    ref = rasterize(pts, faces, valid, cfg)
+    ref["xyz"] = interpolate(verts, ref, faces)
+    assert (ref["tri_id"] >= 0).sum() > 5000
+    assert torch.equal(card["tri_id"].cpu(), ref["tri_id"])
+    for k in ("bary", "z", "alpha", "xyz"):
+        torch.testing.assert_close(card[k].cpu(), ref[k], rtol=0, atol=1e-5)

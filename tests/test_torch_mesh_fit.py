@@ -5,7 +5,7 @@ the CPU in fp32 (tet 16, 64^2, 3 views).
   `ingp_point_decode` with params bridged by `field_params_from_flax`,
   within 1e-6 / 1e-5 (the same bf16-rounded table values, blended in f32
   in another summation order).
-- Losses: `Tonemapping` lut / inverse, `l1_loss`, `tv_loss`,
+- Losses: `Tonemapping` lut / inverse, `l1_loss`, `mse_loss`, `tv_loss`,
   `laplacian_loss`, `normal_consistency_loss` and `init_sdf_from_density`
   within 1e-6 .. 1e-5 (f32 reductions in another order).
 - One fit step, with JAX's random draws (view ids, regulariser faces)
@@ -144,6 +144,19 @@ def test_tonemapping_and_image_losses_match_jax():
                                weight=None if wt is None else _t(wt),
                                power=1.5))
         np.testing.assert_allclose(out, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("weight", ["none", "broadcast", "full"])
+def test_mse_loss_matches_jax(weight):
+    rng = np.random.default_rng(9)
+    a, b = (rng.random((2, 3, 16, 16)).astype(np.float32) for _ in range(2))
+    w = {"none": None, "full": rng.random((2, 3, 16, 16)),
+         "broadcast": rng.random((2, 1, 1, 1))}[weight]
+    w = None if w is None else w.astype(np.float32)
+    out = float(TL.mse_loss(_t(a), _t(b), None if w is None else _t(w)))
+    ref = float(JL.mse_loss(a, b, w))
+    assert out > 0
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
 
 def _mesh(g=16):

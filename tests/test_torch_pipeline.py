@@ -27,8 +27,9 @@ wrapped), both requests write the per-step debug tiles: the same file
 names, each tile within mean |d| <= 0.05 (the albedo's tolerance); the
 port's GLB bytes equal a second port request's without them.
 
-Also here: the port imports with JAX, flax and `mvedit_tpu` blocked, and a
-port-only rehearsal of the branches the tiny request skips (the render-size ramp, the SRVGG enhancer, LPIPS,
+Also here: `PhaseTimer.steady` equal to JAX's, `trace` / `annotate`
+leaving a Chrome trace that names the range; the port imports with JAX,
+flax and `mvedit_tpu` blocked, and a port-only rehearsal of the branches the tiny request skips (the render-size ramp, the SRVGG enhancer, LPIPS,
 decimation + texture refinement) on the CPU.
 """
 import dataclasses
@@ -39,17 +40,20 @@ import types
 
 import jax
 import numpy as np
+import pytest
 import torch
 from PIL import Image
 
 from mvedit_tpu.apis import Adapter3DRunner as JRunner
 from mvedit_tpu.models.diffusion import schedulers as JS
 from mvedit_tpu.models.mesh import Mesh as JMesh
+from mvedit_tpu.utils import profiling as JP
 
 from mvedit_tpu_torch.apis import Adapter3DRunner as TRunner
 from mvedit_tpu_torch.models.diffusion import schedulers as TS
 from mvedit_tpu_torch.models.diffusion.weights import torch_state_from_flax
 from mvedit_tpu_torch.models.mesh import Mesh as TMesh
+from mvedit_tpu_torch.utils import profiling as TP
 
 from torch_jax_draws import JaxDraws
 from torch_tokenizer import StableHashTokenizer
@@ -194,7 +198,10 @@ def test_port_imports_with_jax_blocked():
     tiny `run_retex` with the front view and IP-Adapter. GRM with the
     gaussian renderer, TSDF fusion with marching cubes, and
     `parallel.dryrun` over a 1-rank gloo group run there too; `build_app`
-    raises `ImportError` and a `MeshViewer` frame renders."""
+    raises `ImportError` and a `MeshViewer` frame renders. The last
+    slice's names (`steady`, `trace`, `annotate`, `fill_holes`,
+    `weld_vertices`, `render_mesh_attrs`, `mse_loss`, `get_cam_rays`)
+    import and run there too."""
     code = r'''
 import importlib, pkgutil, sys
 class Block:
@@ -282,6 +289,29 @@ dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
 from mvedit_tpu_torch.parallel import dryrun
 dryrun(1)
 dist.destroy_process_group()
+from mvedit_tpu_torch.utils.profiling import PhaseTimer, annotate, trace
+from mvedit_tpu_torch.ops import fill_holes
+from mvedit_tpu_torch.native import weld_vertices
+from mvedit_tpu_torch.models.mesh import RasterConfig, render_mesh_attrs
+from mvedit_tpu_torch.models.losses import mse_loss
+from mvedit_tpu_torch.utils.geometry import get_cam_rays
+pt = PhaseTimer()
+pt.durations["p"], pt.sigs["p"] = [3.0, 1.0, 2.0], [None] * 3
+assert pt.steady("p") == 1.5
+with trace(os.path.join(d, "trace")):
+    with annotate("x"):
+        fill_holes(torch.rand(8, 8))
+assert os.listdir(os.path.join(d, "trace"))
+wv, wf = weld_vertices(np.concatenate([verts, verts]),
+                       np.concatenate([f, f + len(verts)]))
+assert len(wv) == len(verts) and (wf[:len(f)] == wf[len(f):]).all()
+r = render_mesh_attrs(torch.from_numpy(verts), torch.from_numpy(f),
+                      torch.ones(len(f), dtype=torch.bool), poses[0],
+                      intr[0], RasterConfig(32, 32),
+                      {"xyz": torch.from_numpy(verts)})
+assert r["xyz"].shape == (32, 32, 3)
+assert float(mse_loss(torch.ones(3), torch.zeros(3))) == 1.0
+assert get_cam_rays(poses, intr, 4, 4)[1].shape == (2, 4, 4, 3)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "mvedit_tpu"))
 assert not bad, bad
@@ -289,6 +319,53 @@ assert not bad, bad
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", ["sigs", "skip_first", "nothing_warm",
+                                  "mixed"])
+def test_phase_timer_steady_matches_jax(case):
+    """`tests/test_evaluation.py::test_phase_timer_signature_steady`'s
+    three cases through both timers, and ticks of mixed sigs recorded by
+    the port's `tick`: equal results."""
+    d, s, skip = {
+        "sigs": ([30.0, 1.0, 1.2, 40.0, 2.0, 1.1],
+                 [("a",), ("a",), ("a",), ("b",), ("b",), ("a",)], 1),
+        "skip_first": ([30.0, 1.0, 3.0], [None, None, None], 1),
+        "nothing_warm": ([30.0], [("a",)], 1),
+        "mixed": (None, [(64, 3), None, (64, 3), (128, 3), (64, 3), None,
+                         (128, 3), None], 2)}[case]
+    tt = TP.PhaseTimer()
+    if d is None:
+        tt.mark()
+        for sg in s:
+            tt.tick("p", torch.ones(2), sig=sg)
+        d = list(tt.durations["p"])
+        assert tt.sigs["p"] == s and tt.counts["p"] == len(s)
+    else:
+        tt.durations["p"], tt.sigs["p"] = list(d), list(s)
+    jt = JP.PhaseTimer()
+    jt.durations["p"], jt.sigs["p"] = list(d), list(s)
+    assert tt.steady("p", skip) == jt.steady("p", skip)
+    assert tt.steady("absent") is None and jt.steady("absent") is None
+    if case == "nothing_warm":
+        assert tt.steady("p") is None
+    elif case != "mixed":
+        assert tt.steady("p") == {"sigs": 1.15, "skip_first": 2.0}[case]
+
+
+def test_trace_and_annotate_write_a_named_range(tmp_path):
+    """A tiny op inside `annotate("x")` inside `trace(dir)`: the Chrome
+    trace under dir names the range."""
+    with TP.trace(str(tmp_path)) as log_dir:
+        with TP.annotate("x"):
+            torch.ones(64).cumsum(0)
+    assert log_dir == str(tmp_path)
+    files = list(tmp_path.glob("trace_*.json"))
+    assert len(files) == 1
+    import json
+    names = {e.get("name") for e in json.loads(files[0].read_text())[
+        "traceEvents"]}
+    assert "x" in names
 
 
 def test_pipeline_branches_rehearsal():

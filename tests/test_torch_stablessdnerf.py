@@ -356,3 +356,91 @@ def test_training_cli_keeps_the_lora_alone(tmp_path, monkeypatch):
     assert set(saved["denoiser"]) == set(state["denoiser"])
     assert set(saved["denoiser_opt"]["m"]) == set(state["denoiser"])
     assert np.isfinite([m["loss_render"] for m in out.metrics]).all()
+
+
+def _same(a, b):
+    la, lb = TS.tree_leaves(a), TS.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _tiny_cfg(tmp_path):
+    from mvedit_tpu_torch.tools.train_ssdnerf import load_config
+    cfg = str(tmp_path / "cfg.py")
+    with open(cfg, "w") as f:
+        f.write(CFG.format(rays=PS * PS, ps=PS, captions=None))
+    return cfg, load_config(cfg)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_cli_builders_draw_from_cpu_generators(tmp_path, monkeypatch, seed):
+    """The seeded frozen weights come from CPU generators (the CPU's and the
+    card's give different streams, and a LoRA checkpoint holds the LoRA
+    alone): at `--device cpu`, `train_ssdnerf.init_models`' decoder,
+    denoiser (base and LoRA) and LPIPS, `test_ssdnerf.eval_denoiser`, the
+    recipe's text tower and `inception_stat.load_inception`'s net equal
+    builds from `torch.Generator().manual_seed(seed)` of their seeds.
+    `tests/test_torch_kernels_cuda.py` holds the card's builds to these."""
+    from mvedit_tpu_torch.models.diffusion.clip import CLIPTextModel
+    from mvedit_tpu_torch.models.inception import InceptionV3Features
+    from mvedit_tpu_torch.models.losses import lpips_init
+    from mvedit_tpu_torch.apis.runner import init_random_
+    from mvedit_tpu_torch.tools import (inception_stat, test_ssdnerf,
+                                        train_ssdnerf)
+    _tiny_recipe(monkeypatch)
+    _, cfg_mod = _tiny_cfg(tmp_path)
+    cpu = torch.device("cpu")
+
+    def gen(s):
+        return torch.Generator().manual_seed(s)
+    decoder, net, lp = train_ssdnerf.init_models(cfg_mod, seed, cpu)
+    assert _same(decoder, TT.triplane_init(S.ssdnerf_config.triplane,
+                                           gen(seed), cpu))
+    ref = S.build_denoiser(gen(seed), cpu)
+    assert _same(dict(net.unet.named_parameters()),
+                 dict(ref.unet.named_parameters()))
+    assert _same(TS.module_params(net), TS.module_params(ref))
+    assert _same(lp, lpips_init(gen(7), cpu))
+    ev = test_ssdnerf.eval_denoiser(cfg_mod, cpu)
+    ref0 = S.build_denoiser(gen(0), cpu)
+    assert _same(TS.module_params(ev), TS.module_params(ref0))
+    assert _same(dict(ev.unet.named_parameters()),
+                 dict(ref0.unet.named_parameters()))
+    text = CLIPTextModel(S.SD21_TEXT)
+    init_random_(text, gen(1))
+    assert _same(dict(S.make_cond_fn(cpu).net.named_parameters()),
+                 dict(text.named_parameters()))
+    if seed == 0:
+        inc = InceptionV3Features()
+        init_random_(inc, gen(0))
+        assert _same(inception_stat.load_inception(None, cpu).state_dict(),
+                     inc.state_dict())
+
+
+def test_eval_cli_rebuilds_the_base_from_seed_0(tmp_path, monkeypatch):
+    """The reference's own behaviour, pinned (ROADMAP Queue 3): a run
+    trained with `--seed 3` builds its denoiser from a CPU generator of
+    seed 3, and `test_ssdnerf`'s recons eval rebuilds the frozen base from
+    seed 0, on a CPU generator too."""
+    from mvedit_tpu_torch.tools import test_ssdnerf, train_ssdnerf
+    monkeypatch.delenv("MVEDIT_CHECKPOINT_DIR", raising=False)
+    _tiny_recipe(monkeypatch)
+    cfg, _ = _tiny_cfg(tmp_path)
+    data = str(tmp_path / "srn")
+    _srn(data)
+    calls = []
+    real = S.build_denoiser
+
+    def spy(generator=None, device=None):
+        calls.append((generator.device.type, generator.initial_seed()))
+        return real(generator, device)
+    monkeypatch.setattr(S, "build_denoiser", spy)
+    work = str(tmp_path / "work")
+    common = ["--config", cfg, "--data", data, "--work-dir", work,
+              "--device", "cpu"]
+    train_ssdnerf.main(common + ["--seed", "3", "--max-iters", "1"])
+    got = test_ssdnerf.main(common + ["--num-scenes", "1",
+                                      "--recons-views", "1",
+                                      "--recons-steps", "1"])
+    assert calls == [("cpu", 3), ("cpu", 0)]
+    assert got["scenes"] == 1 and np.isfinite(got["psnr"])
