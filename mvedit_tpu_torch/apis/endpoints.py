@@ -21,7 +21,7 @@ from ..ops.tonemapping import Tonemapping
 from ..pipelines.mvedit_3d import GeneratorDraws
 from ..utils import camera as cam_utils
 from ..utils.geometry import normalize_depth
-from ..utils.profiling import phase_timer
+from ..utils.profiling import endpoint, phase, span
 
 __all__ = ["EndpointsMixin"]
 
@@ -62,6 +62,7 @@ class EndpointsMixin:
                 "depths": normalize_depth(out["depth"], alpha),
                 "normals": n * 0.5 + 0.5}
 
+    @endpoint
     def run_text_to_img(self, prompt, negative_prompt="", seed=42,
                         width=None, height=None, steps=24, cfg_scale=7.0):
         """Plain SD text-to-image -> (H, W, 3) float32 numpy in [0, 1]."""
@@ -190,6 +191,7 @@ class EndpointsMixin:
             **({"tet_resolution": int(nk["tet_resolution"])}
                if nk["tet_resolution"] else {}))
 
+    @endpoint
     def run_3d_to_3d(self, mesh_path, prompt, negative_prompt="", seed=42,
                      steps=None, num_views=None, n_inverse_steps=None,
                      init_inverse_steps=None, instruct=False,
@@ -215,7 +217,8 @@ class EndpointsMixin:
         m.segment_fn = None
         m.lpips_params = self.load_lpips()
         m.enhance_fn = None if self.tiny else self.load_image_enhancer()
-        pre = self.run_mesh_preproc(mesh_path)
+        with span("endpoint.preproc"):
+            pre = self.run_mesh_preproc(mesh_path)
         mesh = pre["mesh"]
         c = self.constants
         # instruct mode: 1-pass, cfg 5.0, the ip2p net on the source renders
@@ -234,8 +237,9 @@ class EndpointsMixin:
             c["proc_3d_to_3d_fov"], c["proc_3d_to_3d_min_elev"],
             c["proc_3d_to_3d_max_elev"], cfg.render_size, rng=rng)
         lights, _ = cam_utils.light_sampling(poses, rng=rng)
-        init = self.load_init_mesh(mesh, poses, intr, cfg.render_size,
-                                   lights)
+        with span("endpoint.init_mesh"):
+            init = self.load_init_mesh(mesh, poses, intr, cfg.render_size,
+                                       lights)
         # no normal supervision: the reference passes normal_model=None
         cam_weights = np.ones((num_views,), np.float32)
         prompts = [prompt] * num_views
@@ -255,8 +259,9 @@ class EndpointsMixin:
         targets = {"images": init["images"], "masks": init["masks"],
                    "poses": t(poses), "intrinsics": t(intr),
                    "cam_weights": t(cam_weights), "cam_lights": t(lights)}
-        pos, neg = self.encode_prompt(m, prompts,
-                                      [negative_prompt] * num_views)
+        with span("endpoint.prompt"):
+            pos, neg = self.encode_prompt(m, prompts,
+                                          [negative_prompt] * num_views)
         pipe = MVEdit3DPipeline(m, cfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -268,9 +273,10 @@ class EndpointsMixin:
                                    negative_prompt, seed,
                                    kwargs.get("superres", False))
         if out_path and out["mesh"] is not None:
-            out["mesh"].v = (out["mesh"].v / pre["scale"]
-                             + pre["center"]).astype(np.float32)
-            out["mesh"].write(out_path, flip_yz=True)
+            with span("endpoint.write"):
+                out["mesh"].v = (out["mesh"].v / pre["scale"]
+                                 + pre["center"]).astype(np.float32)
+                out["mesh"].write(out_path, flip_yz=True)
         return out
 
     # ------------------------------------------------------------------
@@ -323,18 +329,21 @@ class EndpointsMixin:
             neg.clone(), generator=gen, draws=draws,
             init_field_params=init_field_params)
 
+    @endpoint
     def run_texture_superres(self, mesh_path, prompt="", negative_prompt="",
                              seed=42, steps=None, out_path=None,
                              use_ip_adapter=True, draws=None):
         """Texture superres of a mesh file: `run_mesh_preproc`, then
         `proc_texture_superres`; the GLB at `out_path`."""
-        pre = self.run_mesh_preproc(mesh_path)
+        with span("endpoint.preproc"):
+            pre = self.run_mesh_preproc(mesh_path)
         out = self.proc_texture_superres(
             pre["mesh"], prompt=prompt, negative_prompt=negative_prompt,
             seed=seed, steps=steps, use_ip_adapter=use_ip_adapter,
             draws=draws)
         if out_path:
-            out["mesh"].write(out_path, flip_yz=True)
+            with span("endpoint.write"):
+                out["mesh"].write(out_path, flip_yz=True)
         return out
 
     def _chain_superres(self, out, field_key, prompt, negative_prompt,
@@ -400,6 +409,7 @@ class EndpointsMixin:
         m.controlnet = self.load_controlnets(kinds=("z123_normal",))[0]
         return m
 
+    @endpoint
     def run_zero123plus(self, image, seed=42, num_steps=None,
                         version="1.1", return_normal=False, draws=None,
                         normal_draws=None):
@@ -491,11 +501,13 @@ class EndpointsMixin:
             return views, np.ascontiguousarray(np.concatenate(normals, 0))
         return views
 
+    @endpoint
     def run_zero123plus1_2(self, image, seed=42, num_steps=None):
         """Zero123++ v1.2's 6-view grid (the latent roll; no normals)."""
         return self.run_zero123plus(image, seed=seed, num_steps=num_steps,
                                     version="1.2")
 
+    @endpoint
     def run_zero123plus1_2_to_mesh(self, image, seed=42, out_path=None,
                                    passes=None, in_pose=None, **kwargs):
         """v1.2 image-to-3D on the v1.2 rig, with the generated normals
@@ -505,6 +517,7 @@ class EndpointsMixin:
             image, seed=seed, out_path=out_path, passes=passes,
             in_pose=in_pose, version="1.2", **kwargs)
 
+    @endpoint
     def run_zero123plus_to_mesh(self, image, seed=42, out_path=None,
                                 passes=None, in_pose=None, version="1.1",
                                 draws=None, z123_draws=None, **kwargs):
@@ -623,8 +636,9 @@ class EndpointsMixin:
                                     nk["aux_prompt"])
         negp = self._join_prompts(kwargs.get("negative_prompt", ""),
                                   nk["aux_negative_prompt"])
-        pos, neg = self.encode_prompt(m, [prompt] * num_views,
-                                      [negp] * num_views)
+        with span("endpoint.prompt"):
+            pos, neg = self.encode_prompt(m, [prompt] * num_views,
+                                          [negp] * num_views)
         if kwargs.get("use_ip_adapter", True):
             self.enable_ip_adapter(m, np.asarray(image, np.float32))
         else:
@@ -639,10 +653,12 @@ class EndpointsMixin:
         out.update(views=views, normals=gen_normals,
                    in_pose=np.asarray(poses[0]), pose_route=route)
         if out_path and out["mesh"] is not None:
-            out["mesh"].write(out_path, flip_yz=True)
+            with span("endpoint.write"):
+                out["mesh"].write(out_path, flip_yz=True)
         return out
 
     # ------------------------------------------------------------------
+    @endpoint
     @torch.no_grad()
     def run_stablessdnerf(self, prompt, seed=42, steps=None, cfg_scale=7.0,
                           draws=None):
@@ -658,34 +674,32 @@ class EndpointsMixin:
         from ..models import gaussian_diffusion as GD
         from ..models.nerf_fit import make_image_renderer
         from ..models.ssdnerf import tanh_code
-        dev, pt = self.device, phase_timer()
-        if pt is not None:
-            pt.mark()
-        ss = self.load_ssdnerf()
-        cfg = ss.cfg
-        draws = draws if draws is not None else GeneratorDraws(
-            torch.Generator(device=self.device).manual_seed(seed))
-        shape = (1, *cfg.latent_shape)
-        code = GD.sample_from_noise(
-            ss.schedule, ss.denoiser, shape,
-            noise=draws.code_noise(shape, dev),
-            num_steps=steps or (4 if self.tiny else 50))[0]
-        if pt is not None:
-            pt.tick("code_sample", code)
-        size = 32 if self.tiny else 160
-        c = self.constants
-        intr = cam_utils.intrinsics_from_fov(c["ssdnerf_fov"], size, size)
-        pose = cam_utils.get_pose_from_angles(
-            np.asarray([c["ssdnerf_front_azi"]]), np.asarray([0.3]),
-            c["ssdnerf_camera_distance"])[0, :3]
-        render = make_image_renderer(self._triplane_decode(cfg), size, size,
-                                     cfg.render, chunk=size * size,
-                                     use_grid=False)
-        img = render({"decoder": ss.decoder, "code": tanh_code(code)},
-                     self._f32(pose), self._f32(intr))
-        preview = img["rgb"].float().cpu().numpy()
-        if pt is not None:
-            pt.tick("preview")
+        dev = self.device
+        with phase("code_sample", dev):
+            ss = self.load_ssdnerf()
+            cfg = ss.cfg
+            draws = draws if draws is not None else GeneratorDraws(
+                torch.Generator(device=self.device).manual_seed(seed))
+            shape = (1, *cfg.latent_shape)
+            code = GD.sample_from_noise(
+                ss.schedule, ss.denoiser, shape,
+                noise=draws.code_noise(shape, dev),
+                num_steps=steps or (4 if self.tiny else 50))[0]
+        # the copy to the host ends the preview's work
+        with phase("preview"):
+            size = 32 if self.tiny else 160
+            c = self.constants
+            intr = cam_utils.intrinsics_from_fov(c["ssdnerf_fov"], size,
+                                                 size)
+            pose = cam_utils.get_pose_from_angles(
+                np.asarray([c["ssdnerf_front_azi"]]), np.asarray([0.3]),
+                c["ssdnerf_camera_distance"])[0, :3]
+            render = make_image_renderer(self._triplane_decode(cfg), size,
+                                         size, cfg.render, chunk=size * size,
+                                         use_grid=False)
+            img = render({"decoder": ss.decoder, "code": tanh_code(code)},
+                         self._f32(pose), self._f32(intr))
+            preview = img["rgb"].float().cpu().numpy()
         return {"code": code, "preview": preview, "decoder": ss.decoder,
                 "ssdnerf_cfg": cfg}
 
@@ -744,6 +758,7 @@ class EndpointsMixin:
             p.grad = None
         return params
 
+    @endpoint
     def run_stablessdnerf_to_mesh(self, prompt, seed=42, steps=None,
                                   out_path=None, draws=None, **kwargs):
         """Text -> a triplane (`run_stablessdnerf`, 50 steps, tiny 4) ->
@@ -774,30 +789,26 @@ class EndpointsMixin:
             num_views, steps or (2 if tiny else 24),
             kwargs.get("n_inverse_steps", 4 if tiny else 80),
             kwargs.get("init_inverse_steps", 8 if tiny else 256))
-        pt = phase_timer()
-        if pt is not None:
-            pt.mark()
-        field0 = self.distill_triplane_to_field(
-            ssd["decoder"], code_act, cfg_s, cfg.ingp,
-            steps=20 if tiny else 200, draws=draws)
-        if pt is not None:
-            pt.tick("distill", field0)
-        c = self.constants
-        rng = np.random.default_rng(seed)
-        poses, intr = C.surround_rig(
-            num_views, c["ssdnerf_camera_distance"], c["ssdnerf_fov"],
-            c["ssdnerf_min_elev"], c["ssdnerf_max_elev"], cfg.render_size,
-            begin_rad=c["ssdnerf_front_azi"], rng=rng)
-        render = make_image_renderer(
-            self._triplane_decode(cfg_s), cfg.render_size, cfg.render_size,
-            cfg_s.render, chunk=cfg.render_size * 64, use_grid=False)
-        tp = {"decoder": ssd["decoder"], "code": code_act}
-        frames = [render(tp, self._f32(poses[i]), self._f32(intr[i]))
-                  for i in range(num_views)]
-        images = torch.stack([f["rgb"] for f in frames])
-        masks = torch.stack([f["alpha"][..., None] for f in frames])
-        if pt is not None:
-            pt.tick("init_renders", images)
+        with phase("distill", dev):
+            field0 = self.distill_triplane_to_field(
+                ssd["decoder"], code_act, cfg_s, cfg.ingp,
+                steps=20 if tiny else 200, draws=draws)
+        with phase("init_renders", dev):
+            c = self.constants
+            rng = np.random.default_rng(seed)
+            poses, intr = C.surround_rig(
+                num_views, c["ssdnerf_camera_distance"], c["ssdnerf_fov"],
+                c["ssdnerf_min_elev"], c["ssdnerf_max_elev"],
+                cfg.render_size, begin_rad=c["ssdnerf_front_azi"], rng=rng)
+            render = make_image_renderer(
+                self._triplane_decode(cfg_s), cfg.render_size,
+                cfg.render_size, cfg_s.render, chunk=cfg.render_size * 64,
+                use_grid=False)
+            tp = {"decoder": ssd["decoder"], "code": code_act}
+            frames = [render(tp, self._f32(poses[i]), self._f32(intr[i]))
+                      for i in range(num_views)]
+            images = torch.stack([f["rgb"] for f in frames])
+            masks = torch.stack([f["alpha"][..., None] for f in frames])
         lights, _ = cam_utils.light_sampling(poses, rng=rng)
         m = self.load_stable_diffusion()
         m.controlnets = self.load_controlnets()
@@ -807,13 +818,15 @@ class EndpointsMixin:
                    "cam_weights": torch.ones(num_views, device=dev),
                    "cam_lights": self._f32(lights)}
         negative_prompt = kwargs.get("negative_prompt", "")
-        pos, neg = self.encode_prompt(m, [prompt] * num_views,
-                                      [negative_prompt] * num_views)
+        with span("endpoint.prompt"):
+            pos, neg = self.encode_prompt(m, [prompt] * num_views,
+                                          [negative_prompt] * num_views)
         out = MVEdit3DPipeline(m, cfg)(targets, pos.clone(), neg.clone(),
                                        draws=draws, init_field_params=field0)
         out = self._chain_superres(out, "nerf_params", prompt,
                                    negative_prompt, seed,
                                    kwargs.get("superres", False))
         if out_path and out["mesh"] is not None:
-            out["mesh"].write(out_path, flip_yz=True)
+            with span("endpoint.write"):
+                out["mesh"].write(out_path, flip_yz=True)
         return out

@@ -43,6 +43,7 @@ from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
 from ..models.diffusion.tokenizer import CLIPTokenizer, HashTokenizer
 from ..models.diffusion.weights import load_torch_state
 from ..models.mesh import Mesh
+from ..utils.profiling import endpoint, span
 from . import cameras as C
 from .endpoints import EndpointsMixin
 
@@ -402,6 +403,7 @@ class Adapter3DRunner(EndpointsMixin):
             return tracer_segment(net, images, input_size=size, chunk=8)
         return segment_fn
 
+    @endpoint
     def run_segmentation(self, images, seed=42, refine_fn=None,
                          use_sam=False, bg_color=None, erosion=0):
         """TRACER foreground masks: images (N, H, W, 3) in [0, 1] (numpy
@@ -513,6 +515,7 @@ class Adapter3DRunner(EndpointsMixin):
         elev, pose = elev_estimation(matches, np.asarray(view_poses), intr)
         return np.asarray(pose)[:3], elev
 
+    @endpoint
     def run_retex(self, mesh_path, prompt, negative_prompt="", seed=42,
                   steps=12, denoising_strength=0.7, cfg_scale=None,
                   num_views=None, render_size=None, n_inverse_steps=24,
@@ -602,9 +605,11 @@ class Adapter3DRunner(EndpointsMixin):
             min_num_views=min(int(nk["min_num_views"]), num_views),
             keep_first_views=2 if front_azi is not None else 0,
             mode=nk["mvedit_mode"], ingp=ingp)
-        mesh = self.run_mesh_preproc(mesh_path)["mesh"]
-        pos_e, neg_e = self.encode_prompt(m, prompts,
-                                          [negative_prompt] * num_views)
+        with span("endpoint.preproc"):
+            mesh = self.run_mesh_preproc(mesh_path)["mesh"]
+        with span("endpoint.prompt"):
+            pos_e, neg_e = self.encode_prompt(m, prompts,
+                                              [negative_prompt] * num_views)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
 
@@ -617,9 +622,11 @@ class Adapter3DRunner(EndpointsMixin):
                                    negative_prompt, seed,
                                    kwargs.get("superres", False))
         if out_path:
-            out["mesh"].write(out_path, flip_yz=True)
+            with span("endpoint.write"):
+                out["mesh"].write(out_path, flip_yz=True)
         return out
 
+    @endpoint
     @torch.no_grad()
     def run_mesh_to_video(self, mesh_path, out_path="out.mp4",
                           num_frames=60, render_size=None, elev=0.2,
@@ -663,6 +670,7 @@ class Adapter3DRunner(EndpointsMixin):
         return render_surround_video(render_frame, pose0, intr,
                                      num_frames=num_frames, path=out_path)
 
+    @endpoint
     def run_mesh_preproc(self, mesh_path, out_path=None):
         """Load and normalise an input mesh: multi-material GLB scenes
         merge into one atlas-packed mesh, vertex colours become a texture,

@@ -24,6 +24,8 @@ are keyed by the iteration index.
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["ray_batch_iterator", "scene_batch_iterator", "pixel_centres",
            "pixel_rays"]
 
@@ -40,7 +42,9 @@ def scene_batch_iterator(dataset, batch_size, seed=0, skip_iter=0,
         order = order[host::n_hosts]
         for i in range(0, len(order) - batch_size + 1, batch_size):
             if it >= skip_iter:
-                yield [dataset[j] for j in order[i:i + batch_size]]
+                with span("loader.read"):
+                    scenes = [dataset[j] for j in order[i:i + batch_size]]
+                yield scenes
             it += 1
 
 
@@ -99,37 +103,45 @@ def ray_batch_iterator(dataset, batch_size, n_rays, seed=0, skip_iter=0,
                                        shard):
         rng = np.random.default_rng((seed + 1, it_idx))
         it_idx += 1
-        ro_b, rd_b, rgb_b, ids = [], [], [], []
-        for s in scenes:
-            imgs = s["images"]
-            n, h, w = imgs.shape[:3]
-            if num_train_imgs is not None:
-                n = min(n, num_train_imgs)
-            if patch_size is not None:
-                ps = patch_size
-                v = int(rng.integers(0, n))
-                oy = int(rng.integers(0, max(h - ps, 0) + 1))
-                ox = int(rng.integers(0, max(w - ps, 0) + 1))
-                gy, gx = np.meshgrid(np.arange(oy, oy + ps),
-                                     np.arange(ox, ox + ps), indexing="ij")
-                vi = np.full(n_rays, v)
-                yi = gy.reshape(-1)
-                xi = gx.reshape(-1)
-            else:
-                vi = rng.integers(0, n, n_rays)
-                yi = rng.integers(0, h, n_rays)
-                xi = rng.integers(0, w, n_rays)
-            o, d = pixel_rays(s["poses"], s["intrinsics"], vi, yi, xi,
-                              (h, w))
-            ro_b.append(o)
-            rd_b.append(d)
-            rgb_b.append(imgs[vi, yi, xi])
-            ids.append(s["scene_id"])
-        yield {
-            "rays_o": torch.from_numpy(np.stack(ro_b)),
-            "rays_d": torch.from_numpy(np.stack(rd_b)),
-            "rgb": torch.from_numpy(np.stack(rgb_b)),
-            "scene_ids": np.asarray(ids),
-            "cond": None,
-            "captions": [s.get("caption", "") for s in scenes],
-        }
+        with span("loader.rays"):
+            batch = _ray_batch(scenes, rng, n_rays, num_train_imgs,
+                               patch_size)
+        yield batch
+
+
+def _ray_batch(scenes, rng, n_rays, num_train_imgs, patch_size):
+    """One batch of `ray_batch_iterator` from its scenes and the
+    iteration's generator."""
+    ro_b, rd_b, rgb_b, ids = [], [], [], []
+    for s in scenes:
+        imgs = s["images"]
+        n, h, w = imgs.shape[:3]
+        if num_train_imgs is not None:
+            n = min(n, num_train_imgs)
+        if patch_size is not None:
+            ps = patch_size
+            v = int(rng.integers(0, n))
+            oy = int(rng.integers(0, max(h - ps, 0) + 1))
+            ox = int(rng.integers(0, max(w - ps, 0) + 1))
+            gy, gx = np.meshgrid(np.arange(oy, oy + ps),
+                                 np.arange(ox, ox + ps), indexing="ij")
+            vi = np.full(n_rays, v)
+            yi = gy.reshape(-1)
+            xi = gx.reshape(-1)
+        else:
+            vi = rng.integers(0, n, n_rays)
+            yi = rng.integers(0, h, n_rays)
+            xi = rng.integers(0, w, n_rays)
+        o, d = pixel_rays(s["poses"], s["intrinsics"], vi, yi, xi, (h, w))
+        ro_b.append(o)
+        rd_b.append(d)
+        rgb_b.append(imgs[vi, yi, xi])
+        ids.append(s["scene_id"])
+    return {
+        "rays_o": torch.from_numpy(np.stack(ro_b)),
+        "rays_d": torch.from_numpy(np.stack(rd_b)),
+        "rgb": torch.from_numpy(np.stack(rgb_b)),
+        "scene_ids": np.asarray(ids),
+        "cond": None,
+        "captions": [s.get("caption", "") for s in scenes],
+    }

@@ -61,7 +61,7 @@ from ..ops.image import edge_dilation, resize_bilinear
 from ..ops.rotation import prune_cameras
 from ..parallel.sharded import ShardedViews, replicate_
 from ..utils.geometry import normalize_depth
-from ..utils.profiling import phase_timer
+from ..utils.profiling import phase, span
 
 __all__ = ["MVEdit3DConfig", "MVEdit3DPipeline", "GeneratorDraws",
            "default_max_num_views",
@@ -566,184 +566,183 @@ class MVEdit3DPipeline:
         one_pass = p1 = p2 = None
         steps = [None] + list(timesteps)
         for i, t in enumerate(steps):
-            pt = phase_timer()
-            if pt is not None:
-                pt.mark()
             progress = i / max(len(steps) - 1, 1)
             in_mesh_phase = progress > cfg.nerf_switch_progress
             rs = default_render_size_p(progress, cfg.render_size) \
                 if (cfg.render_size_ramp and not in_mesh_phase) \
                 else cfg.render_size
 
-            # ---- camera schedule: prune + bucket gather
-            if i > 0:
-                target_n = max(int(round(default_max_num_views(
-                    progress, cfg.nerf_switch_progress, cfg.num_views,
-                    cfg.mid_num_views, cfg.min_num_views))), max(keep_n, 1))
-                alive_ids = np.flatnonzero(alive)
-                if target_n < len(alive_ids):
-                    poses_np = tgt["poses"].cpu().numpy()[bsel[alive_ids]]
-                    bonus = None
-                    if ctrl_images is not None:
-                        diff = ((ctrl_images - init_images) ** 2).mean(
-                            (1, 2, 3))
-                        mask_mean = init_masks.mean((1, 2, 3))
-                        bonus = (diff / (mask_mean + 0.1)).cpu().numpy()
-                        # NaN renders (an undertrained field) must not
-                        # poison the min-score comparisons
-                        bonus = np.nan_to_num(bonus[alive_ids], nan=0.0,
-                                              posinf=0.0, neginf=0.0)
-                        bonus = bonus[None, :] + bonus[:, None]
-                    kept_local = prune_cameras(
-                        poses_np, list(range(min(keep_n, len(alive_ids)))),
-                        target_n, pixel_dist_bonus=bonus)
-                    kept = set(alive_ids[kept_local].tolist())
-                    new_alive = np.array([j in kept for j in range(cur_n)])
-                    if not np.array_equal(new_alive, alive):
-                        # zero the pruned views' weights in the full buffer
-                        dead = np.setdiff1d(np.unique(bsel[~new_alive]),
-                                            np.unique(bsel[new_alive]))
-                        alive = new_alive
-                        if len(dead):
-                            cw = tgt["cam_weights"].clone()
-                            cw[torch.as_tensor(dead, device=dev)] = 0.0
-                            tgt["cam_weights"] = cw
-                # gather the denoise-side arrays down to the next bucket
-                n_alive = int(alive.sum())
-                for b in buckets:
-                    if b < cur_n and n_alive <= b:
-                        ids = np.flatnonzero(alive)[:b]
-                        if len(ids) < b:    # pad with alive duplicates
-                            ids = np.concatenate(
-                                [ids, np.repeat(ids[-1:], b - len(ids))])
-                        it = torch.as_tensor(ids, device=dev)
-                        init_images, init_masks = init_images[it], \
-                            init_masks[it]
-                        extra_ctrl = [e[it] for e in extra_ctrl]
-                        pos_e, neg_e = pos_e[it], neg_e[it]
-                        latents = latents[it]
-                        solver_state = solver_state._replace(
-                            prev_x0=solver_state.prev_x0[it])
-                        if ref_noisy is not None:
-                            ref_latents, ref_noisy = ref_latents[it], \
-                                ref_noisy[it]
-                            ref_solver_state = ref_solver_state._replace(
-                                prev_x0=ref_solver_state.prev_x0[it])
-                        ctrl_images = _take(ctrl_images, it)
-                        ctrl_depths = _take(ctrl_depths, it)
-                        one_pass = p1 = p2 = None
-                        cur_n = b
-                        alive, bsel = alive[ids], bsel[ids]
-                        break
-
-            N = cur_n
-            if p1 is None and one_pass is None:
-                if cfg.mode == "1-pass":
-                    one_pass, _ = self._denoise(N)
-                else:
-                    p1, p2 = self._denoise(N)
-
-            # IP-Adapter tokens [uncond x N; cond x N] (mvedit_3d.py:765)
-            ip_ctx = getattr(m, "ip_context", None)
-            ip2 = None if ip_ctx is None else torch.cat(
-                [ip_ctx[:1].expand(N, -1, -1),
-                 ip_ctx[1:2].expand(N, -1, -1)], 0)
             if t is not None:
-                # ---- P1 denoise + x0 decode
-                t_vec = torch.full((2 * N,), int(t), dtype=torch.int32,
-                                   device=dev)
-                cfg_lat = torch.cat([latents, latents], 0)
-                embeds = torch.cat([neg_e, pos_e], 0)
-                extras2 = tuple(torch.cat([e, e], 0) for e in extra_ctrl)
-                if cfg.mode == "1-pass":
-                    # all nets on the previous step's renders
-                    conds = [torch.cat([ctrl_images, ctrl_images], 0),
-                             torch.cat([ctrl_depths, ctrl_depths], 0)] \
-                        + list(extras2)
-                    scales = [cfg.tile_weight, cfg.depth_weight] + \
-                        [cfg.extra_control_scale] * len(extras2)
-                    eps = one_pass(cfg_lat, t_vec, embeds, conds, scales,
-                                   cfg.guidance_scale, ip_context=ip2,
-                                   ref_noisy=ref_noisy)
-                else:
-                    eps, enc_state, p1_res = p1(
-                        cfg_lat, t_vec, embeds, None, cfg.depth_weight,
-                        cfg.guidance_scale, ip_context=ip2,
-                        extra_images=extras2,
-                        extra_scales=(cfg.extra_control_scale,)
-                        * len(extras2), ref_noisy=ref_noisy)
-                eps = eps.float()
-                sa, sn = sch.sqrt_acp(int(t))
-                dec = ((vae_dec((latents - sn * eps) / sa) + 1) / 2).clamp(
-                    0.0, 1.0)
-                # the bucket's decoded views into the full target buffer
-                bj = torch.as_tensor(bsel, device=dev)
-                images = tgt["images"].clone()
-                images[bj] = dec
-                tgt["images"] = images
-                if getattr(m, "segment_fn", None) is not None:
-                    masks = tgt["masks"].clone()
-                    masks[bj] = m.segment_fn(dec)
-                    tgt["masks"] = masks
-                if pt is not None:
-                    pt.tick("denoise_p1+vae_dec", tgt["images"],
-                            sig=(len(bsel), in_mesh_phase))
+                # the camera schedule and the denoise closures are
+                # charged to the denoise that follows them
+                with phase("denoise_p1+vae_dec", dev) as ph:
+                    # ---- camera schedule: prune + bucket gather
+                    target_n = max(int(round(default_max_num_views(
+                        progress, cfg.nerf_switch_progress, cfg.num_views,
+                        cfg.mid_num_views, cfg.min_num_views))),
+                        max(keep_n, 1))
+                    alive_ids = np.flatnonzero(alive)
+                    if target_n < len(alive_ids):
+                        poses_np = tgt["poses"].cpu().numpy()[bsel[alive_ids]]
+                        bonus = None
+                        if ctrl_images is not None:
+                            diff = ((ctrl_images - init_images) ** 2).mean(
+                                (1, 2, 3))
+                            mask_mean = init_masks.mean((1, 2, 3))
+                            bonus = (diff / (mask_mean + 0.1)).cpu().numpy()
+                            # NaN renders (an undertrained field) must not
+                            # poison the min-score comparisons
+                            bonus = np.nan_to_num(bonus[alive_ids], nan=0.0,
+                                                  posinf=0.0, neginf=0.0)
+                            bonus = bonus[None, :] + bonus[:, None]
+                        kept_local = prune_cameras(
+                            poses_np, list(range(min(keep_n, len(alive_ids)))),
+                            target_n, pixel_dist_bonus=bonus)
+                        kept = set(alive_ids[kept_local].tolist())
+                        new_alive = np.array([j in kept for j in range(cur_n)])
+                        if not np.array_equal(new_alive, alive):
+                            # zero the pruned views' weights in the full buffer
+                            dead = np.setdiff1d(np.unique(bsel[~new_alive]),
+                                                np.unique(bsel[new_alive]))
+                            alive = new_alive
+                            if len(dead):
+                                cw = tgt["cam_weights"].clone()
+                                cw[torch.as_tensor(dead, device=dev)] = 0.0
+                                tgt["cam_weights"] = cw
+                    # gather the denoise-side arrays down to the next bucket
+                    n_alive = int(alive.sum())
+                    for b in buckets:
+                        if b < cur_n and n_alive <= b:
+                            ids = np.flatnonzero(alive)[:b]
+                            if len(ids) < b:    # pad with alive duplicates
+                                ids = np.concatenate(
+                                    [ids, np.repeat(ids[-1:], b - len(ids))])
+                            it = torch.as_tensor(ids, device=dev)
+                            init_images, init_masks = init_images[it], \
+                                init_masks[it]
+                            extra_ctrl = [e[it] for e in extra_ctrl]
+                            pos_e, neg_e = pos_e[it], neg_e[it]
+                            latents = latents[it]
+                            solver_state = solver_state._replace(
+                                prev_x0=solver_state.prev_x0[it])
+                            if ref_noisy is not None:
+                                ref_latents, ref_noisy = ref_latents[it], \
+                                    ref_noisy[it]
+                                ref_solver_state = ref_solver_state._replace(
+                                    prev_x0=ref_solver_state.prev_x0[it])
+                            ctrl_images = _take(ctrl_images, it)
+                            ctrl_depths = _take(ctrl_depths, it)
+                            one_pass = p1 = p2 = None
+                            cur_n = b
+                            alive, bsel = alive[ids], bsel[ids]
+                            break
+
+                    N = cur_n
+                    if p1 is None and one_pass is None:
+                        if cfg.mode == "1-pass":
+                            one_pass, _ = self._denoise(N)
+                        else:
+                            p1, p2 = self._denoise(N)
+
+                    # IP-Adapter tokens [uncond x N; cond x N]
+                    # (mvedit_3d.py:765)
+                    ip_ctx = getattr(m, "ip_context", None)
+                    ip2 = None if ip_ctx is None else torch.cat(
+                        [ip_ctx[:1].expand(N, -1, -1),
+                         ip_ctx[1:2].expand(N, -1, -1)], 0)
+
+                    # ---- P1 denoise + x0 decode
+                    t_vec = torch.full((2 * N,), int(t), dtype=torch.int32,
+                                       device=dev)
+                    cfg_lat = torch.cat([latents, latents], 0)
+                    embeds = torch.cat([neg_e, pos_e], 0)
+                    extras2 = tuple(torch.cat([e, e], 0) for e in extra_ctrl)
+                    if cfg.mode == "1-pass":
+                        # all nets on the previous step's renders
+                        conds = [torch.cat([ctrl_images, ctrl_images], 0),
+                                 torch.cat([ctrl_depths, ctrl_depths], 0)] \
+                            + list(extras2)
+                        scales = [cfg.tile_weight, cfg.depth_weight] + \
+                            [cfg.extra_control_scale] * len(extras2)
+                        eps = one_pass(cfg_lat, t_vec, embeds, conds, scales,
+                                       cfg.guidance_scale, ip_context=ip2,
+                                       ref_noisy=ref_noisy)
+                    else:
+                        eps, enc_state, p1_res = p1(
+                            cfg_lat, t_vec, embeds, None, cfg.depth_weight,
+                            cfg.guidance_scale, ip_context=ip2,
+                            extra_images=extras2,
+                            extra_scales=(cfg.extra_control_scale,)
+                            * len(extras2), ref_noisy=ref_noisy)
+                    eps = eps.float()
+                    sa, sn = sch.sqrt_acp(int(t))
+                    dec = ((vae_dec((latents - sn * eps) / sa) + 1) / 2).clamp(
+                        0.0, 1.0)
+                    # the bucket's decoded views into the full target buffer
+                    bj = torch.as_tensor(bsel, device=dev)
+                    images = tgt["images"].clone()
+                    images[bj] = dec
+                    tgt["images"] = images
+                    if getattr(m, "segment_fn", None) is not None:
+                        masks = tgt["masks"].clone()
+                        masks[bj] = m.segment_fn(dec)
+                        tgt["masks"] = masks
+                    ph.sig = (len(bsel), in_mesh_phase)
 
             # ---- 3D fuse
             if not in_mesh_phase:
                 n_steps = cfg.init_inverse_steps if t is None \
                     else cfg.n_inverse_steps
-                fit, _ = self._nerf_fit_fns(rs, n_steps)
-                tgt_rs = self._resize_targets(tgt, rs)
-                nerf_params, nerf_opt, grid, _ = fit(
-                    nerf_params, nerf_opt, grid, tgt_rs,
-                    sched=self._sched_weights(progress, "nerf"),
-                    lpips_params=lpips_params, draws=draws.fit(fit, tgt_rs))
-                if pt is not None:
-                    pt.tick("nerf_fit", nerf_params, sig=(rs, n_steps))
+                with phase("nerf_fit", dev, sig=(rs, n_steps)):
+                    fit, _ = self._nerf_fit_fns(rs, n_steps)
+                    tgt_rs = self._resize_targets(tgt, rs)
+                    nerf_params, nerf_opt, grid, _ = fit(
+                        nerf_params, nerf_opt, grid, tgt_rs,
+                        sched=self._sched_weights(progress, "nerf"),
+                        lpips_params=lpips_params,
+                        draws=draws.fit(fit, tgt_rs))
             else:
                 first_mesh_step = mesh_state is None
-                if first_mesh_step:
-                    # the NeRF phase's Adam moments go before the mesh
-                    # phase is built
-                    del nerf_opt
-                    tet_grid, mesh_state, mesh_opt = self._init_mesh_phase(
-                        nerf_params, device=dev)
                 # the first DMTet fit runs tet_init_inverse_steps
                 n_steps = cfg.tet_init_inverse_steps if first_mesh_step \
                     else cfg.n_inverse_steps
-                mfit, _, _ = self._mesh_fit_fns(tet_grid, n_steps)
-                mesh_state, mesh_opt, fit_out = mfit(
-                    mesh_state, mesh_opt, tgt,
-                    sched=self._sched_weights(progress, "mesh"),
-                    draws=draws.fit(mfit, tgt), lpips_params=lpips_params)
-                last_mt = fit_out["mt"]
-                nerf_params = mesh_state["field"]
-                if pt is not None:
-                    pt.tick("mesh_fit", mesh_state["sdf"], sig=(n_steps,))
+                with phase("mesh_fit", dev, sig=(n_steps,)):
+                    if first_mesh_step:
+                        # the NeRF phase's Adam moments go before the mesh
+                        # phase is built
+                        del nerf_opt
+                        tet_grid, mesh_state, mesh_opt = \
+                            self._init_mesh_phase(nerf_params, device=dev)
+                    mfit, _, _ = self._mesh_fit_fns(tet_grid, n_steps)
+                    mesh_state, mesh_opt, fit_out = mfit(
+                        mesh_state, mesh_opt, tgt,
+                        sched=self._sched_weights(progress, "mesh"),
+                        draws=draws.fit(mfit, tgt), lpips_params=lpips_params)
+                    last_mt = fit_out["mt"]
+                    nerf_params = mesh_state["field"]
 
             # ---- re-render the bucket's views -> ControlNet inputs, eps_3d
-            bj = torch.as_tensor(bsel, device=dev)
-            renders = self._render_all(nerf_params, mesh_state, last_mt,
-                                       grid, {"poses": tgt["poses"][bj],
-                                              "intrinsics":
-                                                  tgt["intrinsics"][bj]}, rs)
-            ctrl_depths = normalize_depth(renders["depth"], renders["alpha"])[
-                ..., None].expand(-1, -1, -1, 3)
-            ctrl_rgb = renders["rgb"]
-            if rs != cfg.render_size:
-                # upsample to the diffusion size: the SRVGG enhancer when
-                # present, else bilinear
-                full = (cfg.render_size, cfg.render_size)
-                enhance = getattr(m, "enhance_fn", None)
-                ctrl_rgb = enhance(ctrl_rgb, cfg.render_size) \
-                    if enhance is not None \
-                    else resize_bilinear(ctrl_rgb, full)
-                ctrl_depths = resize_bilinear(ctrl_depths, full)
-            ctrl_images = ctrl_rgb.clamp(0.0, 1.0)
-            if pt is not None:
-                pt.tick("render_all", ctrl_images,
-                        sig=(mesh_state is None, rs, len(bsel)))
+            with phase("render_all", dev,
+                       sig=(mesh_state is None, rs, len(bsel))):
+                bj = torch.as_tensor(bsel, device=dev)
+                renders = self._render_all(
+                    nerf_params, mesh_state, last_mt, grid,
+                    {"poses": tgt["poses"][bj],
+                     "intrinsics": tgt["intrinsics"][bj]}, rs)
+                ctrl_depths = normalize_depth(
+                    renders["depth"], renders["alpha"])[..., None].expand(
+                        -1, -1, -1, 3)
+                ctrl_rgb = renders["rgb"]
+                if rs != cfg.render_size:
+                    # upsample to the diffusion size: the SRVGG enhancer
+                    # when present, else bilinear
+                    full = (cfg.render_size, cfg.render_size)
+                    enhance = getattr(m, "enhance_fn", None)
+                    ctrl_rgb = enhance(ctrl_rgb, cfg.render_size) \
+                        if enhance is not None \
+                        else resize_bilinear(ctrl_rgb, full)
+                    ctrl_depths = resize_bilinear(ctrl_depths, full)
+                ctrl_images = ctrl_rgb.clamp(0.0, 1.0)
             if cfg.debug:
                 from ..utils.debug_viz import save_tiled_viz
                 save_tiled_viz(cfg.debug_dir, i, _host(renders), _host(
@@ -751,45 +750,40 @@ class MVEdit3DPipeline:
                      if tgt.get(k) is not None}))
 
             if t is not None:
-                lat_3d = vae_enc(ctrl_images * 2 - 1)
-                eps_3d = (latents - sa * lat_3d) / sn
-                if cfg.mode == "1-pass":
-                    eps_unet = eps
-                else:
-                    eps_unet = p2(
-                        cfg_lat, enc_state, p1_res, t_vec, embeds,
-                        torch.cat([ctrl_images, ctrl_images], 0),
-                        torch.cat([ctrl_depths, ctrl_depths], 0),
-                        cfg.tile_weight, cfg.depth_weight,
-                        cfg.guidance_scale, ip_context=ip2,
-                        ref_noisy=ref_noisy).float()
-                bw = (1.0 - sa) if cfg.blend_mode == "dynamic" else 0.5
-                eps_final = bw * eps_3d + (1 - bw) * eps_unet
-                t_prev = int(steps[i + 1]) if i + 1 < len(steps) else -1
-                latents, solver_state = S.dpmsolver_step(
-                    sch, latents, eps_final, int(t), t_prev, solver_state)
-                if ref_noisy is not None:
-                    # the reference rows stay on schedule: their eps is the
-                    # residual noise of the clean reference latents
-                    ref_eps = (ref_noisy - sa * ref_latents) / sn
-                    ref_noisy, ref_solver_state = S.dpmsolver_step(
-                        sch, ref_noisy, ref_eps, int(t), t_prev,
-                        ref_solver_state)
-                if pt is not None:
-                    pt.tick("denoise_p2+vae_enc+solver", latents,
-                            sig=(len(bsel), in_mesh_phase))
+                with phase("denoise_p2+vae_enc+solver", dev,
+                           sig=(len(bsel), in_mesh_phase)):
+                    lat_3d = vae_enc(ctrl_images * 2 - 1)
+                    eps_3d = (latents - sa * lat_3d) / sn
+                    if cfg.mode == "1-pass":
+                        eps_unet = eps
+                    else:
+                        eps_unet = p2(
+                            cfg_lat, enc_state, p1_res, t_vec, embeds,
+                            torch.cat([ctrl_images, ctrl_images], 0),
+                            torch.cat([ctrl_depths, ctrl_depths], 0),
+                            cfg.tile_weight, cfg.depth_weight,
+                            cfg.guidance_scale, ip_context=ip2,
+                            ref_noisy=ref_noisy).float()
+                    bw = (1.0 - sa) if cfg.blend_mode == "dynamic" else 0.5
+                    eps_final = bw * eps_3d + (1 - bw) * eps_unet
+                    t_prev = int(steps[i + 1]) if i + 1 < len(steps) else -1
+                    latents, solver_state = S.dpmsolver_step(
+                        sch, latents, eps_final, int(t), t_prev,
+                        solver_state)
+                    if ref_noisy is not None:
+                        # the reference rows stay on schedule: their eps is
+                        # the residual noise of the clean reference latents
+                        ref_eps = (ref_noisy - sa * ref_latents) / sn
+                        ref_noisy, ref_solver_state = S.dpmsolver_step(
+                            sch, ref_noisy, ref_eps, int(t), t_prev,
+                            ref_solver_state)
             if progress_callback:
                 progress_callback(i, len(steps))
 
         # ---- decimate + texture-only refinement + bake
-        pt = phase_timer()
-        if pt is not None:
-            pt.mark()
-        out_mesh = self._extract_and_bake(mesh_state, last_mt, tgt, draws,
-                                          lpips_params)
-        if pt is not None:
-            pt.tick("bake", None if out_mesh is None
-                    else torch.as_tensor(out_mesh.albedo, device=dev))
+        with phase("bake", dev):
+            out_mesh = self._extract_and_bake(mesh_state, last_mt, tgt,
+                                              draws, lpips_params)
         return {"mesh": out_mesh, "nerf_params": nerf_params,
                 "mesh_state": mesh_state, "renders": renders}
 
@@ -868,7 +862,8 @@ class MVEdit3DPipeline:
         cfg = self.cfg
         if mesh_state is None:
             return None
-        verts, faces = self._compact_mesh(last_mt)
+        with span("bake.extract"):
+            verts, faces = self._compact_mesh(last_mt)
         if verts is None:
             # a degenerate extraction (e.g. an empty density field)
             return None
@@ -877,41 +872,52 @@ class MVEdit3DPipeline:
         if cfg.mesh_reduction < 1.0 and len(faces) > 64:
             if native_available():
                 target = max(int(round(len(faces) * cfg.mesh_reduction)), 16)
-                verts_d, faces_d = decimate_qem(verts, faces, target)
+                with span("bake.decimate"):
+                    verts_d, faces_d = decimate_qem(verts, faces, target)
                 if len(faces_d) >= 16:
                     verts, faces = (verts_d.astype(np.float32),
                                     faces_d.astype(np.int32))
-                    mcfg = MF.MeshFitConfig(
-                        raster=self._mesh_raster_cfg(cfg.render_size),
-                        patch_size=min(cfg.patch_size, cfg.render_size))
-                    refine, make_opt = MF.make_texture_refine(
-                        self._color_fn, mcfg,
-                        n_steps=cfg.mesh_simplify_texture_steps,
-                        mesh=self.device_mesh)
-                    sw = {**MF.default_mesh_schedule_weights(mcfg),
-                          "lr": cfg.end_lr,
-                          "patch_rgb": cfg.end_patch_rgb_weight}
-                    field, _, _ = refine(
-                        field, make_opt(field), torch.as_tensor(
-                            verts, device=dev),
-                        torch.as_tensor(faces, device=dev).long(), tgt,
-                        sched=sw, lpips_params=lpips_params,
-                        draws=draws.refine(refine, tgt,
-                                           cfg.mesh_simplify_texture_steps))
-        mesh = Mesh(v=verts, f=faces)
-        mesh.auto_normal()
-        mesh.auto_uv()
+                    with span("bake.refine"):
+                        field = self._refine_texture(field, verts, faces,
+                                                     tgt, draws, dev,
+                                                     lpips_params)
+        with span("bake.uv"):
+            mesh = Mesh(v=verts, f=faces)
+            mesh.auto_normal()
+            mesh.auto_uv()
         acfg = RasterConfig(height=atlas_size, width=atlas_size, tile=16,
                             k_per_tile=64, k_big=32)
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=dev)
-        f = t(mesh.f, torch.int64)
-        rgb, mask = bake_texture(
-            t(mesh.v), f, torch.ones(f.shape[0], dtype=torch.bool,
-                                     device=dev),
-            t(mesh.vt), t(mesh.ft, torch.int64), FieldColor(cfg.ingp), acfg,
-            field_params=field)
-        rgb = edge_dilation(rgb, mask, n_iters=16)
-        mesh.albedo = rgb.clamp(0, 1).cpu().numpy()
+        with span("bake.texture"):
+            f = t(mesh.f, torch.int64)
+            rgb, mask = bake_texture(
+                t(mesh.v), f, torch.ones(f.shape[0], dtype=torch.bool,
+                                         device=dev),
+                t(mesh.vt), t(mesh.ft, torch.int64), FieldColor(cfg.ingp),
+                acfg, field_params=field)
+            rgb = edge_dilation(rgb, mask, n_iters=16)
+            mesh.albedo = rgb.clamp(0, 1).cpu().numpy()
         return mesh
+
+    def _refine_texture(self, field, verts, faces, tgt, draws, dev,
+                        lpips_params):
+        """The albedo field refined on the decimated mesh: the mesh fit's
+        texture-only steps (`mesh_simplify_texture_steps`) at the end of
+        the schedule."""
+        cfg = self.cfg
+        mcfg = MF.MeshFitConfig(
+            raster=self._mesh_raster_cfg(cfg.render_size),
+            patch_size=min(cfg.patch_size, cfg.render_size))
+        refine, make_opt = MF.make_texture_refine(
+            self._color_fn, mcfg, n_steps=cfg.mesh_simplify_texture_steps,
+            mesh=self.device_mesh)
+        sw = {**MF.default_mesh_schedule_weights(mcfg), "lr": cfg.end_lr,
+              "patch_rgb": cfg.end_patch_rgb_weight}
+        field, _, _ = refine(
+            field, make_opt(field), torch.as_tensor(verts, device=dev),
+            torch.as_tensor(faces, device=dev).long(), tgt, sched=sw,
+            lpips_params=lpips_params,
+            draws=draws.refine(refine, tgt, cfg.mesh_simplify_texture_steps))
+        return field

@@ -25,7 +25,7 @@ from ..models.mesh.texture import _sample_level
 from ..ops.clip import clip
 from ..ops.image import edge_dilation
 from ..utils.geometry import normalize_depth
-from ..utils.profiling import phase_timer
+from ..utils.profiling import phase
 from .mvedit_3d import GeneratorDraws
 from .texture import TextureConfig, camera_dense_weighting, make_texture_fit
 
@@ -145,58 +145,56 @@ class TextureSuperResPipeline:
         else:
             ip2 = None
 
-        pt = phase_timer()
-        if pt is not None:
-            pt.mark()
         timesteps = S.make_timesteps(cfg.diffusion_steps,
                                      sch.num_train_timesteps, "trailing")
         timesteps = timesteps[int(len(timesteps)
                                   * (1 - cfg.denoising_strength)):]
-        lat0 = vae_enc(init_renders * 2 - 1)
-        latents = S.add_noise(sch, lat0, draws.view_noise(lat0.shape, dev),
-                              int(timesteps[0]))
-        solver_state = S.SolverState.init(latents)
-        embeds = torch.cat([negative_embeds, prompt_embeds], 0)
-        depths2 = torch.cat([ctrl_depths, ctrl_depths], 0)
         for i, t in enumerate(timesteps):
-            t = int(t)
-            t_vec = torch.full((2 * N,), t, dtype=torch.int32, device=dev)
-            lat2 = torch.cat([latents, latents], 0)
-            eps, enc_state, p1_res = p1(
-                lat2, t_vec, embeds, depths2, cfg.depth_weight,
-                cfg.guidance_scale, ip_context=ip2)
-            sa, sn = sch.sqrt_acp(t)
-            decoded = clip((vae_dec((latents - sn * eps.float()) / sa) + 1)
-                           / 2, 0.0, 1.0)
-            eps_unet = p2(lat2, enc_state, p1_res, t_vec, embeds,
-                          torch.cat([decoded, decoded], 0), depths2,
-                          cfg.tile_weight, cfg.depth_weight,
-                          cfg.guidance_scale, ip_context=ip2)
-            t_prev = int(timesteps[i + 1]) if i + 1 < len(timesteps) else -1
-            latents, solver_state = S.dpmsolver_step(
-                sch, latents, eps_unet.float(), t, t_prev, solver_state)
-            if pt is not None:
-                pt.tick("superres_denoise", latents, sig=0)
-        final_views = clip((vae_dec(latents) + 1) / 2, 0.0, 1.0)
+            with phase("superres_denoise", dev, sig=0):
+                if i == 0:
+                    # the first step's phase carries the encode
+                    lat0 = vae_enc(init_renders * 2 - 1)
+                    latents = S.add_noise(
+                        sch, lat0, draws.view_noise(lat0.shape, dev), int(t))
+                    solver_state = S.SolverState.init(latents)
+                    embeds = torch.cat([negative_embeds, prompt_embeds], 0)
+                    depths2 = torch.cat([ctrl_depths, ctrl_depths], 0)
+                t = int(t)
+                t_vec = torch.full((2 * N,), t, dtype=torch.int32,
+                                   device=dev)
+                lat2 = torch.cat([latents, latents], 0)
+                eps, enc_state, p1_res = p1(
+                    lat2, t_vec, embeds, depths2, cfg.depth_weight,
+                    cfg.guidance_scale, ip_context=ip2)
+                sa, sn = sch.sqrt_acp(t)
+                decoded = clip((vae_dec((latents - sn * eps.float()) / sa)
+                                + 1) / 2, 0.0, 1.0)
+                eps_unet = p2(lat2, enc_state, p1_res, t_vec, embeds,
+                              torch.cat([decoded, decoded], 0), depths2,
+                              cfg.tile_weight, cfg.depth_weight,
+                              cfg.guidance_scale, ip_context=ip2)
+                t_prev = int(timesteps[i + 1]) if i + 1 < len(timesteps) \
+                    else -1
+                latents, solver_state = S.dpmsolver_step(
+                    sch, latents, eps_unet.float(), t, t_prev, solver_state)
 
-        # the albedo field is fitted once, to the final views
-        tcfg = TextureConfig(num_views=N, render_size=cfg.render_size,
-                             n_inverse_steps=cfg.n_inverse_steps, lr=cfg.lr,
-                             ingp=cfg.ingp)
-        params = init_field_params if init_field_params is not None \
-            else draws.field_init(cfg.ingp, dev)
-        fit, make_optimizer = make_texture_fit(
-            color_fn, tcfg, getattr(m, "lpips_params", None))
-        targets = {"images": final_views}
-        params, _, losses = fit(params, make_optimizer(params), geom,
-                                targets, draws=draws.texture_fit(fit,
-                                                                 targets))
-        if pt is not None:
-            pt.tick("superres_tex_fit", losses)
+        with phase("superres_tex_fit", dev):
+            final_views = clip((vae_dec(latents) + 1) / 2, 0.0, 1.0)
+            # the albedo field is fitted once, to the final views
+            tcfg = TextureConfig(num_views=N, render_size=cfg.render_size,
+                                 n_inverse_steps=cfg.n_inverse_steps,
+                                 lr=cfg.lr, ingp=cfg.ingp)
+            params = init_field_params if init_field_params is not None \
+                else draws.field_init(cfg.ingp, dev)
+            fit, make_optimizer = make_texture_fit(
+                color_fn, tcfg, getattr(m, "lpips_params", None))
+            targets = {"images": final_views}
+            params, _, losses = fit(params, make_optimizer(params), geom,
+                                    targets,
+                                    draws=draws.texture_fit(fit, targets))
 
-        out_mesh = self.bake(mesh, params, dev)
-        if pt is not None:
-            pt.tick("superres_bake", out_mesh.albedo)
+        with phase("superres_bake", dev):
+            out_mesh = self.bake(mesh, params, dev)
         return {"mesh": out_mesh, "renders": final_views,
                 "field_params": params, "fit_losses": losses}
 

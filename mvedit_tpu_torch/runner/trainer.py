@@ -10,6 +10,9 @@
 - `LogHook` (`metrics.jsonl` and stdout), `EvalHook` (`eval.jsonl`) and
   `ModelUpdaterHook` (a function of the trainer at a given step).
 
+A hook's work after an iteration is the span `hooks.<name>` (`ema`,
+`checkpoint`, `log`, `eval`, `update`) of the installed phase timer.
+
 State is a dict of trees of tensors (`models/ssdnerf.py::tree_map`).
 """
 import json
@@ -21,6 +24,7 @@ from typing import Callable, Dict, List
 import torch
 
 from ..models.ssdnerf import tree_map
+from ..utils.profiling import span
 
 __all__ = ["Hook", "EmaHook", "CheckpointHook", "LogHook",
            "ModelUpdaterHook", "EvalHook", "Trainer"]
@@ -51,6 +55,10 @@ class EmaHook(Hook):
     def after_iter(self, trainer, metrics):
         if trainer.step % self.interval:
             return
+        with span("hooks.ema"):
+            self._update(trainer)
+
+    def _update(self, trainer):
         src = {k: trainer.state[k] for k in self.keys}
         if self.ema is None:
             self.ema = tree_map(lambda x: x.detach().clone(), src)
@@ -80,7 +88,8 @@ class CheckpointHook(Hook):
     def after_iter(self, trainer, metrics):
         if trainer.step % self.interval:
             return
-        self.save(trainer)
+        with span("hooks.checkpoint"):
+            self.save(trainer)
 
     def after_run(self, trainer):
         # a short run still leaves a state to resume from
@@ -129,13 +138,14 @@ class LogHook(Hook):
     def after_iter(self, trainer, metrics):
         if trainer.step % self.interval and trainer.step != 1:
             return
-        row = {"step": trainer.step,
-               "time": round(time.time() - self._t0, 2)}
-        row.update({k: float(v) for k, v in metrics.items()})
-        with open(self.path, "a") as f:
-            f.write(json.dumps(row) + "\n")
-        print(f"[{trainer.step}] " + " ".join(
-            f"{k}={v:.4g}" for k, v in row.items() if k != "step"))
+        with span("hooks.log"):
+            row = {"step": trainer.step,
+                   "time": round(time.time() - self._t0, 2)}
+            row.update({k: float(v) for k, v in metrics.items()})
+            with open(self.path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+            print(f"[{trainer.step}] " + " ".join(
+                f"{k}={v:.4g}" for k, v in row.items() if k != "step"))
 
 
 class EvalHook(Hook):
@@ -151,7 +161,8 @@ class EvalHook(Hook):
     def after_iter(self, trainer, metrics):
         if trainer.step % self.interval:
             return
-        self._run(trainer)
+        with span("hooks.eval"):
+            self._run(trainer)
 
     def after_run(self, trainer):
         self._run(trainer)
@@ -175,7 +186,8 @@ class ModelUpdaterHook(Hook):
     def after_iter(self, trainer, metrics):
         fn = self.schedule.pop(trainer.step, None)
         if fn is not None:
-            fn(trainer)
+            with span("hooks.update"):
+                fn(trainer)
 
 
 class Trainer:

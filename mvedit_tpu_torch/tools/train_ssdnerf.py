@@ -21,11 +21,13 @@ device.
 import argparse
 import importlib.util
 import os
-import time
 import types
 
 import numpy as np
 import torch
+
+from ..utils.profiling import (PhaseTimer, phase, phase_timer,
+                               set_phase_timer, span)
 
 __all__ = ["load_config", "init_models", "main"]
 
@@ -144,7 +146,9 @@ def main(argv=None):
     """Trains; returns a namespace of the trainer, the cache, the EMA, each
     step's metrics (floats) and the per-step host times of the loader and
     of the step (the latter ends in the cache's copy to the host, which
-    waits for the device)."""
+    waits for the device): the durations of the `loader` and `step`
+    phases of the installed `PhaseTimer`, or of one the run installs for
+    itself."""
     args = parse_args(argv)
     from ..datasets import ShapeNetSRN, ray_batch_iterator
     from ..models.diffusion import schedulers as S
@@ -195,31 +199,36 @@ def main(argv=None):
                               patch_size=train_cfg.get("patch_size"))
     cond_fn = getattr(cfg_mod, "make_cond_fn", None)
     cond_fn = cond_fn(device) if cond_fn else None
-    times = types.SimpleNamespace(loader=[], step=[], metrics=[])
+    metrics_seen = []
 
+    # the `loader` and `step` phases wait for nothing of their own: the
+    # step ends in the cache's copy to the host
     def timed_batches():
         while True:
-            t0 = time.perf_counter()
-            batch = next(data)
-            times.loader.append(time.perf_counter() - t0)
+            with phase("loader"):
+                batch = next(data)
             yield batch
 
     def wrapped_step(state, batch, generator):
-        t0 = time.perf_counter()
-        ids = batch.pop("scene_ids")
-        caps = batch.pop("captions", None)
-        batch = {k: v.to(device) if torch.is_tensor(v) else v
-                 for k, v in batch.items()}
-        if cond_fn is not None and caps is not None:
-            batch["cond"] = cond_fn(caps)
-        codes, m, v, steps = cache.gather(ids)
-        state = dict(state, codes=codes, code_m=m, code_v=v,
-                     code_steps=steps)
-        state, metrics = step_fn(state, batch, generator)
-        cache.scatter(ids, state.pop("codes"), state.pop("code_m"),
-                      state.pop("code_v"), state.pop("code_steps"))
-        times.step.append(time.perf_counter() - t0)
-        times.metrics.append({k: float(v) for k, v in metrics.items()})
+        with phase("step"):
+            ids = batch.pop("scene_ids")
+            caps = batch.pop("captions", None)
+            with span("step.h2d"):
+                batch = {k: v.to(device) if torch.is_tensor(v) else v
+                         for k, v in batch.items()}
+            if cond_fn is not None and caps is not None:
+                with span("step.cond"):
+                    batch["cond"] = cond_fn(caps)
+            with span("step.gather"):
+                codes, m, v, steps = cache.gather(ids)
+            state = dict(state, codes=codes, code_m=m, code_v=v,
+                         code_steps=steps)
+            with span("step.update"):
+                state, metrics = step_fn(state, batch, generator)
+            with span("step.scatter"):
+                cache.scatter(ids, state.pop("codes"), state.pop("code_m"),
+                              state.pop("code_v"), state.pop("code_steps"))
+        metrics_seen.append({k: float(v) for k, v in metrics.items()})
         return state, metrics
 
     ema_hook = EmaHook(keys=("denoiser",), interval=1) \
@@ -239,14 +248,25 @@ def main(argv=None):
     trainer = Trainer(wrapped_step, state, timed_batches(), hooks,
                       generator=gen)
     trainer.step = start
-    trainer.run(args.max_iters or train_cfg["max_iters"])
+    # the run's phases go to the installed timer, else to one of its own
+    pt = phase_timer()
+    own = pt is None
+    if own:
+        pt = PhaseTimer(keep_spans=False)
+        set_phase_timer(pt)
+    n0 = {k: len(pt.durations[k]) for k in ("loader", "step")}
+    try:
+        trainer.run(args.max_iters or train_cfg["max_iters"])
+    finally:
+        if own:
+            set_phase_timer(None)
     cache.save(os.path.join(args.work_dir, "scene_cache.npz"))
     print("done")
-    return types.SimpleNamespace(trainer=trainer, cache=cache,
-                                 ema=ema_hook and ema_hook.ema,
-                                 metrics=times.metrics,
-                                 loader_seconds=times.loader,
-                                 step_seconds=times.step)
+    return types.SimpleNamespace(
+        trainer=trainer, cache=cache, ema=ema_hook and ema_hook.ema,
+        metrics=metrics_seen,
+        loader_seconds=pt.durations["loader"][n0["loader"]:],
+        step_seconds=pt.durations["step"][n0["step"]:])
 
 
 if __name__ == "__main__":

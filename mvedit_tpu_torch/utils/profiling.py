@@ -1,4 +1,4 @@
-"""Profiling hooks and phase timing of the MVEdit loop (counterpart of
+"""Profiling hooks and phase timing (counterpart of
 `mvedit_tpu/utils/profiling.py`: `trace`, `annotate`, `PhaseTimer`,
 `phase_timer`).
 
@@ -9,17 +9,36 @@ trace under `log_dir`; `annotate(name)` names a range inside it:
         with annotate("mesh_fit"):
             fit(...)
 
-`MVEdit3DPipeline.__call__` ticks the installed timer after each phase
-under the reference's names: `denoise_p1+vae_dec`, `nerf_fit`, `mesh_fit`,
-`render_all`, `denoise_p2+vae_enc+solver` and `bake`. A tick waits for the
-device (`torch.cuda.synchronize()` when any tensor it is given lives on a
-GPU) and charges the host-clock time since the previous tick to its phase.
+The program marks its work with two context managers that go through the
+installed `PhaseTimer`:
+
+- `phase(name, *tensors, sig=None)`, a timed phase: at its end it waits
+  for the device (`torch.cuda.synchronize()` when any of `tensors`, which
+  may be devices, is a GPU's) and charges the block's host-clock time to
+  `name` (`PhaseTimer.tick`), so that it enters `report()`, `counts` and
+  `steady()`;
+- `span(name)`, a host-only range inside a phase or a request: it never
+  waits and never enters `report()`.
+
+With a timer installed both open `annotate(f"mvedit.{name}")`, a range
+that the profiler stamps on the clock of the device's activity, and
+record a `Span` in `timer.spans`. With none installed both give one
+shared object that does nothing. Each endpoint call (`endpoint`) runs
+inside a root `span("request")`; every span under it carries its
+request id.
+
+`MVEdit3DPipeline.__call__`'s phases are the reference's: `denoise_p1+
+vae_dec`, `nerf_fit`, `mesh_fit`, `render_all`, `denoise_p2+vae_enc+
+solver` and `bake` (with the spans `bake.extract`, `bake.decimate`,
+`bake.refine`, `bake.uv` and `bake.texture`); one step's phases follow
+each other with no gap.
 
     from mvedit_tpu_torch.utils.profiling import PhaseTimer, set_phase_timer
     set_phase_timer(pt := PhaseTimer())
     runner.run_3d_to_3d(...)
-    pt.report(), pt.steady("nerf_fit")
+    pt.report(), pt.steady("nerf_fit"), pt.spans
 """
+import functools
 import os
 import statistics
 import time
@@ -28,8 +47,8 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["trace", "annotate", "PhaseTimer", "set_phase_timer",
-           "phase_timer"]
+__all__ = ["trace", "annotate", "PhaseTimer", "Span", "set_phase_timer",
+           "phase_timer", "phase", "span", "endpoint"]
 
 
 @contextmanager
@@ -61,6 +80,8 @@ def annotate(name):
 def _on_cuda(x):
     if isinstance(x, torch.Tensor):
         return x.is_cuda
+    if isinstance(x, torch.device):
+        return x.type == "cuda"
     if isinstance(x, dict):
         return any(_on_cuda(v) for v in x.values())
     if isinstance(x, (list, tuple)):
@@ -69,13 +90,18 @@ def _on_cuda(x):
 
 
 class PhaseTimer:
-    """Tick-based wall-clock accounting per phase."""
+    """Tick-based wall-clock accounting per phase, and the record of the
+    phases and spans opened while it is installed (`spans`, unless
+    `keep_spans` is False: a run of days keeps only the ticks)."""
 
-    def __init__(self):
+    def __init__(self, keep_spans=True):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
         self.durations = defaultdict(list)   # per-tick wall times
         self.sigs = defaultdict(list)        # per-tick signatures
+        self.spans = [] if keep_spans else None
+        self.requests = 0                    # root spans opened
+        self._open = []                      # indices of open spans
         self._last = None
 
     def mark(self):
@@ -83,8 +109,9 @@ class PhaseTimer:
 
     def tick(self, name, *tensors, sig=None):
         """Charge the time since the previous tick (or mark) to `name`,
-        after the device has finished the work that produces `tensors`.
-        `sig` (hashable) names the tick's configuration (render size, view
+        after the device has finished the work that produces `tensors`
+        (or the work queued on them, where they are devices). `sig`
+        (hashable) names the tick's configuration (render size, view
         count...). A configuration's first tick on the card pays one-off
         costs that later ticks do not: kernel builds at first use, cuDNN's
         autotuning of a new convolution shape and the caching allocator's
@@ -122,6 +149,77 @@ class PhaseTimer:
         return dict(sorted(self.totals.items(), key=lambda kv: -kv[1]))
 
 
+class Span:
+    """A phase or span: the context manager `phase` and `span` give with
+    a timer installed, and its record in `timer.spans`: `name`;
+    `parent`, the index in `spans` of the phase or span open when it
+    began (None at a root); `request`, the id of its root; `start` and
+    `end`, `time.perf_counter()` seconds (a phase's are its tick's, the
+    device's wait included); `sig`, a phase's tick signature, which the
+    block may set while it runs."""
+
+    __slots__ = ("name", "parent", "request", "start", "end", "sig",
+                 "_timer", "_tensors", "_range")
+
+    def __init__(self, timer, name, tensors, sig):
+        self.name, self.sig = name, sig
+        self.parent = self.request = self.start = self.end = None
+        self._timer, self._tensors = timer, tensors    # None: a span
+
+    def __enter__(self):
+        t = self._timer
+        if t.spans is not None:
+            if t._open:
+                self.parent = t._open[-1]
+                self.request = t.spans[self.parent].request
+            else:
+                t.requests += 1
+                self.request = t.requests
+            t._open.append(len(t.spans))
+            t.spans.append(self)
+        self._range = annotate(f"mvedit.{self.name}")
+        self._range.__enter__()
+        if self._tensors is None:
+            self.start = time.perf_counter()
+        else:
+            t.mark()
+            self.start = t._last
+        return self
+
+    def __exit__(self, *exc):
+        t = self._timer
+        try:
+            if self._tensors is not None and exc[0] is None:
+                t.tick(self.name, *self._tensors, sig=self.sig)
+                self.end = t._last
+            else:
+                self.end = time.perf_counter()
+        finally:
+            self._range.__exit__(*exc)
+            if t.spans is not None:
+                t._open.pop()
+            # the record keeps no tensor and no range alive
+            self._timer = self._tensors = self._range = None
+        return False
+
+
+class _Off:
+    """What `phase` and `span` give with no timer installed: one shared
+    object that does nothing (a `sig` set on it is dropped)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __setattr__(self, name, value):
+        pass
+
+
+_OFF = _Off()
 _PHASE_TIMER = None
 
 
@@ -133,3 +231,33 @@ def set_phase_timer(t):
 
 def phase_timer():
     return _PHASE_TIMER
+
+
+def phase(name, *tensors, sig=None):
+    """A timed phase of the installed timer (see the module doc)."""
+    t = _PHASE_TIMER
+    if t is None:
+        return _OFF
+    return Span(t, name, tensors, sig)
+
+
+def span(name):
+    """A host-only span of the installed timer (see the module doc)."""
+    t = _PHASE_TIMER
+    if t is None:
+        return _OFF
+    return Span(t, name, None, None)
+
+
+def endpoint(fn):
+    """A runner's endpoint: with a timer installed, a call opens a root
+    `span("request")`, and an endpoint that another one calls adds
+    none."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        t = _PHASE_TIMER
+        if t is None or t._open:
+            return fn(*args, **kwargs)
+        with Span(t, "request", None, None):
+            return fn(*args, **kwargs)
+    return call

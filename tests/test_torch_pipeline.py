@@ -374,7 +374,8 @@ def test_pipeline_branches_rehearsal():
     render-size ramp with the SRVGG enhancer, the patch LPIPS in both fits
     (VGG16 at its published widths, 16^2 patches), the 2-pass denoise,
     view pruning 6 -> 4 -> 3, and decimation + texture refinement at tet
-    32. The phase timer sees every phase; the bake writes a finite atlas."""
+    32. The phase timer sees every phase, in one step one after another,
+    and the bake's spans under `bake`; the bake writes a finite atlas."""
     from mvedit_tpu_torch.models.losses import lpips_init
     from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
     from mvedit_tpu_torch.utils import profiling as P
@@ -420,6 +421,22 @@ def test_pipeline_branches_rehearsal():
                               "bake"}
     # progress 0, 0.25 at 16^2, 0.5 at 32^2; 0.75 and 1 on the mesh
     assert pt.counts["nerf_fit"] == 3 and pt.counts["mesh_fit"] == 2
+    # the phases are the roots, a step's in order with no gap between
+    phases = [s for s in pt.spans if s.parent is None]
+    assert [s.name for s in phases] == [
+        "nerf_fit", "render_all"] + [
+        "denoise_p1+vae_dec", "nerf_fit", "render_all",
+        "denoise_p2+vae_enc+solver"] * 2 + [
+        "denoise_p1+vae_dec", "mesh_fit", "render_all",
+        "denoise_p2+vae_enc+solver"] * 2 + ["bake"]
+    for a, b in zip(phases, phases[1:]):
+        assert a.end <= b.start < a.end + 0.25, (a.name, b.name)
+    assert [s.end - s.start for s in phases if s.name == "nerf_fit"] \
+        == pt.durations["nerf_fit"]
+    bake = pt.spans.index(phases[-1])
+    assert {s.name for s in pt.spans if s.parent == bake} == {
+        "bake.extract", "bake.uv", "bake.texture"} | (
+        {"bake.decimate", "bake.refine"} if native_available() else set())
     assert out["renders"]["rgb"].shape[0] == 3
     mesh = out["mesh"]
     assert mesh is not None and np.isfinite(mesh.albedo).all()

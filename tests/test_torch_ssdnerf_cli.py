@@ -14,7 +14,9 @@
   tiny config on `--device cpu`: stage 2 with `--eval-interval`, a resume
   (the EMA and the cache restored), stage 1 then a stage-2 warm start from
   its cache, the filesystem cache backend, and `tools.test_ssdnerf` on
-  cached codes and with `--recons-views 1`;
+  cached codes and with `--recons-views 1`; the loader's, the step's and
+  the hooks' spans under an installed phase timer, the step and loader
+  times read off it (and off the CLI's own timer without one);
 - the same tools with `jax`, `flax`, `optax` and `mvedit_tpu` blocked.
 """
 import json
@@ -34,6 +36,7 @@ from mvedit_tpu_torch.datasets import ray_batch_iterator as t_rays
 from mvedit_tpu_torch.models import ssdnerf as TS
 from mvedit_tpu_torch.runner import trainer as TTr
 from mvedit_tpu_torch.tools import test_ssdnerf, train_ssdnerf
+from mvedit_tpu_torch.utils import profiling as TP
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -233,9 +236,28 @@ def test_train_resume_and_eval_cli(tmp_path, srn):
     cfg, work = _cfg(tmp_path, "cfg"), str(tmp_path / "work")
     args = ["--config", cfg, "--data", srn, "--work-dir", work,
             "--device", "cpu"]
-    out = train_ssdnerf.main(args + ["--eval-interval", "2",
-                                     "--eval-scenes", "1"])
+    pt = TP.PhaseTimer()
+    TP.set_phase_timer(pt)
+    try:
+        out = train_ssdnerf.main(args + ["--eval-interval", "2",
+                                         "--eval-scenes", "1"])
+    finally:
+        TP.set_phase_timer(None)
     assert out.trainer.step == 3 and len(out.step_seconds) == 3
+    spans = pt.spans
+
+    def under(name):
+        return {s.name for s in spans
+                if s.parent is not None and spans[s.parent].name == name}
+    assert under("loader") == {"loader.read", "loader.rays"}
+    assert under("step") == {"step.h2d", "step.gather", "step.update",
+                             "step.scatter"}
+    roots = [s.name for s in spans if s.parent is None]
+    assert roots.count("hooks.ema") == 3 and roots.count("hooks.eval") == 1
+    assert set(pt.report()) == {"loader", "step"}
+    for name, got in (("step", out.step_seconds),
+                      ("loader", out.loader_seconds)):
+        assert got == [s.end - s.start for s in spans if s.name == name]
     rows = [json.loads(r) for r in open(os.path.join(work, "eval.jsonl"))]
     assert [r["step"] for r in rows] == [2, 3]
     assert all(np.isfinite(r["psnr"]) for r in rows)
