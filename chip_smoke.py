@@ -6,7 +6,8 @@
     python3 chip_smoke.py --kernels-only --kernel raster_select
                                              # phases 1-3, one kernel's check
                                              # (also flash_attention,
-                                             # flash_fwd, segment_sum)
+                                             # flash_fwd, segment_sum,
+                                             # dense_grid)
     python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
     python3 chip_smoke.py --ab A.cu B.cu     # kernel sources timed in turns
     python3 chip_smoke.py --time-fits        # NeRF and mesh fit chunks and
@@ -61,8 +62,11 @@ over a 1-rank NCCL group.
    two runs, the bits of its order rebuilt in plain PyTorch, the bf16
    output the f32 sum rounded once, and within the rounding of that order
    of a float64 sum, timed whole, replayed from a CUDA graph, ordering
-   alone and sums alone; LPIPS in bf16 against
-   f32 (within 5e-2). Beside each time: the bound computed from the call's
+   alone and sums alone; the dense-grid encode at a render-all chunk
+   (32768 rays x 128 samples) and a NeRF-fit step (2.1M points, forward
+   and backward): the output's and the tables' gradients' bits equal the
+   plain version's, run to run too, timed beside the plain version;
+   LPIPS in bf16 against f32 (within 5e-2). Beside each time: the bound computed from the call's
    inputs (bytes at 3.35 TB/s or operations: 989 bf16 / 67 f32 TFLOP/s
    and, for attention, 3.9e12 exponentials/s, the exp floor) and, for
    attention, one `scaled_dot_product_attention` call as the library
@@ -456,6 +460,12 @@ SEGMENT_CASES += [("triplane_grad_lora", 8 * 3 * 40 * 40,
 # attribute table
 SEGMENT_CASES += [("gaussian_backward", 1 << 20, 1024 * 256, 10, "f32")]
 SEGMENT_HOT = "grid_level1"
+# the dense-grid encode kernel at the field's (32, 160) levels: a
+# render-all chunk (the first 32768 rays of a 256^2 view, 128 samples each,
+# forward only) and a NeRF-fit step (16384 rays x 128 samples, forward and
+# backward, the tables' gradients through the segment sum)
+DENSE_GRID_CASES = [("render_all_chunk", 32768, False),
+                    ("nerf_fit_step", 16384, True)]
 # the JAX package's own flash API on (BH, L, D): (shape, sm_scale)
 FWD_CASES = [((48, 8192, 40), 0.1), ((16, 4096, 64), None)]
 FWD_HOT = (48, 8192, 40)
@@ -620,6 +630,7 @@ def phase_build():
     from mvedit_tpu_torch.kernels import flash_attention as FA
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.kernels import segment_sum as SS
+    DG = dense_grid_kernel()
 
     def build(mod):
         t0 = time.perf_counter()
@@ -627,6 +638,8 @@ def phase_build():
         return time.perf_counter() - t0
     mods = {"flash_attention.cu": FA, "raster_select.cu": RS,
             "segment_sum.cu": SS}
+    if DG is not None:
+        mods["dense_grid.cu"] = DG
     with ThreadPoolExecutor(len(mods)) as ex:
         secs = dict(zip(mods, ex.map(build, mods.values())))
     for name, mod in mods.items():
@@ -636,6 +649,16 @@ def phase_build():
                 if "registers" in line or "spill" in line \
                         or "Compiling" in line or "C7512" in line:
                     log(f"[build]   {line.strip()}")
+
+
+def dense_grid_kernel():
+    """`kernels.dense_grid`, or None in an earlier commit's package (a copy
+    of this script run there with --request-only)."""
+    try:
+        from mvedit_tpu_torch.kernels import dense_grid
+    except ImportError:
+        return None
+    return dense_grid
 
 
 def plain_sliced(q, k, v, budget=4 << 30):
@@ -1500,6 +1523,105 @@ def phase_segment_sum():
     return rows, worst
 
 
+def dense_grid_bound(n, L, F, backward):
+    """Least time of one encode on the card: its bytes at the memory rate
+    (the points, 12 B each, and the features written, 4 L F B; the
+    backward reads the points and the output gradient and writes 8 L
+    int32 targets and 8 L F bf16 contributions a point). The corner rows
+    are left out: which of them a call reads, and from L2 or DRAM,
+    depends on the points."""
+    nbytes = n * (12.0 + 4 * L * F)
+    if backward:
+        nbytes += n * (8 * L * 4 + 8 * L * F * 2)
+    return dict(bound_ms=nbytes / PEAK_BYTES * 1e3, nbytes=nbytes)
+
+
+def phase_dense_grid():
+    """The dense-grid encode kernel at DENSE_GRID_CASES against the plain
+    version on the card (`dense_grid_encode_reference`): the output's
+    bits, and at the fit step the tables' gradients' bits; two runs the
+    same bits. Timed: the forward launch, the plain forward, and at the fit
+    step the backward launch alone, the whole backward (the launch, the
+    levels' segment sums, the widening) and the plain forward + backward;
+    beside the byte bound."""
+    from mvedit_tpu_torch.kernels import dense_grid as KD
+    from mvedit_tpu_torch.ops.dense_grid import (DenseGridConfig,
+                                                 dense_grid_encode,
+                                                 dense_grid_encode_reference,
+                                                 dense_grid_init)
+    cfg = DenseGridConfig()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    tables = dense_grid_init(cfg, gen, DEV, scale=1.0)
+    levels = [tables[f"level_{i}"] for i in range(len(cfg.resolutions))]
+    rows, failed = [], []
+    for name, rays, backward in DENSE_GRID_CASES:
+        # a whole 256^2 view's rays, row by row, then the first `rays`
+        x = nerf_chunk_points(gen, 256, 65536 if rays > 16384 else rays)[0]
+        x = x[:rays * 128].contiguous()
+        n = x.shape[0]
+        out = dense_grid_encode(tables, x, cfg)
+        ref = dense_grid_encode_reference(tables, x, cfg)
+        same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        again = torch.equal(dense_grid_encode(tables, x, cfg).view(
+            torch.int32), out.view(torch.int32))
+        ms = median_ms(lambda: KD.dense_grid(x, levels, cfg.resolutions))
+        plain_ms = median_ms(
+            lambda: dense_grid_encode_reference(tables, x, cfg))
+        row = dict(case=name, points=n, ms=ms, plain_ms=plain_ms,
+                   **dense_grid_bound(n, len(levels), cfg.n_features,
+                                      False))
+        text = ""
+        if backward:
+            g = torch.randn((n, cfg.out_dim), generator=gen, device=DEV)
+            grads = []
+            for fn in (dense_grid_encode, dense_grid_encode_reference):
+                tab = {k: v.detach().requires_grad_()
+                       for k, v in tables.items()}
+                fn(tab, x, cfg).backward(g)
+                grads.append([tab[k].grad for k in sorted(tab)])
+            same = same and all(torch.equal(a.view(torch.int32),
+                                            b.view(torch.int32))
+                                for a, b in zip(*grads))
+            tab = {k: v.detach().requires_grad_() for k, v in tables.items()}
+            y = dense_grid_encode(tab, x, cfg)
+            bwd_ms = median_ms(lambda: KD.dense_grid_backward(
+                x, levels, cfg.resolutions, g))
+            whole_ms = median_ms(lambda: torch.autograd.grad(
+                y, list(tab.values()), g, retain_graph=True))
+
+            def plain():
+                t = {k: v.detach().requires_grad_()
+                     for k, v in tables.items()}
+                torch.autograd.grad(dense_grid_encode_reference(t, x, cfg),
+                                    list(t.values()), g)
+            plain_both_ms = median_ms(plain)
+            bd = dense_grid_bound(n, len(levels), cfg.n_features, True)
+            row.update(backward_ms=bwd_ms, backward_whole_ms=whole_ms,
+                       plain_fwd_bwd_ms=plain_both_ms,
+                       backward_bound_ms=bd["bound_ms"])
+            text = (f"; backward launch {bwd_ms:.4f} ms (bound "
+                    f"{bd['bound_ms']:.4f} ms, {bd['nbytes']:.3e} bytes), "
+                    f"whole backward (+ {len(levels)} segment sums) "
+                    f"{whole_ms:.4f} ms, plain forward + backward "
+                    f"{plain_both_ms:.4f} ms")
+            del y, tab, g, grads
+        log(f"[dense_grid] {name}: {n} points, levels {cfg.resolutions} x "
+            f"{cfg.n_features} {cfg.gather_dtype}; bit-equal to the plain "
+            f"version {same}, run to run {again}; forward {ms:.4f} ms "
+            f"(bound {row['bound_ms']:.4f} ms, {row['nbytes']:.3e} bytes), "
+            f"plain forward {plain_ms:.4f} ms{text} "
+            f"{'ok' if same and again else 'FAIL'}")
+        rows.append(row)
+        if not (same and again):
+            failed.append(name)
+        del x, out, ref
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"dense_grid disagrees with its plain version "
+                             f"at {failed}")
+    return rows
+
+
 def phase_ab_flash(sources):
     """`--ab` for flash attention: builds each flash source (an edited copy of
     `csrc/flash_attention.cu`, same C entry) with nvcc, all together;
@@ -1906,6 +2028,13 @@ def phase_request(runner, tmp):
                                                           launch)
     from mvedit_tpu_torch.models.mesh import Mesh
     from mvedit_tpu_torch.utils import profiling as PR
+    DG = dense_grid_kernel()
+    grid_warm = None
+
+    def grid_counts():
+        return ((DG.dense_grid.launches, DG.dense_grid.backward_launches,
+                 DG.dense_grid.points, DG.dense_grid.staged)
+                if DG is not None else (0, 0, 0, 0))
     knot = torus_knot()
     src = os.path.join(tmp, "knot.glb")
     Mesh(v=knot.v, f=knot.f).write_glb(src)
@@ -1923,6 +2052,7 @@ def phase_request(runner, tmp):
         TA.flash_attention = recording
         flash_attention.launches = 0
         staged, seg0 = launch.staged, SS.segment_sum.launches
+        grid0 = grid_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1967,6 +2097,15 @@ def phase_request(runner, tmp):
         log(f"[launches] {run} request: flash_attention {fa} (staged "
             f"copies {launch.staged - staged}); raster_select "
             + ", ".join(f"{v} in {k}" for k, v in parts.parts.items()))
+        grid = [a - b for a, b in zip(grid_counts(), grid0)]
+        log(f"[launches] {run} request: dense_grid {grid[0]} forward, "
+            f"{grid[1]} backward, {grid[2]} points encoded, staged copies "
+            f"{grid[3]}")
+        if DG is not None and (grid[0] == 0 or grid[3]):
+            raise AssertionError("the request did not launch dense_grid, "
+                                 "or staged its inputs")
+        if run == "warm":
+            grid_warm = grid
         seg = SS.segment_sum.launches - seg0
         log(f"[launches] {run} request: segment_sum {seg}: "
             + ", ".join(f"{v} in {k}" for k, v in parts.seg_parts.items())
@@ -1998,7 +2137,8 @@ def phase_request(runner, tmp):
     if not all(same.values()):
         raise AssertionError("two requests of one seed gave two GLBs")
     check_shapes("request", shapes)
-    return total_parts, total_fa, dict(out=out, src=src, first=first)
+    return total_parts, total_fa, dict(out=out, src=src, first=first,
+                                       dense_grid=grid_warm)
 
 
 def phase_mesh_attrs(tmp):
@@ -4976,7 +5116,8 @@ def main():
                     help="phases 1-3: build the kernels and hold them "
                          "against their plain versions")
     ap.add_argument("--kernel", choices=("flash_attention", "raster_select",
-                                         "flash_fwd", "segment_sum"),
+                                         "flash_fwd", "segment_sum",
+                                         "dense_grid"),
                     help="with --kernels-only: check this kernel only")
     ap.add_argument("--ab", nargs="+", metavar="SRC",
                     help="only build these kernel sources (edited copies of "
@@ -5033,7 +5174,8 @@ def main():
                                                           launch)
     from mvedit_tpu_torch.ops.flash_attention import flash_fwd
     todo = [args.kernel] if args.kernel else [
-        "flash_attention", "raster_select", "flash_fwd", "segment_sum"]
+        "flash_attention", "raster_select", "flash_fwd", "segment_sum",
+        "dense_grid"]
     if "flash_attention" in todo:
         rows, worst = phase_kernel()
     if "raster_select" in todo:
@@ -5042,6 +5184,8 @@ def main():
         fwd_rows, fwd_worst = phase_flash_fwd()
     if "segment_sum" in todo:
         seg_rows, seg_worst = phase_segment_sum()
+    if "dense_grid" in todo:
+        grid_rows = phase_dense_grid()
     if not args.kernel:
         phase_lpips()
     if args.kernels_only:
@@ -5255,7 +5399,16 @@ def main():
              "ms", "graphed_ms", "order_ms", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
              launches=grm["segment"], render_fwd_s=grm["render_fwd"],
-             render_bwd_s=grm["render_bwd"])}]}))
+             render_bwd_s=grm["render_bwd"])},
+        {"name": "dense_grid", "route": "cuda",
+         "source": "mvedit_tpu_torch/csrc/dense_grid.cu",
+         "replaces": "none: a port-only kernel (the dense field's corner "
+                     "gathers and blend; on the TPU XLA's, "
+                     "mvedit_tpu/ops/dense_grid.py)",
+         "warm_request": dict(zip(("launches", "backward_launches",
+                                   "points", "staged"),
+                                  req_ctx["dense_grid"])),
+         "cases": grid_rows}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,15 @@ neighbouring corners into channels first (`fold`), a TPU layout trick with
 the same values and gradients, which is not ported. The table is cast to
 `gather_dtype` (bf16 by default) before the gather and the blend
 accumulates in f32, as in the reference: parity depends on that rounding.
+
+Which path runs: CUDA points take the hand-written kernel
+(`kernels/dense_grid.py`, `csrc/dense_grid.cu`): one launch encodes every
+level, with the plain version's bits; its backward recomputes the corners
+and sums the tables' gradients with `ops.segment.segment_sum` in the plain
+gather's order (the same bits) and computes the points' gradient point by
+point. CPU points take `dense_grid_encode_reference`, the plain version,
+which runs on any device and is the oracle of the card tests
+(`tests/test_torch_kernels_cuda.py`).
 """
 from dataclasses import dataclass
 from itertools import product
@@ -14,10 +23,13 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import dense_grid as kernel
+from . import segment
 from .clip import clip
 from .segment import gather_rows
 
-__all__ = ["DenseGridConfig", "dense_grid_init", "dense_grid_encode"]
+__all__ = ["DenseGridConfig", "dense_grid_init", "dense_grid_encode",
+           "dense_grid_encode_reference"]
 
 
 @dataclass(frozen=True)
@@ -44,7 +56,55 @@ def dense_grid_init(cfg: DenseGridConfig, generator=None, device=None,
 
 
 def dense_grid_encode(tables, xyz, cfg: DenseGridConfig):
-    """xyz: (..., 3) in [0, 1] -> (..., out_dim) float32."""
+    """xyz: (..., 3) in [0, 1] -> (..., out_dim) float32: the kernel on
+    CUDA points, `dense_grid_encode_reference` elsewhere."""
+    if xyz.device.type != "cuda":
+        return dense_grid_encode_reference(tables, xyz, cfg)
+    if cfg.interpolation not in ("smoothstep", "linear"):
+        raise ValueError(f"unsupported interpolation {cfg.interpolation}")
+    levels = [tables[f"level_{i}"] for i in range(len(cfg.resolutions))]
+    out = _Encode.apply(xyz.reshape(-1, 3).float(), cfg, *levels)
+    return out.reshape(*xyz.shape[:-1], cfg.out_dim)
+
+
+class _Encode(torch.autograd.Function):
+    """The kernel both ways. Saved: the points, and the tables (no copy)
+    for the points' gradient; no index or gathered rows."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, *levels):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *levels)
+        return kernel.dense_grid(x, levels, cfg.resolutions,
+                                 cfg.interpolation == "smoothstep",
+                                 getattr(torch, cfg.gather_dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *levels = ctx.saved_tensors
+        cfg, need = ctx.cfg, ctx.needs_input_grad
+        tab = any(need[2:])
+        targets, contrib, gx = kernel.dense_grid_backward(
+            x, levels, cfg.resolutions, g, cfg.interpolation == "smoothstep",
+            getattr(torch, cfg.gather_dtype), table_grad=tab,
+            x_grad=need[0])
+        grads = []
+        for i, t in enumerate(levels):
+            if not need[2 + i]:
+                grads.append(None)
+                continue
+            # the plain gather's gradient: its fixed-order sum, rounded
+            # once to the gather dtype, then widened to the table's
+            rows = t.numel() // cfg.n_features
+            gt = segment.segment_sum(targets[i], contrib[i], rows,
+                                     out_dtype=contrib.dtype)
+            grads.append(gt.to(t.dtype).view(t.shape))
+        return (gx, None, *grads)
+
+
+def dense_grid_encode_reference(tables, xyz, cfg: DenseGridConfig):
+    """The plain version on any device: xyz (..., 3) in [0, 1] ->
+    (..., out_dim) float32."""
     batch_shape = xyz.shape[:-1]
     x = clip(xyz.reshape(-1, 3).float(), 0.0, 1.0)
     F = cfg.n_features

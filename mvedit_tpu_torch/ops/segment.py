@@ -13,6 +13,16 @@ the kernel writes the bf16 gradient itself).
 Advanced indexing's own backward is a sorted, serialised accumulate that
 took 21 ms per dense-grid corner gather and ~1 s per mesh-fit step on an
 H100 (PERF.md, Findings), which is why none of these use it.
+
+Which path runs: on the card every sum here is one launch of the
+hand-written kernel (`csrc/segment_sum.cu`); CPU tensors take
+`segment_sum_reference`, a float32 `index_add` that adds in order there.
+The oracle of the card tests is `kernels/segment_sum.py::
+segment_sum_ordered`, the kernel's order in plain PyTorch. The dense
+grid's kernel (`ops/dense_grid.py`) does not gather through
+`gather_rows` on the card: its backward calls this module's
+`segment_sum` itself, on the same targets and contributions, in the same
+order.
 """
 import torch
 

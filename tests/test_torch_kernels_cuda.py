@@ -73,6 +73,19 @@ Tolerances:
   net, built for the card, bit-equal to their CPU builds (CPU generators).
 - `render_mesh_attrs` on the card: face ids equal to the CPU's, every map
   within 1e-5, one raster launch.
+- dense-grid encode (`kernels/dense_grid.py`): the output and the tables'
+  gradients bit-equal to the plain version's on the card
+  (`ops/dense_grid.py::dense_grid_encode_reference`, its gather's
+  gradient through the segment sum), at the field's (32, 160) grid (a
+  render-all chunk's 4.2M points among the cases) and the tiny (8, 32),
+  smoothstep and linear, bf16 and float32 gathers, on cell faces, 0, 1,
+  -0, outside [0, 1] and at +-inf; the points' gradient within
+  `DENSE_GRID_XGRAD_RTOL` (1e-5, L2) of autograd's (another order of the
+  same float32 sums); NaN points without a fault (the plain gather asserts
+  on their int64 index): NaN features, a NaN coordinate's cell index 0,
+  their corners' rows NaN gradients, every other bit the plain version's; two runs the same bits; staged
+  inputs; what it is not built for raises; on the fits' path the kernel
+  runs both ways and the plain gather never.
 Dispatch: a CUDA tensor launches the kernel (the launch counters move), a
 CPU tensor takes the plain version.
 """
@@ -1459,3 +1472,283 @@ def test_render_mesh_attrs_on_card_matches_cpu(cuda):
     assert torch.equal(card["tri_id"].cpu(), ref["tri_id"])
     for k in ("bary", "z", "alpha", "xyz"):
         torch.testing.assert_close(card[k].cpu(), ref[k], rtol=0, atol=1e-5)
+
+
+# the dense-grid encode kernel (`kernels/dense_grid.py`) against the plain
+# version on the card (`ops/dense_grid.py::dense_grid_encode_reference`)
+# the render-all chunk: 32768 rays x 128 samples at 256^2
+RENDER_ALL_POINTS = 32768 * 128
+# the points' gradient: another order of the same f32 sums than autograd's
+# (per corner dot products, then the weights' products and the levels)
+DENSE_GRID_XGRAD_RTOL = 1e-5
+
+
+def _grid_tables(cuda, resolutions, seed=0, F=8):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return {f"level_{i}": torch.rand((r + 1, r + 1, r + 1, F),
+                                     generator=gen, device=cuda) * 2 - 1
+            for i, r in enumerate(resolutions)}
+
+
+def _grid_points(cuda, n, seed=1, nan=False):
+    """n uniform points in [0, 1]^3, then the edge points: exactly on the
+    cell faces of both levels (multiples of 1/32, and of 1/160), at 0, 1,
+    -0, just outside them, well outside, at +-inf (and with `nan`, NaN),
+    in each of the three coordinates and in all three at once."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.rand((n, 3), generator=gen, device=cuda)
+    faces = torch.cat([torch.arange(33, device=cuda) / 32,
+                       torch.arange(161, device=cuda) / 160])
+    edge = torch.tensor([0.0, 1.0, -0.0, -1e-7, 1.0000001, -0.25, 1.5,
+                         float("inf"), float("-inf")]
+                        + [float("nan")] * nan, device=cuda)
+    vals = torch.cat([faces, edge])
+    rows = [x]
+    for d in range(3):
+        e = torch.rand((len(vals), 3), generator=gen, device=cuda)
+        e[:, d] = vals
+        rows.append(e)
+    rows.append(vals[:, None].expand(-1, 3))
+    rows.append(faces[torch.randint(len(faces), (4096, 3), generator=gen,
+                                    device=cuda)])
+    return torch.cat(rows)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
+def _encode_both(cuda, resolutions, n, interpolation="smoothstep",
+                 gather_dtype="bfloat16", x_grad=False, seed=0):
+    """The kernel's and the plain version's output, the tables' gradients
+    and (with `x_grad`) the points' gradient at one seeded output
+    gradient."""
+    from mvedit_tpu_torch.ops.dense_grid import (DenseGridConfig,
+                                                 dense_grid_encode,
+                                                 dense_grid_encode_reference)
+    cfg = DenseGridConfig(resolutions=resolutions,
+                          interpolation=interpolation,
+                          gather_dtype=gather_dtype)
+    tables = _grid_tables(cuda, resolutions, seed)
+    x = _grid_points(cuda, n, seed + 1)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    g = torch.randn((x.shape[0], cfg.out_dim), generator=gen, device=cuda)
+    res = []
+    for fn in (dense_grid_encode, dense_grid_encode_reference):
+        tab = {k: v.clone().requires_grad_() for k, v in tables.items()}
+        xx = x.clone().requires_grad_(x_grad)
+        out = fn(tab, xx, cfg)
+        out.backward(g)
+        res.append((out.detach(), [tab[k].grad for k in sorted(tab)],
+                    xx.grad))
+    return res
+
+
+@pytest.mark.parametrize("interpolation", ["smoothstep", "linear"])
+@pytest.mark.parametrize("resolutions,n", [((32, 160), RENDER_ALL_POINTS),
+                                           ((32, 160), 100000),
+                                           ((8, 32), 100000)])
+def test_dense_grid_matches_plain(cuda, resolutions, n, interpolation):
+    """The forward and the tables' gradients bit-equal to the plain
+    version's on the card, at the cell's (32, 160) and the tiny (8, 32)
+    grids, on uniform and edge points (cell faces, 0, 1, outside, inf);
+    the kernel launched once each way, nothing staged."""
+    from mvedit_tpu_torch.kernels import dense_grid as KD
+    before = (KD.dense_grid.launches, KD.dense_grid.backward_launches,
+              KD.dense_grid.staged)
+    (out, grads, _), (ref, ref_grads, _) = _encode_both(
+        cuda, resolutions, n, interpolation)
+    assert (KD.dense_grid.launches, KD.dense_grid.backward_launches,
+            KD.dense_grid.staged) == (before[0] + 1, before[1] + 1,
+                                      before[2])
+    assert torch.isfinite(out).all()
+    assert torch.equal(_bits(out), _bits(ref))
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == b.dtype == torch.float32
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_dense_grid_float32_gather_matches_plain(cuda):
+    """The float32 gather (rows read as they are; the parity tests' and
+    text-to-3D's setting): forward and tables' gradients bit-equal."""
+    (out, grads, _), (ref, ref_grads, _) = _encode_both(
+        cuda, (8, 32), 50000, gather_dtype="float32")
+    assert torch.equal(_bits(out), _bits(ref))
+    for a, b in zip(grads, ref_grads):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_dense_grid_nan_points(cuda):
+    """NaN points (a degenerate extraction's vertices) run without a fault,
+    where the plain version's int64 index of a NaN is out of range on the
+    card and its gather asserts: every feature of a point with a NaN
+    coordinate is NaN; a NaN coordinate's cell index is 0, and the rows of
+    such a point's corners take NaN gradients; the other points' outputs
+    and gradients, and the other rows' gradients, have the plain version's
+    bits."""
+    from mvedit_tpu_torch.ops.dense_grid import (DenseGridConfig,
+                                                 dense_grid_encode,
+                                                 dense_grid_encode_reference)
+    cfg = DenseGridConfig(resolutions=(8, 32))
+    tables = _grid_tables(cuda, cfg.resolutions)
+    x = _grid_points(cuda, 20000, nan=True)
+    bad = torch.isnan(x).any(1)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = torch.randn((x.shape[0], cfg.out_dim), generator=gen, device=cuda)
+    got, want = [], []
+    for fn, pts, gg, res in ((dense_grid_encode, x, g, got),
+                             (dense_grid_encode_reference, x[~bad], g[~bad],
+                              want)):
+        tab = {k: v.clone().requires_grad_() for k, v in tables.items()}
+        xx = pts.clone().requires_grad_()
+        out = fn(tab, xx, cfg)
+        out.backward(gg)
+        res.extend([out.detach(), [tab[k].grad for k in sorted(tab)],
+                    xx.grad])
+    torch.cuda.synchronize()
+    assert bad.sum() >= 4 and torch.isnan(got[0][bad]).all()
+    assert torch.equal(_bits(got[0][~bad]), _bits(want[0]))
+    assert torch.equal(_bits(got[2][~bad]),
+                       _bits(_point_grad(tables, x[~bad], g[~bad], cfg)))
+    for r, a, b in zip(cfg.resolutions, got[1], want[1]):
+        p0 = torch.floor(x[bad].clamp(0, 1) * r).nan_to_num(0).long()
+        rows = torch.stack([
+            ((p0[:, 0] + ox).clamp(max=r) * (r + 1)
+             + (p0[:, 1] + oy).clamp(max=r)) * (r + 1)
+            + (p0[:, 2] + oz).clamp(max=r)
+            for ox in (0, 1) for oy in (0, 1) for oz in (0, 1)]).reshape(-1)
+        a, b = a.reshape(-1, 8), b.reshape(-1, 8)
+        assert torch.isnan(a[rows]).all()
+        keep = torch.ones(len(a), dtype=torch.bool, device=cuda)
+        keep[rows] = False
+        assert torch.equal(_bits(a[keep]), _bits(b[keep]))
+
+
+def _point_grad(tables, x, g, cfg):
+    from mvedit_tpu_torch.ops.dense_grid import dense_grid_encode
+    xx = x.clone().requires_grad_()
+    dense_grid_encode(tables, xx, cfg).backward(g)
+    return xx.grad
+
+
+@pytest.mark.parametrize("interpolation", ["smoothstep", "linear"])
+@pytest.mark.parametrize("resolutions", [(32, 160), (8, 32)])
+def test_dense_grid_point_gradient(cuda, resolutions, interpolation):
+    """The points' gradient (the mesh fit's albedo field) within
+    DENSE_GRID_XGRAD_RTOL of autograd's through the plain version (L2),
+    0 outside [0, 1] and half on a bound as the plain clip's; the tables'
+    gradients stay bit-equal."""
+    (out, grads, gx), (ref, ref_grads, rgx) = _encode_both(
+        cuda, resolutions, 100000, interpolation, x_grad=True)
+    assert torch.equal(_bits(out), _bits(ref))
+    for a, b in zip(grads, ref_grads):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.isfinite(gx).all() and torch.isfinite(rgx).all()
+    err = (gx - rgx).double().norm() / rgx.double().norm()
+    assert err <= DENSE_GRID_XGRAD_RTOL, err
+    x = _grid_points(cuda, 100000, 1)
+    outside = (x < 0) | (x > 1)
+    assert (gx[outside] == 0).all() and (rgx[outside] == 0).all()
+
+
+def test_dense_grid_two_runs_same_bits(cuda):
+    """One input, one result: the output and both gradients bit-equal over
+    two runs."""
+    a = _encode_both(cuda, (32, 160), 200000, x_grad=True)[0]
+    b = _encode_both(cuda, (32, 160), 200000, x_grad=True)[0]
+    assert torch.equal(_bits(a[0]), _bits(b[0]))
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a[1], b[1]))
+    assert torch.equal(_bits(a[2]), _bits(b[2]))
+
+
+def test_dense_grid_staged_inputs(cuda):
+    """Strided points and a misaligned table are copied (counted as
+    staged) and give the same bits."""
+    from mvedit_tpu_torch.kernels import dense_grid as KD
+    from mvedit_tpu_torch.ops.dense_grid import (DenseGridConfig,
+                                                 dense_grid_encode)
+    cfg = DenseGridConfig(resolutions=(8, 32))
+    tables = _grid_tables(cuda, cfg.resolutions)
+    x = _grid_points(cuda, 10000)
+    want = dense_grid_encode(tables, x, cfg)
+    staged = KD.dense_grid.staged
+    strided = torch.stack([x, x], 1)[:, 0]
+    assert not strided.is_contiguous()
+    flat = torch.cat([torch.zeros(2, device=cuda),
+                      tables["level_1"].reshape(-1)])[2:]
+    shifted = dict(tables, level_1=flat.view(tables["level_1"].shape))
+    assert shifted["level_1"].data_ptr() % 16
+    assert torch.equal(_bits(dense_grid_encode(tables, strided, cfg)),
+                       _bits(want))
+    assert torch.equal(_bits(dense_grid_encode(shifted, x, cfg)),
+                       _bits(want))
+    assert KD.dense_grid.staged == staged + 2
+
+
+@pytest.mark.parametrize("case", ["features", "levels", "gather_dtype",
+                                  "bf16_to_f32", "interpolation", "device",
+                                  "shape"])
+def test_dense_grid_rejects(cuda, case):
+    """What the kernel is not built for raises; nothing falls back."""
+    import dataclasses
+    from mvedit_tpu_torch.ops.dense_grid import (DenseGridConfig,
+                                                 dense_grid_encode)
+    cfg = DenseGridConfig(resolutions=(8, 32))
+    tables = _grid_tables(cuda, cfg.resolutions)
+    x = _grid_points(cuda, 1000)
+    if case == "features":
+        cfg = dataclasses.replace(cfg, n_features=4)
+        tables = _grid_tables(cuda, cfg.resolutions, F=4)
+    elif case == "levels":
+        cfg = dataclasses.replace(cfg, resolutions=(2,) * 9)
+        tables = _grid_tables(cuda, cfg.resolutions)
+    elif case == "gather_dtype":
+        cfg = dataclasses.replace(cfg, gather_dtype="float16")
+    elif case == "bf16_to_f32":
+        cfg = dataclasses.replace(cfg, gather_dtype="float32")
+        tables = {k: v.bfloat16() for k, v in tables.items()}
+    elif case == "interpolation":
+        cfg = dataclasses.replace(cfg, interpolation="cubic")
+    elif case == "device":
+        tables = {k: v.cpu() for k, v in tables.items()}
+    else:
+        tables = dict(tables, level_1=tables["level_1"][:-1])
+    with pytest.raises((ValueError, TypeError)):
+        dense_grid_encode(tables, x, cfg)
+
+
+@pytest.mark.parametrize("kind", ["nerf", "mesh"])
+def test_dense_grid_on_the_fits_path(cuda, monkeypatch, kind):
+    """A tiny NeRF-fit chunk and a render of its field (or a mesh-fit
+    chunk, whose albedo field takes the points' gradient) on the card:
+    the kernel runs both ways, nothing staged, and the plain gather saw no
+    dense-grid call."""
+    from mvedit_tpu_torch.kernels import dense_grid as KD
+    from mvedit_tpu_torch.ops import dense_grid as OD
+    calls = []
+
+    def gather_rows(*a, **k):
+        calls.append(1)
+        raise AssertionError("the plain dense-grid gather on the card")
+    monkeypatch.setattr(OD, "gather_rows", gather_rows)
+    before = (KD.dense_grid.launches, KD.dense_grid.backward_launches,
+              KD.dense_grid.staged)
+    _two_chunks(cuda, kind)
+    if kind == "nerf":
+        pipe, _ = _fit_pipe(cuda)
+        from mvedit_tpu_torch.models.fields import ingp_init
+        from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
+        t = _fit_targets(cuda, 64)
+        field = ingp_init(pipe.cfg.ingp, torch.Generator(
+            device=cuda).manual_seed(0), cuda)
+        grid = OccupancyGrid.create(pipe.cfg.render.grid_size, device=cuda)
+        n0 = KD.dense_grid.launches
+        out = pipe._render_chunk(field, None, None, grid, t["poses"],
+                                 t["intrinsics"], 64)
+        assert KD.dense_grid.launches > n0
+        assert torch.isfinite(out["rgb"]).all()
+    assert KD.dense_grid.launches > before[0]
+    assert KD.dense_grid.backward_launches > before[1]
+    assert KD.dense_grid.staged == before[2]
+    assert calls == []
