@@ -127,9 +127,10 @@ over a 1-rank NCCL group.
    least one launch a request) and the segment sum must each launch;
 12. image-to-3D at full width, twice with one seed: `run_zero123plus_to_mesh`
    (v1.1) on the knot rendered by the port at the front pose (512^2 on
-   white): Zero123++ at its 40 steps and 960 x 640 grid with reference
-   attention (flash at (2, 9600, 8, 40) for the write pass and Lk 19200
-   for the read pass, both in phase 3's cases), TRACER-B7 at 640^2 on the
+   white): Zero123++ at its published widths (its own SD2 UNet, the
+   ViT-H/14 tower), 40 steps and 960 x 640 grid with reference attention
+   (flash at (2, 9600, 5, 64) for the write pass and Lk 19200 for the
+   read pass, both in phase 3's cases), TRACER-B7 at 640^2 on the
    initial views and every step's, DPT-hybrid at 384^2, LoFTR (4 layers)
    at 256^2 and the elevation solve (or the front pose under 8 matches),
    IP-Adapter, LPIPS and SRVGG; cut in depth only: 2 of 6 passes (1 + 12
@@ -140,8 +141,9 @@ over a 1-rank NCCL group.
    two requests' views and GLBs bit-equal;
 13. image-to-3D v1.2 with its generated normals at full width, twice with
    one seed: `run_zero123plus1_2_to_mesh` on phase 12's input, each
-   Zero123++ pass followed by its normal pass (a second SD1.5 UNet and
-   the normal ControlNet on the RGB grid, 40 steps, 960 x 640), each
+   Zero123++ pass followed by its normal pass (a second SD2 UNet and
+   the normal ControlNet at its widths on the RGB grid, 40 steps, 960 x
+   640), each
    generated view matted by `zero123plus_postprocess` and supervised by
    its normals; phase 12's cuts in depth only. Wall per request and per
    call (RGB pass, normal pass, postprocess, TRACER, DPT, LoFTR), the
@@ -374,10 +376,11 @@ KERNEL_CASES += [(shape, 1.0) for shape in REQUEST_SHAPES]
 # texture superres: the UNet's joint attention over all 8 views of the
 # CFG batch at once (2N = 16 as 2 x 8 views), levels 1 and 2
 KERNEL_CASES += [((2, 32768, 8, 40), 1.0), ((2, 8192, 8, 80), 1.0)]
-# Zero123++'s level-0 self-attention at its 960 x 640 grid, as
-# ((B, Lq, H, D), Lk): the write pass (Lk = Lq = 9600) and the read pass,
-# whose keys add the conditioning image's stored states (Lk = 19200)
-Z123_CASES = [(2, 9600, 8, 40), ((2, 9600, 8, 40), 19200)]
+# Zero123++'s level-0 self-attention at its 960 x 640 grid and published
+# widths (SD2: 5 heads of 64), as ((B, Lq, H, D), Lk): the write pass and
+# the normal ControlNet (Lk = Lq = 9600) and the read pass, whose keys add
+# the conditioning image's stored states (Lk = 19200)
+Z123_CASES = [(2, 9600, 5, 64), ((2, 9600, 5, 64), 19200)]
 KERNEL_CASES += [(shape, 1.0) for shape in Z123_CASES]
 # GRM's encoder at GRMConfig(): 4 views of 512^2 at patch 8 in one
 # sequence; and the 6-view joint attention's level 2 of the sharded CFG
@@ -2664,7 +2667,8 @@ def phase_image_to_3d(runner, tmp):
     img = i23_input(runner)
     log(f"[image_to_3d] input: the knot at the front pose, {I23_INPUT}^2 on "
         f"white (foreground {float((img < 0.999).any(-1).mean()):.3f} of "
-        f"the pixels); Zero123++ v1.1 at 40 steps, 960 x 640 grid, "
+        f"the pixels); Zero123++ v1.1 at its published widths, 40 steps, "
+        f"960 x 640 grid, "
         f"{I23_PASSES} of 6 passes (one mirrored): 1 + {6 * I23_PASSES} "
         f"views; TRACER-B7 at 640^2, DPT-hybrid at 384^2, LoFTR (4 layers) "
         f"at 256^2, IP-Adapter, LPIPS and SRVGG on; cuts in depth: steps "
@@ -2804,7 +2808,7 @@ def phase_image_to_3d_v12(runner, tmp):
     from mvedit_tpu_torch.utils import profiling as PR
     img = i23_input(runner)
     log(f"[image_to_3d_v12] input: phase 12's; Zero123++ v1.2 at 40 steps "
-        f"on the 960 x 640 grid, then its normal pass (a second SD1.5 UNet "
+        f"on the 960 x 640 grid, then its normal pass (a second SD2 UNet "
         f"and the normal ControlNet on the RGB grid, 40 steps), "
         f"{I23_PASSES} of 6 passes: 1 + {6 * I23_PASSES} views, each "
         f"generated view matted by its normals and supervised by them; "

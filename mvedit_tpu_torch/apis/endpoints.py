@@ -10,11 +10,14 @@ image-to-3D (`load_zero123plus`, `load_zero123plus_normal`,
 generated normals by default) and text-to-3D (`run_stablessdnerf`,
 `distill_triplane_to_field`, `run_stablessdnerf_to_mesh`).
 """
+import types
+
 import numpy as np
 import torch
 
 from . import cameras as C
-from ..models.diffusion import SD15_UNET, UNet2DCondition
+from ..models.diffusion import (SD21_UNET, SD_VAE, AutoencoderKL,
+                                UNet2DCondition)
 from ..models.diffusion import schedulers as S
 from ..models.mesh import RasterConfig, render_views
 from ..ops.tonemapping import Tonemapping
@@ -366,29 +369,44 @@ class EndpointsMixin:
 
     # ------------------------------------------------------------------
     def load_zero123plus(self, version="1.1"):
-        """The Zero123++ models on a fresh namespace: the SD1.5 stack (its
-        UNet as Zero123++'s, as the reference runs it), a CLIP ViT-L/14
-        vision tower with a 768 projection (`zero123plus_vision/` in
-        `checkpoint_dir`, else seeded), `ramping` linspace(0, 1, L),
-        `text_uncond` zeros (1, L, C) (L = 77, tiny 8) and the
-        v-prediction schedule. The namespace is new per call, so the MVEdit
-        pass that follows keeps the epsilon schedule."""
-        from ..models.diffusion.clip import CLIPVisionConfig, CLIPVisionModel
+        """The Zero123++ models on a fresh namespace. Full size, sudo-ai's
+        published widths: its own SD2 UNet (`SD21_UNET`: 1024-wide
+        cross-attention, linear projections, heads of 64;
+        `zero123plus_unet/` in `checkpoint_dir`, else seeded with `seed +
+        5`), a CLIP ViT-H/14 vision tower with a 1024 projection
+        (`IPADAPTER_VISION`'s widths, `zero123plus_vision/`, else seeded
+        with `seed + 3`) and the shared SD VAE; MVEdit's SD1.5 UNet is
+        neither reused nor built. Tiny, the JAX package's shape: the tiny
+        SD stack's UNet and VAE and a tiny vision tower. Both: `ramping`
+        linspace(0, 1, L), `text_uncond` zeros (1, L, C) at the UNet's
+        cross-attention width (L = 77, tiny 8) and the v-prediction
+        schedule. The namespace is new per call, so the MVEdit pass that
+        follows keeps the epsilon schedule."""
+        from ..models.diffusion.clip import (IPADAPTER_VISION,
+                                             CLIPVisionConfig,
+                                             CLIPVisionModel)
         from ..models.diffusion.weights import convert_clip_vision
-        m = self.load_stable_diffusion()
         if self.tiny:
+            sd = self.load_stable_diffusion()
+            unet, vae = sd.unet, sd.vae
             vcfg = CLIPVisionConfig(image_size=32, patch_size=8,
                                     hidden_size=32, intermediate_size=64,
                                     num_layers=2, num_heads=4,
                                     projection_dim=32)
         else:
-            vcfg = CLIPVisionConfig(projection_dim=768)
+            unet = self._build(f"z123_unet:{version}",
+                               lambda: UNet2DCondition(SD21_UNET),
+                               seed_offset=5, subdir="zero123plus_unet")
+            vae = self._build("vae:sd15", lambda: AutoencoderKL(SD_VAE),
+                              subdir="vae")
+            vcfg = IPADAPTER_VISION
+        m = types.SimpleNamespace(unet=unet, vae=vae)
         m.vision = self._build(f"z123_vision:{version}",
                                lambda: CLIPVisionModel(vcfg), seed_offset=3,
                                subdir="zero123plus_vision",
                                convert=convert_clip_vision)
         L = 8 if self.tiny else 77
-        m.text_uncond = torch.zeros((1, L, m.text_cfg.hidden_size),
+        m.text_uncond = torch.zeros((1, L, unet.cfg.cross_attention_dim),
                                     device=self.device)
         m.ramping = np.linspace(0, 1, L).astype(np.float32)
         m.schedule = S.sd_schedule(prediction_type="v_prediction")
@@ -396,13 +414,13 @@ class EndpointsMixin:
 
     def load_zero123plus_normal(self, version="1.2"):
         """The v1.2 normal-generation models on a fresh namespace: those of
-        `load_zero123plus` with a second SD1.5 UNet
+        `load_zero123plus` with a second UNet of the same widths
         (`zero123plus_normal_unet/` in `checkpoint_dir`, else seeded with
         `seed + 7`) in place of the RGB pass's, and the normal ControlNet
-        (`controlnet_z123_normal/`), whose hint is the generated RGB
-        grid."""
+        (`controlnet_z123_normal/`, at the UNet's widths), whose hint is
+        the generated RGB grid."""
         m = self.load_zero123plus(version)
-        cfg = self._tiny_unet_cfg() if self.tiny else SD15_UNET
+        cfg = self._tiny_unet_cfg() if self.tiny else SD21_UNET
         m.unet = self._build(f"z123_normal_unet:{version}",
                              lambda: UNet2DCondition(cfg), seed_offset=7,
                              subdir="zero123plus_normal_unet")

@@ -17,9 +17,10 @@ in the reference's search order: `<checkpoint_dir>/<subdir>/` with
 `diffusion_pytorch_model.{safetensors,bin}`, `model.safetensors`,
 `pytorch_model.bin` or `<subdir>.safetensors`, for the subdirs `unet`,
 `vae`, `text_encoder`, `controlnet_{tile,depth,ip2p,z123_normal}`,
-`image_enhancer`, `ip_adapter_vision`, `zero123plus_vision`,
-`zero123plus_normal_unet`, `tracer`, `omnidata`, `loftr` and `sam` (those
-four in their reference checkpoints' own key layouts);
+`image_enhancer`, `ip_adapter_vision`, `zero123plus_unet`,
+`zero123plus_vision`, `zero123plus_normal_unet`, `tracer`, `omnidata`,
+`loftr` and `sam` (those four in their reference checkpoints' own key
+layouts);
 LPIPS from `lpips/lpips_vgg.{safetensors,bin}`; the IP-Adapter
 projection and UNet branches from `ip_adapter/ip_adapter.npz` (the
 reference's converted flax tree). The
@@ -36,10 +37,10 @@ import types
 import numpy as np
 import torch
 
-from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD_VAE, AutoencoderKL,
-                                CLIPTextConfig, CLIPTextModel, ControlNet,
-                                UNet2DCondition, UNetConfig, VAEConfig,
-                                schedulers as S)
+from ..models.diffusion import (SD15_TEXT, SD15_UNET, SD21_UNET, SD_VAE,
+                                AutoencoderKL, CLIPTextConfig, CLIPTextModel,
+                                ControlNet, UNet2DCondition, UNetConfig,
+                                VAEConfig, schedulers as S)
 from ..models.diffusion.tokenizer import CLIPTokenizer, HashTokenizer
 from ..models.diffusion.weights import load_torch_state
 from ..models.mesh import Mesh
@@ -54,6 +55,8 @@ __all__ = ["Adapter3DRunner", "init_random_"]
 _ZERO_INIT = ("controlnet_cond_embedding.conv_out.",
               "controlnet_down_blocks.", "controlnet_mid_block.",
               "embeddings.position_embedding.", "embeddings.class_embedding")
+# ControlNets whose UNet is not SD1.5's (the rest are MVEdit's)
+_CONTROLNET_UNETS = {"z123_normal": SD21_UNET}
 # the files of a model's subdir, in the reference's search order
 _CHECKPOINT_FILES = ("diffusion_pytorch_model.safetensors",
                      "diffusion_pytorch_model.bin", "model.safetensors",
@@ -186,12 +189,17 @@ class Adapter3DRunner(EndpointsMixin):
         return m
 
     def load_controlnets(self, kinds=("tile", "depth")):
-        cfg = self._tiny_unet_cfg() if self.tiny else SD15_UNET
+        """The ControlNets of `kinds`, each at its UNet's widths: MVEdit's
+        at SD1.5's, Zero123++'s normal one (`z123_normal`) at its SD2
+        UNet's (`_CONTROLNET_UNETS`); tiny, all at the tiny UNet's."""
         # the tiny VAE downsamples /2 (2 blocks) against SD's /8
         hint_strides = 1 if self.tiny else 3
         return tuple(
             self._build(f"controlnet:{kind}",
-                        lambda: ControlNet(cfg, hint_strides=hint_strides),
+                        lambda: ControlNet(
+                            self._tiny_unet_cfg() if self.tiny else
+                            _CONTROLNET_UNETS.get(kind, SD15_UNET),
+                            hint_strides=hint_strides),
                         seed_offset=1 + i, subdir=f"controlnet_{kind}")
             for i, kind in enumerate(kinds))
 

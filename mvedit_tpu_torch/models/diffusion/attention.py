@@ -34,6 +34,7 @@ from torch import nn
 
 from ...kernels.flash_attention import (MAX_HEAD_DIM, attention_reference,
                                         flash_attention)
+from ...utils.profiling import count
 from .layers import Conv, Dense
 from .norm import GroupNorm, LayerNorm
 
@@ -131,11 +132,15 @@ def _plain_attention(q, k, v):
 
 
 def dot_product_attention(q, k, v):
-    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D)."""
+    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D). Each call adds one
+    to the installed phase timer's `attention.kernel` or `attention.plain`
+    count (the chunked path is plain)."""
     Lq, Lk, D = q.shape[1], k.shape[1], q.shape[-1]
     # CPU tensors skip the kernel, as the reference does on its CPU backend
     if q.device.type != "cpu" and uses_flash(Lq, Lk, D):
+        count("attention.kernel")
         return flash_attention(q, k, v)
+    count("attention.plain")
     if Lq * Lk > 4096 * 8192:
         return _chunked_attention(q, k, v)
     return _plain_attention(q, k, v)

@@ -20,12 +20,18 @@ The random draws come from a draw source (`Zero123PlusDraws`' methods):
 the initial latents, then per step the reference noise and the ancestral
 noise, in the reference's key order (key -> (key, k0); per step key ->
 (key, kr, ks)).
+
+With a `PhaseTimer` installed (`utils/profiling.py`), a call runs in the
+phases `z123.cond`, per step `z123.write`, `z123.controlnet` (normal pass),
+`z123.read` and `z123.solver`, and `z123.decode`, and counts the stored
+reference states' bytes under `z123.ref_bytes`.
 """
 from dataclasses import dataclass
 
 import torch
 
 from ..models.diffusion import AttnMode, schedulers as S
+from ..utils.profiling import count, phase
 
 __all__ = ["Zero123PlusConfig", "Zero123PlusPipeline", "Zero123PlusDraws",
            "scale_latents", "unscale_latents", "scale_image",
@@ -90,14 +96,27 @@ class Zero123PlusPipeline:
         self.schedule = models.schedule
 
     def _encode_condition(self, pixels):
-        """pixels: (1, S, S, 3) at the vision tower's size -> prompt
-        embeds (1, L, C): text_uncond + the global embed ramped per
-        token."""
+        """pixels: (1, S, S, 3) at the vision tower's size -> the CFG
+        batch's prompt embeds (2, L, C): text_uncond, then text_uncond +
+        the global embed ramped per token."""
         m = self.m
         emb = m.vision(pixels).float()                          # (1, P)
         ramp = torch.as_tensor(m.ramping, dtype=torch.float32,
                                device=emb.device)[None, :, None]
-        return m.text_uncond + emb[:, None, :] * ramp
+        return torch.cat([m.text_uncond,
+                          m.text_uncond + emb[:, None, :] * ramp], 0)
+
+    def _guided_step(self, latents, out, t, t_prev, noise, state):
+        """One sampler step from `t` to `t_prev` (-1: the end) on the
+        guided v-prediction of the CFG batch's UNet output `out` (2, ...),
+        [uncond; cond] -> (latents, solver state)."""
+        cfg, sch = self.cfg, self.schedule
+        out_u, out_c = out.float().chunk(2, 0)
+        model_out = out_u + cfg.guidance_scale * (out_c - out_u)
+        if cfg.sampler == "euler_ancestral":
+            return S.euler_ancestral_step(sch, latents, model_out, t, t_prev,
+                                          noise=noise), state
+        return S.dpmsolver_step(sch, latents, model_out, t, t_prev, state)
 
     @torch.inference_mode()
     def __call__(self, cond_image, cond_pixels_clip, generator=None,
@@ -112,9 +131,10 @@ class Zero123PlusPipeline:
         draws = draws if draws is not None else Zero123PlusDraws(generator)
         dev = cond_image.device
         H, W = cfg.grid_hw
-        prompt = self._encode_condition(cond_pixels_clip)
-        embeds = torch.cat([m.text_uncond, prompt], 0)          # (2, L, C)
-        cond_latent = m.vae.encode(scale_image(cond_image * 2 - 1)).float()
+        with phase("z123.cond", dev):
+            embeds = self._encode_condition(cond_pixels_clip)   # (2, L, C)
+            cond_latent = m.vae.encode(
+                scale_image(cond_image * 2 - 1)).float()
         timesteps = S.make_timesteps(cfg.num_steps, sch.num_train_timesteps,
                                      "trailing")
         ds = 2 ** (len(m.vae.cfg.block_out_channels) - 1)
@@ -126,36 +146,41 @@ class Zero123PlusPipeline:
             hint = torch.cat([normal_cond] * 2, 0)
         for i, t in enumerate(timesteps):
             t = int(t)
-            ref_noise, anc_noise = draws.step_noise(cond_latent.shape,
-                                                    latents.shape, dev)
-            t2 = torch.full((2,), t, dtype=torch.int32, device=dev)
-            # the conditioning latent noised at the same t for both halves
-            ref_lat = S.add_noise(sch, torch.cat([cond_latent] * 2, 0),
-                                  torch.cat([ref_noise] * 2, 0), t)
-            _, writes = m.unet(ref_lat, t2, embeds,
-                               mode=AttnMode(reference="write"))
+            with phase("z123.write", dev):
+                ref_noise, anc_noise = draws.step_noise(cond_latent.shape,
+                                                        latents.shape, dev)
+                t2 = torch.full((2,), t, dtype=torch.int32, device=dev)
+                # the conditioning latent noised at the same t for both
+                # halves
+                ref_lat = S.add_noise(sch, torch.cat([cond_latent] * 2, 0),
+                                      torch.cat([ref_noise] * 2, 0), t)
+                _, writes = m.unet(ref_lat, t2, embeds,
+                                   mode=AttnMode(reference="write"))
+            count("z123.ref_bytes", lambda: sum(
+                w.numel() * w.element_size() for w in writes))
             lat2 = torch.cat([latents] * 2, 0)
             down = mid = None
             if hint is not None:
-                down, mid = m.controlnet(lat2, t2, embeds, hint,
-                                         conditioning_scale=cfg.cond_scale)
-            out = m.unet(lat2, t2, embeds, mode=AttnMode(reference="read"),
-                         ref_kv=writes, down_block_res=down,
-                         mid_block_res=mid)
+                with phase("z123.controlnet", dev):
+                    down, mid = m.controlnet(
+                        lat2, t2, embeds, hint,
+                        conditioning_scale=cfg.cond_scale)
+            with phase("z123.read", dev):
+                out = m.unet(lat2, t2, embeds,
+                             mode=AttnMode(reference="read"), ref_kv=writes,
+                             down_block_res=down, mid_block_res=mid)
             del writes, down, mid
-            out_u, out_c = out.float().chunk(2, 0)
-            model_out = out_u + cfg.guidance_scale * (out_c - out_u)
-            t_prev = int(timesteps[i + 1]) if i + 1 < len(timesteps) else -1
-            if cfg.sampler == "euler_ancestral":
-                latents = S.euler_ancestral_step(sch, latents, model_out, t,
-                                                 t_prev, noise=anc_noise)
-            else:
-                latents, solver_state = S.dpmsolver_step(
-                    sch, latents, model_out, t, t_prev, solver_state)
-        latents = unscale_latents(latents)
-        if cfg.shift_views:
-            # v1.2: roll the grid latents by half a tile (:330)
-            latents = torch.roll(latents, shifts=latents.shape[2] // 4,
-                                 dims=2)
-        img = unscale_image(m.vae.decode(latents))
-        return ((img + 1) / 2).clamp(0.0, 1.0)
+            with phase("z123.solver", dev):
+                t_prev = int(timesteps[i + 1]) if i + 1 < len(timesteps) \
+                    else -1
+                latents, solver_state = self._guided_step(
+                    latents, out, t, t_prev, anc_noise, solver_state)
+        with phase("z123.decode", dev):
+            latents = unscale_latents(latents)
+            if cfg.shift_views:
+                # v1.2: roll the grid latents by half a tile (:330)
+                latents = torch.roll(latents, shifts=latents.shape[2] // 4,
+                                     dims=2)
+            img = unscale_image(m.vae.decode(latents))
+            img = ((img + 1) / 2).clamp(0.0, 1.0)
+        return img

@@ -65,8 +65,11 @@ MANIFEST = {
                                        "zero123_ccp"),
 }
 # the subdirs some loader of the port reads (`apis/runner.py`,
-# `apis/endpoints.py::load_zero123plus`, `tools/inception_stat.py`); the
-# Zero123++ UNets are SD1.5's `unet/`, and legacy Zero123 is seeded
+# `apis/endpoints.py::load_zero123plus`, `tools/inception_stat.py`) at the
+# widths `--tiny` checks; the full-size Zero123++ UNets and normal
+# ControlNet (`zero123plus_unet/`, `zero123plus_normal_unet/`,
+# `controlnet_z123_normal/`, SD2 widths) are not laid out, the tiny ones
+# are SD1.5's `unet/`, and legacy Zero123 is seeded
 READ_BY_PORT = ("unet", "vae", "text_encoder", "controlnet_tile",
                 "controlnet_depth", "controlnet_ip2p", "zero123plus_vision",
                 "ip_adapter", "tracer", "image_enhancer", "lpips",
@@ -82,7 +85,8 @@ def _module(kind, tiny):
     from ..models.diffusion import (SD15_TEXT, SD_VAE, AutoencoderKL,
                                     CLIPTextConfig, CLIPTextModel,
                                     ControlNet, UNet2DCondition, VAEConfig)
-    from ..models.diffusion.clip import CLIPVisionConfig, CLIPVisionModel
+    from ..models.diffusion.clip import (IPADAPTER_VISION, CLIPVisionConfig,
+                                         CLIPVisionModel)
     from ..models.diffusion.weights import convert_clip_vision
     unet = _unet_cfg(tiny)
     if kind == "unet":
@@ -103,7 +107,7 @@ def _module(kind, tiny):
         cfg = CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=32,
                                intermediate_size=64, num_layers=2,
                                num_heads=4, projection_dim=32) if tiny \
-            else CLIPVisionConfig(projection_dim=768)
+            else IPADAPTER_VISION
         return (lambda: CLIPVisionModel(cfg)), convert_clip_vision
     if kind == "srvgg":
         from ..models.image_enhancer import SRVGGNetCompact

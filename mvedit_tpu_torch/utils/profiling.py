@@ -27,11 +27,21 @@ shared object that does nothing. Each endpoint call (`endpoint`) runs
 inside a root `span("request")`; every span under it carries its
 request id.
 
+`count(name, n)` adds to a counter of the installed timer
+(`PhaseTimer.counts`, beside the phases' ticks) and does nothing with
+none installed.
+
 `MVEdit3DPipeline.__call__`'s phases are the reference's: `denoise_p1+
 vae_dec`, `nerf_fit`, `mesh_fit`, `render_all`, `denoise_p2+vae_enc+
 solver` and `bake` (with the spans `bake.extract`, `bake.decimate`,
 `bake.refine`, `bake.uv` and `bake.texture`); one step's phases follow
-each other with no gap.
+each other with no gap. `Zero123PlusPipeline.__call__`'s are `z123.cond`
+(the vision tower and the condition's VAE encode), then per step
+`z123.write`, `z123.controlnet` (the normal pass), `z123.read` and
+`z123.solver`, and `z123.decode`; its counters are
+`attention.kernel` and `attention.plain` (`dot_product_attention`'s calls
+by path, on every caller) and `z123.ref_bytes` (the stored reference
+states' bytes).
 
     from mvedit_tpu_torch.utils.profiling import PhaseTimer, set_phase_timer
     set_phase_timer(pt := PhaseTimer())
@@ -48,7 +58,7 @@ from contextlib import contextmanager
 import torch
 
 __all__ = ["trace", "annotate", "PhaseTimer", "Span", "set_phase_timer",
-           "phase_timer", "phase", "span", "endpoint"]
+           "phase_timer", "phase", "span", "count", "endpoint"]
 
 
 @contextmanager
@@ -247,6 +257,15 @@ def span(name):
     if t is None:
         return _OFF
     return Span(t, name, None, None)
+
+
+def count(name, n=1):
+    """Add `n` to the installed timer's `counts[name]` (a counter beside
+    the phases' tick counts); nothing with no timer installed. `n` may be
+    a function that gives it, called only with a timer installed."""
+    t = _PHASE_TIMER
+    if t is not None:
+        t.counts[name] += n() if callable(n) else n
 
 
 def endpoint(fn):

@@ -40,10 +40,12 @@ Tolerances:
   bit-equal parameters, without and with
   `torch.use_deterministic_algorithms(True)` (which raises at any op with
   no deterministic algorithm on the card); two tiny Zero123++ v1.2 RGB +
-  normal passes and their postprocess, two SAM refinements, two tiny
-  text-to-3D requests, three full-width SSDNeRF training steps, two
-  full-width steps of the StableSSDNeRF LoRA recipe (its frozen base
-  keeping its bits) and of the paper family's stack and tiled recipes
+  normal passes and their postprocess, two at the published widths (the
+  SD2 UNets, the normal ControlNet, the ViT-H/14 tower, 2 steps), two SAM
+  refinements, two tiny text-to-3D requests, three full-width SSDNeRF
+  training steps, two full-width steps of the StableSSDNeRF LoRA recipe
+  (its frozen base keeping its bits) and of the paper family's stack and
+  tiled recipes
   (all also under `use_deterministic_algorithms`), and the sparse-volume
   interpolation's gradients, from one seed are bit-equal.
 - SSDNeRF training's code gradient: the segment sum at a step's own
@@ -728,18 +730,20 @@ def test_one_seed_gives_one_nerf_fit_image_to_3d(cuda, monkeypatch,
         [True] * len(a)
 
 
+@pytest.mark.parametrize("heads,dim", [(8, 40), (5, 64)])
 @pytest.mark.parametrize("Lk", [9600, 19200])
-def test_flash_attention_zero123plus_shapes(cuda, Lk):
+def test_flash_attention_zero123plus_shapes(cuda, Lk, heads, dim):
     """Zero123++'s level-0 self-attention at its 960 x 640 grid: the write
     pass (Lk = Lq = 9600 = 75 x 128) and the read pass, whose keys are the
-    grid's and the conditioning image's (Lk = 19200): no tail tile, no
-    staged copy."""
+    grid's and the conditioning image's (Lk = 19200), at the JAX
+    package's SD1.5 heads (8 of 40) and the published SD2 UNet's (320
+    channels in 5 heads of 64): no tail tile, no staged copy."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn((2, 9600, 8, 40), generator=g, device=cuda,
+    q = torch.randn((2, 9600, heads, dim), generator=g, device=cuda,
                     dtype=torch.bfloat16)
-    k, v = (torch.randn((2, Lk, 8, 40), generator=g, device=cuda,
+    k, v = (torch.randn((2, Lk, heads, dim), generator=g, device=cuda,
                         dtype=torch.bfloat16) for _ in range(2))
-    assert FA.plan(q, k, v, 40 ** -0.5) == "direct"
+    assert FA.plan(q, k, v, dim ** -0.5) == "direct"
     before, staged = FA.flash_attention.launches, FA.launch.staged
     out = FA.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -747,6 +751,30 @@ def test_flash_attention_zero123plus_shapes(cuda, Lk):
     assert FA.launch.staged == staged
     r = FA.agreement(out, FA.attention_reference(q, k, v))
     assert r["ok"], r
+
+
+def test_one_seed_gives_one_full_width_normal_pass(cuda):
+    """Zero123++ v1.2's RGB and normal passes at the published widths (the
+    full-size build: SD2 UNets, the normal ControlNet, the ViT-H/14
+    tower; 960 x 640 grid, 2 steps), twice from one seed: bit-equal, with
+    level 0's self-attentions on the kernel (a step: RGB write 5 + read 5,
+    normal write 5 + ControlNet 2 + read 5)."""
+    import numpy as np
+    from mvedit_tpu_torch.apis import Adapter3DRunner
+    runner = Adapter3DRunner(seed=0, device="cuda")
+    img = np.random.default_rng(0).random((512, 512, 3)).astype(np.float32)
+
+    def run():
+        before = FA.flash_attention.launches
+        out = runner.run_zero123plus(img, seed=3, version="1.2",
+                                     num_steps=2, return_normal=True)
+        torch.cuda.synchronize()
+        return list(out), FA.flash_attention.launches - before
+    (a, na), (b, nb) = run(), run()
+    assert na == nb == 2 * (10 + 12)
+    assert all(x.shape == (960, 640, 3) and np.isfinite(x).all()
+               for x in a)
+    assert [np.array_equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
 
 
 def test_reference_attention_unet_on_card(cuda):
