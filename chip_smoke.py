@@ -39,7 +39,10 @@ over a 1-rank NCCL group.
    report;
 3. kernels against their plain versions, timed with CUDA events:
    flash attention (bf16) at every path shape (superres's joint
-   attention over 8 views included); the raster selection at the
+   attention over 8 views included; the short calls that only
+   `attention.kernel_takes` routes, Zero123++'s levels 1-3 and the
+   cross-attentions, timed 20 a CUDA graph replay beside the plain path's
+   one `attention_reference`); the raster selection at the
    fit's, `load_init_mesh`'s, the render-size ramp's, the UV bake's and
    (32 x 32 tiles) texture superres's 2048^2 bake's configs, timed as
    single launches, in batches of 20 launched from the
@@ -382,6 +385,32 @@ KERNEL_CASES += [((2, 32768, 8, 40), 1.0), ((2, 8192, 8, 80), 1.0)]
 # the conditioning image's stored states (Lk = 19200)
 Z123_CASES = [(2, 9600, 5, 64), ((2, 9600, 5, 64), 19200)]
 KERNEL_CASES += [(shape, 1.0) for shape in Z123_CASES]
+# calls that only `attention.kernel_takes` sends to the kernel (bf16, no
+# gradient, lengths off the TPU's 128-row blocks or at most 1024), in
+# `case_dims`' forms: Zero123++'s levels 1-3 (L 2400, 600, 150 at heads of
+# 64; the write pass and the normal ControlNet at Lk = Lq, the read pass at
+# Lk = 2 Lq) and its cross-attentions over the 77 text tokens at every
+# level; SD1.5's level 1 self-attention (L 1024 a view: the uncond views
+# and the ControlNets) and cross-attentions at levels 0-1 (D 40 and 80) in
+# the MVEdit denoise's batches (8, 16 on the CFG chunk, 12 in the sharded
+# 6-view step); IP-Adapter's 4 image tokens (16 for the plus variant).
+# Timed AB_BATCH calls a CUDA graph replay beside one
+# `attention_reference` call, the plain path as it ran them.
+Z123_RAGGED = [(2, 2400, 10, 64), ((2, 2400, 10, 64), 4800),
+               (2, 600, 20, 64), ((2, 600, 20, 64), 1200),
+               (2, 150, 20, 64), ((2, 150, 20, 64), 300),
+               ((2, 9600, 5, 64), 77), ((2, 2400, 10, 64), 77),
+               ((2, 600, 20, 64), 77), ((2, 150, 20, 64), 77)]
+RAGGED_CASES = Z123_RAGGED + [
+    (8, 1024, 8, 80), (16, 1024, 8, 80),
+    ((8, 4096, 8, 40), 77), ((16, 4096, 8, 40), 77),
+    ((12, 4096, 8, 40), 77), ((8, 1024, 8, 80), 77),
+    ((16, 1024, 8, 80), 77), ((12, 1024, 8, 80), 77),
+    ((8, 4096, 8, 40), 4), ((16, 4096, 8, 40), 4),
+    ((8, 1024, 8, 80), 4), ((16, 1024, 8, 80), 4),
+    ((8, 4096, 8, 40), 16), ((8, 1024, 8, 80), 16)]
+Z123_CASES += Z123_RAGGED
+KERNEL_CASES += [(shape, 1.0) for shape in RAGGED_CASES]
 # GRM's encoder at GRMConfig(): 4 views of 512^2 at patch 8 in one
 # sequence; and the 6-view joint attention's level 2 of the sharded CFG
 # step (phase 25; its level 1 is (2, 24576, 8, 40) above)
@@ -704,10 +733,11 @@ def flash_bound_text(bd):
             f"{bd['mma_ms']:.3f} ms, exp floor {bd['exp_floor_ms']:.3f} ms)")
 
 
-def library_attention(q, k, v, scale=None, batch=1):
+def library_attention(q, k, v, scale=None, batch=1, graph=False):
     """Time one `scaled_dot_product_attention` call on the (B, H, L, D)
-    views of (B, L, H, D) inputs: a yardstick for the flash kernel, used
-    nowhere in the port. Returns (ms, the backend PyTorch chose)."""
+    views of (B, L, H, D) inputs (`median_ms`'s `batch` and `graph`): a
+    yardstick for the flash kernel, used nowhere in the port. Returns (ms,
+    the backend PyTorch chose)."""
     from torch.nn.attention import SDPBackend
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -719,7 +749,7 @@ def library_attention(q, k, v, scale=None, batch=1):
         backend = "unknown"
     ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           scale=scale),
-                   batch=batch)
+                   batch=batch, graph=graph)
     return ms, backend
 
 
@@ -823,7 +853,9 @@ def case_dims(shape):
 
 def phase_kernel():
     from mvedit_tpu_torch.kernels.flash_attention import (
-        MAX_REL_TOL, MEAN_REL_TOL, agreement, flash_attention)
+        MAX_REL_TOL, MEAN_REL_TOL, agreement, attention_reference,
+        flash_attention)
+    from mvedit_tpu_torch.models.diffusion.attention import uses_flash
     log(f"[kernel] bounds: max|d| <= {MAX_REL_TOL:g} * max|ref|, mean|d| <= "
         f"{MEAN_REL_TOL:g} * mean|ref|")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -844,17 +876,26 @@ def phase_kernel():
                 f"mean|d| {r['mean_abs']:.3e} = {r['mean_rel']:.2e} of "
                 f"mean|ref| {r['ref_mean']:.3e}")
         if qk == 1.0:
-            ms = median_ms(lambda: flash_attention(q, k, v))
-            plain_ms = median_ms(lambda: plain_sliced(q, k, v))
-            lib_ms, backend = library_attention(q, k, v)
+            # a call off the TPU's blocks is short, and the host's launch
+            # would be timed: AB_BATCH calls replayed from a CUDA graph (the
+            # device's time alone), the plain path as the program runs it
+            n = 1 if uses_flash(L, Lk, D) else AB_BATCH
+            plain = plain_sliced if n == 1 else attention_reference
+            ms = median_ms(lambda: flash_attention(q, k, v), batch=n,
+                           graph=n > 1)
+            plain_ms = median_ms(lambda: plain(q, k, v), batch=n,
+                                 graph=n > 1)
+            lib_ms, backend = library_attention(q, k, v, batch=n,
+                                                graph=n > 1)
             bd = flash_bound(B, L, Lk, H, D)
             flops = 4.0 * B * H * L * Lk * D
-            line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+            line += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
                      f"at the real D) {flash_bound_text(bd)} library "
-                     f"{lib_ms:.3f} ms (sdpa, {backend}) plain "
-                     f"{plain_ms:.3f} ms")
+                     f"{lib_ms:.4f} ms (sdpa, {backend}) plain "
+                     f"{plain_ms:.4f} ms; {n} a timed batch"
+                     + (" from a CUDA graph" if n > 1 else ""))
             rows.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, **bd))
+                             library_ms=lib_ms, batch=n, **bd))
         log(f"{line} {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             failed.append((shape, qk))
@@ -2739,10 +2780,9 @@ def phase_image_to_3d(runner, tmp):
             log(f"[image_to_3d] {run}   phase {name}: {sec:.3f} s over "
                 f"{pt.counts[name]} ticks")
         log(f"[launches] image_to_3d {run}: flash_attention {n['flash']} "
-            f"(at {Z123_CASES[0]}: {z_shapes[Z123_CASES[0]]}, at "
-            f"{Z123_CASES[1]}: {z_shapes[Z123_CASES[1]]}; staged copies "
-            f"{launch.staged - staged[0]}), raster_select {n['raster']}, "
-            f"segment_sum {n['segment']}")
+            f"(" + ", ".join(f"at {k}: {c}" for k, c in z_shapes.items())
+            + f"; staged copies {launch.staged - staged[0]}), raster_select "
+            f"{n['raster']}, segment_sum {n['segment']}")
         if not ok:
             raise AssertionError("the run_zero123plus_to_mesh request "
                                  "failed its checks")

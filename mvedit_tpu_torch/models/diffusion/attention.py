@@ -1,29 +1,38 @@
 """Attention core and transformer blocks of the diffusion UNets.
 
 Counterpart of `mvedit_tpu/models/diffusion/attention.py`. All attention
-funnels through `dot_product_attention`, which routes exactly as the
-reference does:
+funnels through `dot_product_attention`. CPU tensors never take the
+kernel, as the reference skips it on its CPU backend. On the card a call
+goes to the hand-written flash kernel when either of two rules holds:
 
-- on the card, long sequences (max(Lq, Lk) > 1024) with both lengths
-  divisible by 128 and D <= 128 -- the shapes for which the reference's
-  `_pallas_flash` returns a result -- go to the flash-attention kernel;
-  CPU tensors never do, as the reference skips it on its CPU backend;
-- otherwise, Lq * Lk > 4096 * 8192 goes to the chunked online-softmax;
-- everything else (cross-attention over 77 tokens, the VAE's single-head
-  D=512 mid-attention) to plain matmul attention, whose large score
-  tensors are recomputed in the backward rather than saved (a training
-  step through the UNet, the LoRA recipe's).
+- `uses_flash`, the reference's own rule: long sequences (max(Lq, Lk) >
+  1024) with both lengths divisible by 128 and D <= 128, the shapes for
+  which the reference's `_pallas_flash` returns a result (the TPU kernel's
+  128-row blocks). f32 callers there reach the kernel through its bf16
+  copy, as the reference casts them;
+- `kernel_takes`, what the H100 kernel takes as it is: bf16 inputs it
+  reads without a copy, D <= 128 and D % 8 == 0, and no gradient asked
+  for (it has no backward). The kernel masks ragged query rows and key
+  tiles, so any lengths do: Zero123++'s levels 1-3 (L 2400, 600, 150),
+  every bf16 cross-attention over 77 text tokens, IP-Adapter's 4 or 16
+  image tokens.
+
+Every other call, in f32 or carrying a gradient or wider than 128, keeps
+the reference's route: Lq * Lk > 4096 * 8192 goes to the chunked
+online-softmax; the rest (the f32 text and vision towers, the VAE's
+single-head D=512 mid-attention, a training step's attention) to plain
+matmul attention, whose large score tensors are recomputed in the
+backward rather than saved (the LoRA recipe's step).
 
 `AttnMode` keeps the reference's fields, plus `views` for a batch
 sharded over ranks (`parallel.ViewShard`). This port implements joint
 (cross-view) self-attention and IP-Adapter's decoupled cross-attention
-(`ip_to_k` / `ip_to_v` over the image tokens, added with `ip_scale`; its 4
-or 16 keys route to the plain attention) and Zero123++'s reference
-attention: a `reference="write"` pass stores each Transformer2D's
-self-attention input (the normed hidden state before `to_k` / `to_v`) in
-a `RefStates`, and a `reference="read"` pass concatenates the stored
-state onto that self-attention's context along the sequence axis, so Lk
-= 2 Lq (attention.py:174-206, :257-306).
+(`ip_to_k` / `ip_to_v` over the image tokens, added with `ip_scale`) and
+Zero123++'s reference attention: a `reference="write"` pass stores each
+Transformer2D's self-attention input (the normed hidden state before
+`to_k` / `to_v`) in a `RefStates`, and a `reference="read"` pass
+concatenates the stored state onto that self-attention's context along
+the sequence axis, so Lk = 2 Lq (attention.py:174-206, :257-306).
 """
 from dataclasses import dataclass
 
@@ -33,14 +42,14 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ...kernels.flash_attention import (MAX_HEAD_DIM, attention_reference,
-                                        flash_attention)
+                                        flash_attention, plan)
 from ...utils.profiling import count
 from .layers import Conv, Dense
 from .norm import GroupNorm, LayerNorm
 
 __all__ = ["AttnMode", "RefStates", "dot_product_attention", "uses_flash",
-           "CrossAttention", "FeedForward", "BasicTransformerBlock",
-           "Transformer2D"]
+           "kernel_takes", "CrossAttention", "FeedForward",
+           "BasicTransformerBlock", "Transformer2D"]
 
 
 @dataclass(frozen=True)
@@ -88,6 +97,19 @@ def uses_flash(Lq, Lk, D):
             and _block_ok(Lk) and D <= MAX_HEAD_DIM)
 
 
+def kernel_takes(q, k, v):
+    """True where the flash kernel takes (B, Lq, H, D) x (B, Lk, H, D) as
+    it is, whatever the lengths: bf16 q, k and v, D <= MAX_HEAD_DIM, no
+    gradient asked for, and `plan` sends them "direct" (no staged copy:
+    D % 8 == 0, aligned). Decided on the host alone."""
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) \
+            or q.shape[-1] > MAX_HEAD_DIM:
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return False
+    return plan(q, k, v, q.shape[-1] ** -0.5) == "direct"
+
+
 def _chunked_attention(q, k, v):
     """Online-softmax attention over KV chunks of 2048, O(Lq * chunk)
     memory (the reference's `_chunked_attention`)."""
@@ -132,14 +154,21 @@ def _plain_attention(q, k, v):
 
 
 def dot_product_attention(q, k, v):
-    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D). Each call adds one
-    to the installed phase timer's `attention.kernel` or `attention.plain`
-    count (the chunked path is plain)."""
+    """(B, Lq, H, D) x (B, Lk, H, D) -> (B, Lq, H, D), routed as the module
+    doc says. Each call adds one to the installed phase timer's
+    `attention.kernel` or `attention.plain` count (the chunked path is
+    plain); a kernel call that `kernel_takes` alone admits also adds one
+    to `attention.kernel.ragged`."""
     Lq, Lk, D = q.shape[1], k.shape[1], q.shape[-1]
     # CPU tensors skip the kernel, as the reference does on its CPU backend
-    if q.device.type != "cpu" and uses_flash(Lq, Lk, D):
-        count("attention.kernel")
-        return flash_attention(q, k, v)
+    if q.device.type != "cpu":
+        if uses_flash(Lq, Lk, D):
+            count("attention.kernel")
+            return flash_attention(q, k, v)
+        if kernel_takes(q, k, v):
+            count("attention.kernel")
+            count("attention.kernel.ragged")
+            return flash_attention(q, k, v)
     count("attention.plain")
     if Lq * Lk > 4096 * 8192:
         return _chunked_attention(q, k, v)

@@ -40,8 +40,9 @@ each other with no gap. `Zero123PlusPipeline.__call__`'s are `z123.cond`
 `z123.write`, `z123.controlnet` (the normal pass), `z123.read` and
 `z123.solver`, and `z123.decode`; its counters are
 `attention.kernel` and `attention.plain` (`dot_product_attention`'s calls
-by path, on every caller) and `z123.ref_bytes` (the stored reference
-states' bytes).
+by path, on every caller; `attention.kernel.ragged` the kernel's calls
+that only `kernel_takes` admits) and `z123.ref_bytes` (the stored
+reference states' bytes).
 
     from mvedit_tpu_torch.utils.profiling import PhaseTimer, set_phase_timer
     set_phase_timer(pt := PhaseTimer())

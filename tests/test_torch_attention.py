@@ -6,7 +6,12 @@
   rtol 1e-5 / atol 1e-5: both compute f32 scores and softmax and differ
   only in summation order.
 - The routing predicate `uses_flash` against the conditions under which
-  JAX's `_pallas_flash` returns a result, over a table of shapes.
+  JAX's `_pallas_flash` returns a result, over a table of shapes; the
+  port's routing over that table in f32 and bf16, with and without a
+  gradient asked for (the kernel also takes bf16 calls of any length
+  that need none), its `attention.kernel.ragged` counter, and a bf16
+  LoRA UNet's attention on the plain path while its factors need a
+  gradient.
 - `CrossAttention` in joint mode and `Transformer2D` with weights bridged
   from flax; rtol 1e-4 and atol 1e-4 * max|ref|, because the projections
   sum in a different order than XLA's.
@@ -91,29 +96,117 @@ def test_flash_predicate_matches_jax(monkeypatch, Lq, Lk, D):
     assert TA.uses_flash(Lq, Lk, D) == jax_takes_flash
 
 
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 @pytest.mark.parametrize("Lq,Lk,D", _ROUTES)
-def test_dispatch_routes(monkeypatch, Lq, Lk, D, device):
+def test_dispatch_routes(monkeypatch, Lq, Lk, D, device, dtype, grad):
     """dot_product_attention sends each shape where the JAX package does:
     flash kernel, chunked online softmax (Lq * Lk > 4096 * 8192), or plain
-    matmul attention. The `meta` device stands in for the card (any
-    non-CPU device); CPU tensors never take the kernel, as JAX skips
+    matmul attention; and, beyond that, every bf16 call the kernel reads
+    as it is (D <= 128, D % 8 == 0) and no gradient is asked of, whatever
+    its lengths, to the kernel. f32 calls and calls that need a gradient
+    route as the JAX package's. The `meta` device stands in for the card
+    (any non-CPU device); CPU tensors never take the kernel, as JAX skips
     `_pallas_flash` on its CPU backend."""
     seen = []
     for name in ("flash_attention", "_chunked_attention",
                  "attention_reference"):
         monkeypatch.setattr(TA, name,
                             lambda q, k, v, _n=name: seen.append(_n) or q)
-    q = torch.empty((1, Lq, 1, D), device=device)
-    kv = torch.empty((1, Lk, 1, D), device=device)
+    q = torch.empty((1, Lq, 1, D), device=device, dtype=dtype,
+                    requires_grad=grad)
+    kv = torch.empty((1, Lk, 1, D), device=device, dtype=dtype,
+                     requires_grad=grad)
     TA.dot_product_attention(q, kv, kv)
-    if device != "cpu" and TA.uses_flash(Lq, Lk, D):
+    as_it_is = (dtype == torch.bfloat16 and not grad and D <= 128
+                and D % 8 == 0)
+    if device != "cpu" and (TA.uses_flash(Lq, Lk, D) or as_it_is):
         want = "flash_attention"
     elif Lq * Lk > 4096 * 8192:
         want = "_chunked_attention"
     else:
         want = "attention_reference"
     assert seen == [want]
+
+
+def test_ragged_counter_counts_the_new_route_alone(monkeypatch):
+    """`attention.kernel.ragged` counts the kernel calls that only
+    `kernel_takes` admits (bf16, no gradient, lengths off the TPU's
+    128-row blocks or at most 1024); `attention.kernel` counts every
+    kernel call, `attention.plain` the rest."""
+    from mvedit_tpu_torch.utils.profiling import PhaseTimer, set_phase_timer
+    for name in ("flash_attention", "_chunked_attention",
+                 "attention_reference"):
+        monkeypatch.setattr(TA, name, lambda q, k, v: q)
+
+    def call(Lq, Lk, D, dtype=torch.bfloat16, device="meta", grad=False):
+        q = torch.empty((2, Lq, 2, D), device=device, dtype=dtype,
+                        requires_grad=grad)
+        kv = torch.empty((2, Lk, 2, D), device=device, dtype=dtype,
+                         requires_grad=grad)
+        TA.dot_product_attention(q, kv, kv)
+
+    pt = PhaseTimer()
+    set_phase_timer(pt)
+    try:
+        call(9600, 19200, 64)                    # uses_flash
+        call(4096, 4096, 40, torch.float32)      # uses_flash, staged
+        call(2400, 4800, 64)                     # ragged
+        call(150, 150, 64)                       # ragged
+        call(9600, 77, 64)                       # cross-attention
+        call(4096, 4, 40)                        # IP-Adapter's tokens
+        call(1024, 1024, 80)                     # not above 1024
+        call(2400, 4800, 64, grad=True)          # a gradient: plain
+        with torch.no_grad():
+            call(2400, 4800, 64, grad=True)      # none asked for
+        call(2400, 4800, 64, torch.float32)      # f32: plain
+        call(256, 77, 160)                       # D > 128: plain
+        call(4096, 4096, 512)                    # the VAE's D: plain
+        call(2400, 4800, 64, device="cpu")       # CPU: plain
+    finally:
+        set_phase_timer(None)
+    assert pt.counts["attention.kernel"] == 8
+    assert pt.counts["attention.kernel.ragged"] == 6
+    assert pt.counts["attention.plain"] == 5
+
+
+def test_lora_step_attention_stays_plain(monkeypatch):
+    """A bf16 LoRA UNet (the StableSSDNeRF recipe's form, tiny, on
+    `meta`): with the LoRA's factors asking for a gradient every attention
+    takes the plain path, as the kernel has no backward; the same forward
+    under `no_grad` sends every one to the kernel."""
+    from mvedit_tpu_torch.models.diffusion import lora as TL
+    from mvedit_tpu_torch.models.diffusion import unet as TU
+    from mvedit_tpu_torch.utils.profiling import PhaseTimer, set_phase_timer
+    seen = []
+    for name in ("flash_attention", "_chunked_attention",
+                 "attention_reference"):
+        monkeypatch.setattr(TA, name,
+                            lambda q, k, v, _n=name: seen.append(_n) or q)
+    with torch.device("meta"):
+        net = TU.UNet2DCondition(TU.UNetConfig(
+            block_out_channels=(32, 64), attn_down=(True, False),
+            layers_per_block=1, cross_attention_dim=32,
+            use_linear_projection=True, head_dim=8, num_heads=0,
+            dtype=torch.bfloat16))
+    net.requires_grad_(False)
+    params = dict(net.named_parameters())
+    lora = TL.init_lora(torch.Generator().manual_seed(0), params, rank=4)
+    x = torch.empty((2, 16, 8, 4), device="meta")
+    t = torch.zeros((2,), dtype=torch.int32, device="meta")
+    ctx = torch.empty((2, 7, 32), device="meta")
+
+    def run(grad):
+        factors = {k: {f: v.requires_grad_(grad) for f, v in ab.items()}
+                   for k, ab in lora.items()}
+        seen.clear()
+        with torch.set_grad_enabled(grad):
+            torch.func.functional_call(
+                net, TL.merge_lora(params, factors), (x, t, ctx))
+        return list(seen)
+    assert run(True) == ["attention_reference"] * 8
+    assert run(False) == ["flash_attention"] * 8
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -8,7 +8,9 @@ machine needs no JAX):
 
 Tolerances:
 - flash attention (both APIs, `kernels/flash_attention.py` and
-  `ops/flash_attention.py`): `FA.agreement`, which bounds max|d| and
+  `ops/flash_attention.py`; through `attention.dot_product_attention` at
+  each call that only `kernel_takes` routes, one launch and no staged
+  copy each): `FA.agreement`, which bounds max|d| and
   mean|d| relative to the plain version's magnitude (from the same bf16
   inputs): both round P and the output to bf16 (eps 2^-8) at other points
   and sum in another order. The bounds fail a kernel that scales by
@@ -753,12 +755,56 @@ def test_flash_attention_zero123plus_shapes(cuda, Lk, heads, dim):
     assert r["ok"], r
 
 
+# ((B, Lq, H, D), Lk) of the calls that only `attention.kernel_takes`
+# sends to the kernel: Zero123++'s levels 1-3 at its 960 x 640 grid and
+# heads of 64 (the write pass and the normal ControlNet at Lk = Lq, the
+# read pass at 2 Lq) and its cross-attentions over the 77 text tokens;
+# SD1.5's level 1 self-attention (1024 tokens a view) and cross-attentions
+# at levels 0-1 in the batches of mvedit_sd15.3d_to_3d_small's denoise
+# (8 views, 16 on the ControlNets' CFG chunk; read from a traced request's
+# recorded calls); IP-Adapter's 4 and 16 image tokens
+RAGGED_CASES = [((2, 2400, 10, 64), 2400), ((2, 2400, 10, 64), 4800),
+                ((2, 600, 20, 64), 600), ((2, 600, 20, 64), 1200),
+                ((2, 150, 20, 64), 150), ((2, 150, 20, 64), 300),
+                ((2, 9600, 5, 64), 77), ((2, 2400, 10, 64), 77),
+                ((2, 600, 20, 64), 77), ((2, 150, 20, 64), 77),
+                ((16, 1024, 8, 80), 1024),
+                ((8, 4096, 8, 40), 77), ((16, 4096, 8, 40), 77),
+                ((8, 1024, 8, 80), 77), ((16, 1024, 8, 80), 77),
+                ((16, 4096, 8, 40), 4), ((16, 1024, 8, 80), 16)]
+
+
+@pytest.mark.parametrize("shape,Lk", RAGGED_CASES)
+def test_flash_attention_ragged_path_shapes(cuda, shape, Lk):
+    """`dot_product_attention` at each call the kernel's own rule routes
+    (lengths off the TPU's 128-row blocks): one launch, no staged copy,
+    agreement with the plain version."""
+    from mvedit_tpu_torch.models.diffusion import attention as TA
+    B, Lq, H, D = shape
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk + D)
+    q = torch.randn(shape, generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((B, Lk, H, D), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    assert not TA.uses_flash(Lq, Lk, D) and TA.kernel_takes(q, k, v)
+    before, staged = FA.flash_attention.launches, FA.launch.staged
+    out = TA.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert FA.launch.staged == staged
+    assert out.shape == q.shape and out.dtype == q.dtype
+    r = FA.agreement(out, FA.attention_reference(q, k, v))
+    assert r["ok"], r
+
+
 def test_one_seed_gives_one_full_width_normal_pass(cuda):
     """Zero123++ v1.2's RGB and normal passes at the published widths (the
     full-size build: SD2 UNets, the normal ControlNet, the ViT-H/14
     tower; 960 x 640 grid, 2 steps), twice from one seed: bit-equal, with
-    level 0's self-attentions on the kernel (a step: RGB write 5 + read 5,
-    normal write 5 + ControlNet 2 + read 5)."""
+    every UNet and ControlNet attention on the kernel, the self- and the
+    cross-attention of each transformer (a UNet 16 transformers: 6 down, 1
+    mid, 9 up; the ControlNet 7: 6 down, 1 mid; a step: RGB write + read,
+    normal write + read, 4 UNet passes, and one ControlNet call); the
+    vision tower (f32) and the VAE's mid-attention (D 512) stay plain."""
     import numpy as np
     from mvedit_tpu_torch.apis import Adapter3DRunner
     runner = Adapter3DRunner(seed=0, device="cuda")
@@ -771,7 +817,7 @@ def test_one_seed_gives_one_full_width_normal_pass(cuda):
         torch.cuda.synchronize()
         return list(out), FA.flash_attention.launches - before
     (a, na), (b, nb) = run(), run()
-    assert na == nb == 2 * (10 + 12)
+    assert na == nb == 2 * (4 * 2 * 16 + 2 * 7)
     assert all(x.shape == (960, 640, 3) and np.isfinite(x).all()
                for x in a)
     assert [np.array_equal(x, y) for x, y in zip(a, b)] == [True] * len(a)
