@@ -8,14 +8,7 @@
                                              # (also flash_attention,
                                              # flash_fwd, segment_sum,
                                              # dense_grid)
-    python3 chip_smoke.py --profile OUT_DIR  # the whole run, then a profile
     python3 chip_smoke.py --ab A.cu B.cu     # kernel sources timed in turns
-    python3 chip_smoke.py --time-fits        # NeRF and mesh fit chunks and
-                                             # a render-all, timed
-    python3 chip_smoke.py --time-retex       # retex requests timed, one
-                                             # with its segment sums traced
-    python3 chip_smoke.py --request-only     # phase 7's requests alone, the
-                                             # GLBs' sha256 printed
 
 from the root of a checkout. It builds the hand-written kernels from
 `mvedit_tpu_torch/csrc/`, holds each against its plain PyTorch version at
@@ -35,8 +28,8 @@ over a 1-rank NCCL group.
 1. device: the card's name and power limit (nvidia-smi); the stand-in
    tokenizer's ids of the smoke's prompts in two fresh processes with
    other `PYTHONHASHSEED`s equal to this process's;
-2. build: nvcc of every kernel source, all started together, with ptxas'
-   report;
+2. build: every kernel library (`kernels/library.py`, each with its own
+   nvcc flags), all started together, with ptxas' report;
 3. kernels against their plain versions, timed with CUDA events:
    flash attention (bf16) at every path shape (superres's joint
    attention over 8 views included; the short calls that only
@@ -297,43 +290,17 @@ script exits non-zero and prints no result.
 
 `--ab SRC...` does phase 1 and then only the A/B: edited copies of the
 flash source (`phase_ab_flash`, timed at the request's shapes) or of the
-raster source (`phase_ab_raster`, at RASTER_CASES), built side by side,
-checked against the plain version, and timed in turns. A kernel with
+raster source (`phase_ab_raster`, at RASTER_CASES), built side by side
+with the library's own command, checked against the plain version, and
+timed in turns. A kernel with
 another C entry, such as an earlier commit's, is timed by that tree's own
 `chip_smoke.py` in the same call.
-
-`--time-fits` does phase 1 and then only times a warm NeRF-fit chunk, a
-render-all and a warm mesh-fit chunk of the `mvedit_tpu_torch` beside the
-script. To time an earlier commit, unpack it into a directory of the
-checkout that `.gitignore` lists, copy this script into it and run that
-copy in the same call.
-
-`--time-retex` does phase 1 and then only three `run_retex` requests of
-the `mvedit_tpu_torch` beside the script (cold and warm timed, the third
-under `torch.profiler` with every segment sum on a stream of its own:
-the device time of that stream's kernels); with `--time-fits`, both. An
-earlier commit's package is timed the same way as with `--time-fits`.
-
-`--request-only` does phases 1-2 and then only phase 7's two requests,
-printing their GLBs' sha256; a copy of the script inside an unpacked
-earlier commit runs that commit's package, so that two trees' GLBs can be
-compared on one card (the endpoints seed on the card, so a change that
-leaves them alone leaves the bytes equal).
-
-`--profile OUT_DIR` then runs `torch.profiler` over one warm
-`run_text_to_img` request, two warm denoise timesteps, two warm mesh-fit
-chunks and two warm NeRF-fit chunks at 256^2, reads the trace
-kernel by kernel (device busy share, time per pipeline range, per kernel
-family, top kernels), prints the breakdown and writes it, with the gzipped
-chrome traces, to OUT_DIR.
 """
 import argparse
 import dataclasses
-import gzip
 import hashlib
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -341,6 +308,12 @@ import time
 
 import numpy as np
 import torch
+
+# the benchmark's yardstick: the H100's published peaks and the least
+# time of an attention call and of a segment sum
+from portbench.reference.bounds import (PEAK_BF16, PEAK_BYTES, PEAK_EXP,
+                                        PEAK_F32, flash_bound_s,
+                                        segment_bound_s)
 
 SEED = 0
 NUM_VIEWS = 6
@@ -587,19 +560,6 @@ SHARD_VIEWS = 6              # the sharded CFG step's views (2 x 6 images)
 SHARD_FIT_STEPS = 4          # the sharded mesh-fit chunk
 DEV = "cuda"
 TIMED_RUNS = 10
-# an H100 SXM's peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor
-# cores, f32 outside them, HBM3; and the special-function units' exp2
-# (16 per clock per SM x 132 SMs x ~1.83 GHz), the exp floor of attention
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-PEAK_EXP = 3.9e12
-
-
-def R(name):
-    """A named range of --profile's trace: the port's `annotate`."""
-    from mvedit_tpu_torch.utils.profiling import annotate
-    return annotate(name)
 
 
 def log(*a):
@@ -659,38 +619,48 @@ def phase_build():
     """nvcc of every kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from mvedit_tpu_torch.kernels import dense_grid as DG
     from mvedit_tpu_torch.kernels import flash_attention as FA
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.kernels import segment_sum as SS
-    DG = dense_grid_kernel()
+    libs = [m.LIBRARY for m in (FA, RS, SS, DG)]
 
-    def build(mod):
+    def build(lib):
         t0 = time.perf_counter()
-        mod.build()
+        lib.load()
         return time.perf_counter() - t0
-    mods = {"flash_attention.cu": FA, "raster_select.cu": RS,
-            "segment_sum.cu": SS}
-    if DG is not None:
-        mods["dense_grid.cu"] = DG
-    with ThreadPoolExecutor(len(mods)) as ex:
-        secs = dict(zip(mods, ex.map(build, mods.values())))
-    for name, mod in mods.items():
-        log(f"[build] {name}: {secs[name]:.2f} s")
-        with open(mod.BUILD_LOG) as f:
-            for line in f:
-                if "registers" in line or "spill" in line \
-                        or "Compiling" in line or "C7512" in line:
-                    log(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(libs)) as ex:
+        secs = list(ex.map(build, libs))
+    for lib, sec in zip(libs, secs):
+        log(f"[build] {os.path.basename(lib.source)}: {sec:.2f} s")
+        _log_report(lib.log, "[build]  ")
 
 
-def dense_grid_kernel():
-    """`kernels.dense_grid`, or None in an earlier commit's package (a copy
-    of this script run there with --request-only)."""
-    try:
-        from mvedit_tpu_torch.kernels import dense_grid
-    except ImportError:
-        return None
-    return dense_grid
+def _log_report(path, tag):
+    """ptxas' lines of a build log: registers, spills, the kernels compiled
+    and the serialised-wgmma warning (C7512)."""
+    with open(path) as f:
+        for line in f:
+            if "registers" in line or "spill" in line \
+                    or "Compiling" in line or "C7512" in line:
+                log(f"{tag} {line.strip()}")
+
+
+def _build_ab(lib, sources):
+    """`lib` built from each of `sources` (edited copies of its source,
+    the same C entries) with its own command, all together, into
+    `_build/ab/`: the loaded libraries, each compiler's report logged."""
+    from concurrent.futures import ThreadPoolExecutor
+    libs = [dataclasses.replace(lib, name=f"{lib.name}_ab{i}",
+                                source=os.path.abspath(src),
+                                build_dir=os.path.join(lib.build_dir, "ab"))
+            for i, src in enumerate(sources)]
+    with ThreadPoolExecutor(len(libs)) as ex:
+        loaded = list(ex.map(lambda x: x.load(), libs))
+    for src, ab in zip(sources, libs):
+        log(f"[ab] {src}:")
+        _log_report(ab.log, "[ab]  ")
+    return loaded
 
 
 def plain_sliced(q, k, v, budget=4 << 30):
@@ -710,17 +680,17 @@ def plain_sliced(q, k, v, budget=4 << 30):
 
 
 def flash_bound(B, Lq, Lk, H, D):
-    """Least time of one attention call on the card: the largest of its
-    two kinds of operations, each at its own peak (bf16 tensor-core FLOPs
-    at the real D, 4 B H Lq Lk D; the exp floor, B H Lq Lk exponentials
-    on the special-function units), and its bytes (q, k, v read once, o
-    written once). `op` names the operation that sets the bound."""
+    """`flash_bound_s` of one bf16 attention call in ms, with its split:
+    the tensor-core time of its 4 B H Lq Lk D FLOPs and the exp floor of
+    its B H Lq Lk exponentials, each at its peak. `op` names the operation
+    that sets the larger of the two, `bound_by` whether operations or the
+    bytes set the bound."""
     mma_ms = 4.0 * B * H * Lq * Lk * D / PEAK_BF16 * 1e3
-    exp_ms = B * H * Lq * Lk / PEAK_EXP * 1e3
-    bytes_ms = 2.0 * B * H * D * (2 * Lq + 2 * Lk) / PEAK_BYTES * 1e3
-    ops_ms = max(mma_ms, exp_ms)
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+    exp_ms = 1.0 * B * H * Lq * Lk / PEAK_EXP * 1e3
+    bound_ms = flash_bound_s(B, Lq, Lk, H, D) * 1e3
+    return dict(bound_ms=bound_ms,
+                bound_by="operations" if max(mma_ms, exp_ms) >= bound_ms
+                else "bytes",
                 op="exp" if exp_ms > mma_ms else "bf16 mma",
                 mma_ms=mma_ms, exp_floor_ms=exp_ms)
 
@@ -952,9 +922,8 @@ def phase_text_to_img(runner):
 
 
 @torch.inference_mode()
-def phase_denoise(runner, prof=None):
-    """3 timesteps of `mvedit_3d.py:769-941` without the 3D fuse. `prof`, a
-    scheduled `torch.profiler.profile`, is stepped after each timestep."""
+def phase_denoise(runner):
+    """3 timesteps of `mvedit_3d.py:769-941` without the 3D fuse."""
     from mvedit_tpu_torch.models.diffusion import schedulers as S
     from mvedit_tpu_torch.pipelines.denoise import (DenoiseModels,
                                                     make_noise_pred_2pass)
@@ -983,40 +952,32 @@ def phase_denoise(runner, prof=None):
     for i in range(DENOISE_RUN):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with R("timestep"):
-            t, t_prev = int(steps[i]), int(steps[i + 1])
-            t_vec = torch.full((2 * N,), t, dtype=torch.int32, device=dev)
-            cfg_lat = torch.cat([latents, latents], 0)
-            with R("p1"):
-                eps, enc_state, p1_res = p1(cfg_lat, t_vec, embeds, None,
-                                            DEPTH_W, GS, ref_noisy=ref_noisy)
-            sa, sn = sch.sqrt_acp(t)
-            with R("vae_decode"):
-                dec = m.vae.decode((latents - sn * eps) / sa)
-            dec = ((dec + 1) / 2).clamp(0, 1)
-            # hints from the decoded views: tile = the images, depth = their
-            # gray level as a 3-channel map
-            tile, depth = dec, dec.mean(-1, keepdim=True).expand_as(dec)
-            with R("vae_encode"):
-                eps_3d = (latents - sa * m.vae.encode(tile * 2 - 1)) / sn
-            with R("p2"):
-                eps_unet = p2(cfg_lat, enc_state, p1_res, t_vec, embeds,
-                              torch.cat([tile, tile], 0),
-                              torch.cat([depth, depth], 0),
-                              TILE_W, DEPTH_W, GS, ref_noisy=ref_noisy)
-            with R("solver"):
-                bw = 1.0 - sa       # blend_mode="dynamic"
-                latents, state = S.dpmsolver_step(
-                    sch, latents, bw * eps_3d + (1 - bw) * eps_unet, t,
-                    t_prev, state)
-                # the reference rows stay on schedule (mvedit_3d.py:934-941)
-                ref_noisy, ref_state = S.dpmsolver_step(
-                    sch, ref_noisy, (ref_noisy - sa * lat0) / sn, t, t_prev,
-                    ref_state)
-            torch.cuda.synchronize()
+        t, t_prev = int(steps[i]), int(steps[i + 1])
+        t_vec = torch.full((2 * N,), t, dtype=torch.int32, device=dev)
+        cfg_lat = torch.cat([latents, latents], 0)
+        eps, enc_state, p1_res = p1(cfg_lat, t_vec, embeds, None, DEPTH_W,
+                                    GS, ref_noisy=ref_noisy)
+        sa, sn = sch.sqrt_acp(t)
+        dec = m.vae.decode((latents - sn * eps) / sa)
+        dec = ((dec + 1) / 2).clamp(0, 1)
+        # hints from the decoded views: tile = the images, depth = their
+        # gray level as a 3-channel map
+        tile, depth = dec, dec.mean(-1, keepdim=True).expand_as(dec)
+        eps_3d = (latents - sa * m.vae.encode(tile * 2 - 1)) / sn
+        eps_unet = p2(cfg_lat, enc_state, p1_res, t_vec, embeds,
+                      torch.cat([tile, tile], 0),
+                      torch.cat([depth, depth], 0),
+                      TILE_W, DEPTH_W, GS, ref_noisy=ref_noisy)
+        bw = 1.0 - sa       # blend_mode="dynamic"
+        latents, state = S.dpmsolver_step(
+            sch, latents, bw * eps_3d + (1 - bw) * eps_unet, t, t_prev,
+            state)
+        # the reference rows stay on schedule (mvedit_3d.py:934-941)
+        ref_noisy, ref_state = S.dpmsolver_step(
+            sch, ref_noisy, (ref_noisy - sa * lat0) / sn, t, t_prev,
+            ref_state)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if prof is not None:
-            prof.step()
         ok = bool(torch.isfinite(latents).all() and torch.isfinite(dec).all()
                   and torch.isfinite(ref_noisy).all())
         log(f"[denoise] timestep {i} (t={t}): {wall:.3f} s wall, latents "
@@ -1316,16 +1277,13 @@ def phase_flash_fwd():
 
 
 def segment_bound(n, rows, C, elt, idx_elt):
-    """Least time of one segment sum on the card: its bytes (the targets,
-    `idx_elt` B each, and the values read once, the float32 output written
-    once) at the memory rate; its adds (one per contribution and channel,
-    f32) take far less."""
-    nbytes = float(idx_elt) * n + n * C * elt + 4.0 * rows * C
-    ops_ms = n * C / PEAK_F32 * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                nbytes=nbytes)
+    """`segment_bound_s` of one segment sum into float32 rows in ms, and
+    the bytes that set it: its adds, n C f32 at 67 TFLOP/s, take at most
+    a fortieth of the time of its values' bytes (2 or 4 a value) at 3.35
+    TB/s."""
+    bound_s = segment_bound_s(n, rows, C, elt, idx_elt)
+    return dict(bound_ms=bound_s * 1e3, bound_by="bytes",
+                nbytes=bound_s * PEAK_BYTES)
 
 
 def grid_corners(x, res):
@@ -1674,22 +1632,8 @@ def phase_ab_flash(sources):
     shapes in turns (A, B, ..., B, A), AB_BATCH launches per CUDA-event
     pair, beside the library call, with nvidia-smi's SM clock and power
     sampled over the timed loops."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from mvedit_tpu_torch.kernels import flash_attention as FA
-    out = os.path.join(os.path.dirname(FA.BUILD_LOG), "ab")
-    libs = [os.path.join(out, f"libflash_ab{i}.so")
-            for i in range(len(sources))]
-    nvlogs = [f"{lib}.nvcc.log" for lib in libs]
-    with ThreadPoolExecutor(len(sources)) as ex:
-        list(ex.map(FA.compile_source, sources, libs, nvlogs))
-    for src, nvlog in zip(sources, nvlogs):
-        with open(nvlog) as f:
-            report = f.read()
-        spills = re.findall(r"(\d+) bytes spill stores", report)
-        log(f"[ab] {src}: spill stores per instantiation {spills}; "
-            f"serialised wgmma: {'C7512' in report}")
-    libs = [FA.load_library(lib) for lib in libs]
+    libs = _build_ab(FA.LIBRARY, sources)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
 
     def randn(*shape):
@@ -1749,23 +1693,11 @@ def phase_ab_raster(sources):
     CUDA-event pair (the kernel's device time), the same launched from the
     host, and single launches."""
     import functools
-    from concurrent.futures import ThreadPoolExecutor
 
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.models.mesh import RasterConfig
-    out = os.path.join(os.path.dirname(RS.BUILD_LOG), "ab")
-    libs = [os.path.join(out, f"libraster_ab{i}.so")
-            for i in range(len(sources))]
-    with ThreadPoolExecutor(len(sources)) as ex:
-        list(ex.map(lambda s, lib: RS.compile_source(s, lib,
-                                                     f"{lib}.nvcc.log"),
-                    sources, libs))
-    calls = {}
-    for src, lib in zip(sources, libs):
-        with open(f"{lib}.nvcc.log") as f:
-            regs = re.findall(r"Used (\d+) registers", f.read())
-        log(f"[ab] {src}: registers per instantiation {regs}")
-        calls[src] = functools.partial(RS.launch, lib=RS.load_library(lib))
+    calls = {src: functools.partial(RS.launch, lib=lib) for src, lib in
+             zip(sources, _build_ab(RS.LIBRARY, sources))}
     cases, soups, failed = [], {}, []
     for name, size, span, k, k_big, kind, tile in RASTER_CASES:
         if kind not in soups:
@@ -1941,9 +1873,7 @@ def phase_mesh(runner):
     if min(launches.values()) == 0:
         raise AssertionError("a part of the mesh phase did not launch "
                              "raster_select")
-    ctx = dict(pipe=pipe, tet_grid=tet_grid, state=state, opt=opt,
-               targets=targets, gen=gen)
-    return launches, ctx
+    return launches
 
 
 def phase_lpips():
@@ -2072,13 +2002,12 @@ def phase_request(runner, tmp):
                                                           launch)
     from mvedit_tpu_torch.models.mesh import Mesh
     from mvedit_tpu_torch.utils import profiling as PR
-    DG = dense_grid_kernel()
+    from mvedit_tpu_torch.kernels.dense_grid import dense_grid
     grid_warm = None
 
     def grid_counts():
-        return ((DG.dense_grid.launches, DG.dense_grid.backward_launches,
-                 DG.dense_grid.points, DG.dense_grid.staged)
-                if DG is not None else (0, 0, 0, 0))
+        return (dense_grid.launches, dense_grid.backward_launches,
+                dense_grid.points, dense_grid.staged)
     knot = torus_knot()
     src = os.path.join(tmp, "knot.glb")
     Mesh(v=knot.v, f=knot.f).write_glb(src)
@@ -2130,8 +2059,7 @@ def phase_request(runner, tmp):
             f"{losses.numel()} fit losses (first {float(losses[0]):.4f}, "
             f"last {float(losses[-1]):.4f}) {'ok' if ok else 'FAIL'}")
         for name, sec in pt.report().items():
-            # (an earlier commit's timer, under --request-only, has none)
-            st = pt.steady(name) if hasattr(pt, "steady") else None
+            st = pt.steady(name)
             log(f"[request] {run}   phase {name}: {sec:.3f} s over "
                 f"{pt.counts[name]} ticks, steady (median warm tick) "
                 f"{'none warm' if st is None else f'{st:.3f} s'}: "
@@ -2145,7 +2073,7 @@ def phase_request(runner, tmp):
         log(f"[launches] {run} request: dense_grid {grid[0]} forward, "
             f"{grid[1]} backward, {grid[2]} points encoded, staged copies "
             f"{grid[3]}")
-        if DG is not None and (grid[0] == 0 or grid[3]):
+        if grid[0] == 0 or grid[3]:
             raise AssertionError("the request did not launch dense_grid, "
                                  "or staged its inputs")
         if run == "warm":
@@ -4793,367 +4721,6 @@ def phase_cleaner(tmp):
         raise AssertionError("checkpoint_cleaner failed its checks")
 
 
-_FAMILIES = [
-    ("flash kernel", r"flash_fwd_kernel"),
-    ("raster select kernel", r"raster_select_kernel"),
-    ("sort / scan", r"radix|Sort|scan|cub::"),
-    ("index / scatter", r"index|scatter|gather"),
-    ("layout transpose", r"nchwToNhwc|nhwcToNchw"),
-    ("convolution", r"fprop|dgrad|conv"),
-    ("matmul", r"gemm|nvjet|cutlass"),
-    ("normalization", r"Moments|GroupNorm|layer_norm"),
-    ("softmax", r"softmax"),
-    ("copy / cast", r"copy|memcpy|memset"),
-    ("elementwise", r"elementwise|upsample"),
-]
-
-
-def _union(intervals):
-    """Total length covered by (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
-def read_trace(path, window):
-    """Kernel-by-kernel reading of a profiler chrome trace: the host wall
-    of the `window` ranges, the device's busy time inside them (the union
-    of kernel, memcpy and memset intervals), the device time of the
-    kernels launched from inside each other named range, by kernel family,
-    and the top kernels. Times in ms."""
-    with open(path) as f:
-        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    wins, ranges = [], {}
-    for e in ev:
-        if e.get("cat") == "user_annotation":
-            iv = (e["ts"], e["ts"] + e["dur"])
-            if e["name"] == window:
-                wins.append(iv)
-            elif not e["name"].startswith("ProfilerStep"):
-                ranges.setdefault(e["name"], []).append(iv)
-    launched = {e["args"]["correlation"]: e["ts"] for e in ev
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})}
-    dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
-                                            "gpu_memset")
-           and any(a <= e["ts"] < b for a, b in wins)]
-    busy = _union([(e["ts"], min(e["ts"] + e["dur"], b)) for e in dev
-                   for a, b in wins if a <= e["ts"] < b])
-    wall = sum(b - a for a, b in wins)
-    per_range = {n: dict(wall_ms=sum(b - a for a, b in ivs) / 1e3,
-                         device_ms=0.0, calls=len(ivs))
-                 for n, ivs in ranges.items()}
-    families, names = {}, {}
-    for e in dev:
-        t = launched.get(e.get("args", {}).get("correlation"))
-        for n, ivs in ranges.items():
-            if t is not None and any(a <= t <= b for a, b in ivs):
-                per_range[n]["device_ms"] += e["dur"] / 1e3
-        fam = next((f for f, pat in _FAMILIES
-                    if re.search(pat, e["name"], re.I)), "other")
-        families[fam] = families.get(fam, 0.0) + e["dur"] / 1e3
-        c, ms = names.get(e["name"], (0, 0.0))
-        names[e["name"]] = (c + 1, ms + e["dur"] / 1e3)
-    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:12]
-    return dict(window=window, windows=len(wins), wall_ms=wall / 1e3,
-                device_busy_ms=busy / 1e3,
-                idle_share=1.0 - busy / wall if wall else None,
-                device_events=len(dev), ranges=per_range,
-                families=dict(sorted(families.items(), key=lambda kv: -kv[1])),
-                top=[dict(name=n, count=c, ms=ms) for n, (c, ms) in top])
-
-
-def _report(out_dir, label, window):
-    path = os.path.join(out_dir, f"{label}.trace.json")
-    r = read_trace(path, window)
-    with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
-        g.write(f.read())
-    os.remove(path)
-    with open(os.path.join(out_dir, f"{label}_summary.json"), "w") as f:
-        json.dump(r, f, indent=1)
-    log(f"[profile] {label}: {r['windows']} x {window!r}, host wall "
-        f"{r['wall_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
-        f"idle share {r['idle_share']:.4f}, {r['device_events']} device "
-        f"events")
-    for n, d in r["ranges"].items():
-        log(f"[profile] {label}   range {n} x{d['calls']}: host wall "
-            f"{d['wall_ms']:.3f} ms, device {d['device_ms']:.3f} ms")
-    for fam, ms in r["families"].items():
-        log(f"[profile] {label}   family {fam}: {ms:.3f} ms")
-    for t in r["top"]:
-        log(f"[profile] {label}   top {t['ms']:.3f} ms x{t['count']}: "
-            f"{t['name'][:100]}")
-
-
-def phase_profile(runner, out_dir, mesh_ctx):
-    """`torch.profiler` over one warm `run_text_to_img` request, two warm
-    denoise timesteps (the first of three is the profiler's warm-up), two
-    warm 2-step mesh fit chunks and two warm 8-step NeRF fit chunks at
-    256^2 (LPIPS on). The profiler's own host cost per op widens the gaps,
-    so the idle share under it bounds the unprofiled one from above."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    os.makedirs(out_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-
-    def export(label):
-        return lambda p: p.export_chrome_trace(
-            os.path.join(out_dir, f"{label}.trace.json"))
-
-    with profile(activities=acts, on_trace_ready=export("text_to_img"),
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for seed in (3, 4):
-            with R("request"):
-                runner.run_text_to_img("a red car on a hill", seed=seed,
-                                       steps=STEPS_T2I)
-                torch.cuda.synchronize()
-            prof.step()
-    _report(out_dir, "text_to_img", "request")
-    log("[profile] denoise timesteps under the profiler:")
-    with profile(activities=acts, on_trace_ready=export("denoise"),
-                 schedule=schedule(wait=0, warmup=1,
-                                   active=DENOISE_RUN - 1,
-                                   repeat=1)) as prof:
-        phase_denoise(runner, prof)
-    _report(out_dir, "denoise", "timestep")
-    log("[profile] mesh fit chunks (2 steps each) under the profiler:")
-    c = mesh_ctx
-    run, _, _ = c["pipe"]._mesh_fit_fns(c["tet_grid"], 2)
-    with profile(activities=acts, on_trace_ready=export("mesh_fit"),
-                 schedule=schedule(wait=0, warmup=1, active=2,
-                                   repeat=1)) as prof:
-        for _ in range(3):
-            with R("fit_chunk"):
-                run(c["state"], c["opt"], c["targets"],
-                    sched=c["pipe"]._sched_weights(0.6, "mesh"),
-                    generator=c["gen"])
-                torch.cuda.synchronize()
-            prof.step()
-    _report(out_dir, "mesh_fit", "fit_chunk")
-    log("[profile] NeRF fit chunks (8 steps each, 256^2) under the "
-        "profiler:")
-    from mvedit_tpu_torch.models.fields import ingp_init
-    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
-    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
-    m = runner.load_stable_diffusion()
-    m.lpips_params = runner.load_lpips()
-    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV)
-    pipe = MVEdit3DPipeline(m, cfg)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
-    field = ingp_init(cfg.ingp, gen, DEV)
-    run, make_opt = pipe._nerf_fit_fns(256, 8)
-    opt = make_opt(field)
-    grid = OccupancyGrid.create(cfg.render.grid_size, device=DEV)
-    tgt = pipe._resize_targets(c["targets"], 256)
-    with profile(activities=acts, on_trace_ready=export("nerf_fit"),
-                 schedule=schedule(wait=0, warmup=1, active=2,
-                                   repeat=1)) as prof:
-        for _ in range(3):
-            with R("nerf_chunk"):
-                field, opt, grid, out = run(
-                    field, opt, grid, tgt,
-                    sched=pipe._sched_weights(0.5, "nerf"),
-                    lpips_params=m.lpips_params, generator=gen)
-                torch.cuda.synchronize()
-            prof.step()
-    _report(out_dir, "nerf_fit", "nerf_chunk")
-    log("[profile] render-all of 16 views at 256^2 (NeRF branch) and the "
-        "SRVGG enhancer to 512^2 under the profiler:")
-    views = {"poses": c["targets"]["poses"][:16],
-             "intrinsics": c["targets"]["intrinsics"][:16]}
-    enhance = runner.load_image_enhancer()
-    with profile(activities=acts, on_trace_ready=export("render_all"),
-                 schedule=schedule(wait=0, warmup=1, active=2,
-                                   repeat=1)) as prof:
-        for _ in range(3):
-            with R("render_all"):
-                with R("nerf_render"):
-                    r = pipe._render_all(field, None, None, grid, views, 256)
-                with R("srvgg"):
-                    enhance(r["rgb"], 512)
-                torch.cuda.synchronize()
-            prof.step()
-    _report(out_dir, "render_all", "render_all")
-
-
-def phase_time_fits(runs=5):
-    """Host-clock medians (after `torch.cuda.synchronize()`) of a warm
-    NeRF-fit chunk (8 steps at 256^2, LPIPS on, the request's field and
-    schedule), of a NeRF render-all of 16 views at 256^2, and of a warm
-    mesh-fit chunk (8 steps at the request's tet resolution and 512^2,
-    LPIPS on), on the 32-view `load_init_mesh` renders of the torus knot.
-    Only APIs that every tree of the port with `run_3d_to_3d` has are
-    used, so that a copy of this script beside an earlier checkout's
-    package times that one in the same call."""
-    import types
-    from mvedit_tpu_torch.apis import Adapter3DRunner
-    from mvedit_tpu_torch.models.fields import ingp_init
-    from mvedit_tpu_torch.models.volume_renderer import OccupancyGrid
-    from mvedit_tpu_torch.pipelines.mvedit_3d import MVEdit3DPipeline
-    import mvedit_tpu_torch
-    runner = Adapter3DRunner(seed=SEED, device=DEV)
-    m = types.SimpleNamespace(lpips_params=runner.load_lpips())
-    cfg = runner._mvedit_cfg(REQ_VIEWS, REQ_STEPS, REQ_N_INV, REQ_INIT_INV)
-    pipe = MVEdit3DPipeline(m, cfg)
-    poses, intr, lights = _rig(SIZE)
-    init = runner.load_init_mesh(torus_knot(), poses, intr, SIZE, lights)
-    targets = {"images": init["images"], "masks": init["masks"],
-               "poses": torch.as_tensor(poses, device=DEV),
-               "intrinsics": torch.as_tensor(intr, device=DEV),
-               "cam_lights": torch.as_tensor(lights, device=DEV),
-               "cam_weights": torch.ones(REQ_VIEWS, device=DEV)}
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
-    field = ingp_init(cfg.ingp, gen, DEV)
-    run, make_opt = pipe._nerf_fit_fns(256, 8)
-    opt = make_opt(field)
-    grid = OccupancyGrid.create(cfg.render.grid_size, device=DEV)
-    tgt = pipe._resize_targets(targets, 256)
-    views = {"poses": targets["poses"][:16],
-             "intrinsics": targets["intrinsics"][:16]}
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-    chunk = []
-    for i in range(runs + 1):
-        (field, opt, grid, _), sec = timed(lambda: run(
-            field, opt, grid, tgt, sched=pipe._sched_weights(0.5, "nerf"),
-            lpips_params=m.lpips_params, generator=gen))
-        if i:
-            chunk.append(sec)
-    render = []
-    with torch.no_grad():
-        for i in range(4):
-            _, sec = timed(lambda: pipe._render_all(field, None, None, grid,
-                                                    views, 256))
-            if i:
-                render.append(sec)
-    # the DMTet fit at tet 128 from a seeded field (phase 6's stand-in)
-    mfield = ingp_init(cfg.ingp, gen, DEV)
-    with torch.no_grad():
-        mfield["mlp"][-1]["b"][0] = DENSITY_BIAS
-    tet_grid, state, mopt = pipe._init_mesh_phase(mfield, device=DEV)
-    run_m, _, _ = pipe._mesh_fit_fns(tet_grid, 8)
-    mesh = []
-    for i in range(runs + 1):
-        (state, mopt, _), sec = timed(lambda: run_m(
-            state, mopt, targets, sched=pipe._sched_weights(0.6, "mesh"),
-            generator=gen, lpips_params=m.lpips_params))
-        if i:
-            mesh.append(sec)
-
-    def fmt(xs):
-        return (f"median {statistics.median(xs):.4f} s of {len(xs)} "
-                f"({' '.join(f'{x:.4f}' for x in xs)})")
-    log(f"[fits] package {os.path.dirname(mvedit_tpu_torch.__file__)}: "
-        f"NeRF-fit chunk (8 steps, 256^2, LPIPS) {fmt(chunk)}; render-all "
-        f"of 16 views at 256^2 {fmt(render)}; mesh-fit chunk (8 steps, "
-        f"tet {cfg.tet_resolution}, 512^2, LPIPS) {fmt(mesh)}")
-
-
-def phase_time_retex():
-    """Three `run_retex` requests of one seed at the defaults (phase 10's
-    inputs) on the `mvedit_tpu_torch` beside the script: a cold and a warm
-    one timed on the host clock, then one under `torch.profiler` (CUDA
-    activity only) with every segment sum run on a stream of its own, so
-    that the kernels on that stream are the sums' (their ordering, sorts
-    and offsets included, in whatever form the tree has them): their
-    device time summed from the trace, beside the stream's span per call
-    from CUDA events (which also counts waits for the host's launches).
-    Only APIs that every tree of the port with `run_retex` has are used,
-    so that a copy of this script beside an earlier checkout's package
-    times that one in the same call."""
-    import tempfile
-    from torch.profiler import ProfilerActivity, profile
-    import mvedit_tpu_torch
-    import mvedit_tpu_torch.ops.segment as OS
-    from mvedit_tpu_torch.apis import Adapter3DRunner
-    from mvedit_tpu_torch.models.mesh import Mesh
-    runner = Adapter3DRunner(seed=SEED, device=DEV)
-    tmp = tempfile.mkdtemp()
-    src = os.path.join(tmp, "retex_knot.glb")
-    knot = torus_knot()
-    Mesh(v=knot.v, f=knot.f).write_glb(src)
-    img = np.random.default_rng(SEED + 13).random(
-        (SIZE, SIZE, 3)).astype(np.float32)
-
-    def request():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = runner.run_retex(
-            src, "a golden torus knot, studio light", seed=SEED,
-            steps=RETEX_STEPS, n_inverse_steps=RETEX_N_INV,
-            num_views=RETEX_VIEWS, front_view_id=0, in_image=img,
-            out_path=os.path.join(tmp, "retex.glb"))
-        torch.cuda.synchronize()
-        return out["mesh"].albedo, time.perf_counter() - t0
-    albedo, cold = request()
-    albedo2, warm = request()
-    orig, side, spans = OS.segment_sum, torch.cuda.Stream(), []
-
-    def on_side(*a, **k):
-        main = torch.cuda.current_stream()
-        side.wait_stream(main)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(side):
-            e0.record()
-            out = orig(*a, **k)
-            e1.record()
-        main.wait_stream(side)
-        spans.append((e0, e1))
-        return out
-    OS.segment_sum = on_side
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            albedo3, traced_wall = request()
-    finally:
-        OS.segment_sum = orig
-    span_ms = sum(a.elapsed_time(b) for a, b in spans)
-    cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == cuda]
-    # the stream that ran the sums' own kernels (`segment_*` in the
-    # kernel source's anonymous namespace, in this tree and earlier ones)
-    own = "(anonymous namespace)::segment_"
-    streams = {e.device_resource_id() for e in evs if own in e.name()}
-    mine = [e for e in evs if e.device_resource_id() in streams]
-    dev_ms = sum(e.duration_ns() for e in mine) / 1e6
-    all_ms = sum(e.duration_ns() for e in evs) / 1e6
-    top = {}
-    for e in mine:
-        k = re.split(r"[<(]", e.name().split("namespace)::", 1)[-1])[0][:60]
-        top[k] = top.get(k, 0.0) + e.duration_ns() / 1e6
-    log("[retex-time] the sums' stream by kernel (ms): " + "; ".join(
-        f"{k} {v:.3f}" for k, v in sorted(top.items(),
-                                          key=lambda kv: -kv[1])[:8]))
-    same = bool(np.array_equal(albedo, albedo2)) and bool(
-        np.array_equal(albedo, albedo3))
-    log(f"[retex-time] package {os.path.dirname(mvedit_tpu_torch.__file__)}:"
-        f" cold {cold:.3f} s, warm {warm:.3f} s; traced request "
-        f"({traced_wall:.3f} s under the profiler): {len(spans)} segment "
-        f"sums, {dev_ms:.3f} ms device time in {len(mine)} kernels on "
-        f"their stream ({len(streams)} stream), of {all_ms:.3f} ms for "
-        f"all {len(evs)} device events; the sums' stream span "
-        f"{span_ms:.3f} ms; three albedos bit-equal {same}")
-    if not same or not mine:
-        raise AssertionError("retex timing: albedos differ or no segment "
-                             "kernel was traced")
-    # the sums' kernels on more than one stream, or the request's other
-    # kernels on theirs, would read the whole request as the sums' time
-    if len(streams) != 1 or len(mine) == len(evs):
-        raise AssertionError(f"retex timing: the sums' kernels ran on "
-                             f"{len(streams)} streams, {len(mine)} of "
-                             f"{len(evs)} device events on them: not a "
-                             f"stream of their own")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5168,33 +4735,12 @@ def main():
                          "csrc/flash_attention.cu or csrc/raster_select.cu),"
                          " check them and time them against each other in "
                          "turns")
-    ap.add_argument("--profile", metavar="OUT_DIR",
-                    help="after the run, profile a warm text-to-image "
-                         "request, denoise timesteps, mesh and NeRF fit "
-                         "chunks into OUT_DIR")
-    ap.add_argument("--time-fits", action="store_true",
-                    help="only time a warm NeRF-fit chunk and a render-all "
-                         "(host clock, median of several)")
-    ap.add_argument("--request-only", action="store_true",
-                    help="phases 1-2 and phase 7's two requests only (their "
-                         "GLBs' sha256 printed); a copy of the script "
-                         "inside an unpacked earlier commit runs that "
-                         "commit's package")
-    ap.add_argument("--time-retex", action="store_true",
-                    help="only time retex requests and trace one "
-                         "request's segment sums (with --time-fits: both)")
     args = ap.parse_args()
     if args.kernel and not args.kernels_only:
         ap.error("--kernel needs --kernels-only")
     t_start = time.perf_counter()
     smi = phase_device()
     phase_tokenizer()
-    if args.time_fits or args.time_retex:
-        if args.time_fits:
-            phase_time_fits()
-        if args.time_retex:
-            phase_time_retex()
-        return
     if args.ab:
         def raster(src):
             with open(src) as f:
@@ -5207,11 +4753,6 @@ def main():
         return
     phase_build()
     from mvedit_tpu_torch.apis import Adapter3DRunner
-    if args.request_only:
-        import tempfile
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_request(Adapter3DRunner(seed=SEED, device=DEV), tmp)
-        return
     from mvedit_tpu_torch.kernels import raster_select as RS
     from mvedit_tpu_torch.kernels import segment_sum as SS
     from mvedit_tpu_torch.kernels.flash_attention import (flash_attention,
@@ -5254,7 +4795,7 @@ def main():
     RS.raster_select.staged = SS.segment_sum.staged = 0
     SS.segment_sum.launches = 0
     seg_launches = 0
-    mesh_launches, mesh_ctx = phase_mesh(runner)
+    mesh_launches = phase_mesh(runner)
     seg_launches += SS.segment_sum.launches
     # the whole request, twice: counted part by part inside
     import tempfile
@@ -5340,8 +4881,6 @@ def main():
         f"launches, all in phase 11")
     if RS.raster_select.staged:
         raise AssertionError("the raster wrapper staged path inputs")
-    if args.profile:
-        phase_profile(runner, args.profile, mesh_ctx)
     log(f"[time] the whole run so far: {time.perf_counter() - t_start:.1f} s")
     hot = next(r for r in rows if r["shape"] == HOT_SHAPE)
     z123 = [dict({k: r[k] for k in ("ms", "plain_ms", "bound_ms",

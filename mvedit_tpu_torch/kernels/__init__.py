@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version. Kernels build at first use, never at import."""
+version, built, bound and launched through `library.py`. Kernels build at
+first use, never at import."""

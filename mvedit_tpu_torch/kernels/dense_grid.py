@@ -3,8 +3,8 @@
 
 `dense_grid(x, tables, resolutions, smooth, gather_dtype)` -> (N, L F)
 float32: every level of every point (N, 3) in one launch of
-`csrc/dense_grid.cu` (sm_90a), built with nvcc at first use into `_build/`
-and bound through ctypes. The clip, the cell, the smoothstep (or linear)
+`csrc/dense_grid.cu` (sm_90a), `LIBRARY` (built and bound by `library.py`
+at first use). The clip, the cell, the smoothstep (or linear)
 weights, the 8 corner rows per level (int32 ids), the rounding of the
 rows to `gather_dtype` and the blend are the plain version's operations
 in its order, so the output has its bits (`ops/dense_grid.py::
@@ -32,16 +32,12 @@ first (points not float32 or not contiguous; tables or the output
 gradient not contiguous or off a 16-byte boundary; 0 on the paths).
 """
 import ctypes
-import os
-import threading
 
 import torch
 
-from .raster_select import compile_source
-from .segment_sum import _call
+from .library import Library, nvcc, on_stream
 
-__all__ = ["dense_grid", "dense_grid_backward", "build", "load_library",
-           "MAX_LEVELS", "BUILD_LOG"]
+__all__ = ["dense_grid", "dense_grid_backward", "LIBRARY", "MAX_LEVELS"]
 
 MAX_LEVELS = 8        # csrc kMaxLevels
 _F = 8                # the rows' width the library is built for
@@ -51,39 +47,19 @@ _MODES = {(torch.bfloat16, torch.bfloat16): 0,
           (torch.float32, torch.bfloat16): 1,
           (torch.float32, torch.float32): 2}
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "dense_grid.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libmvedit_dense_grid.so")
-BUILD_LOG = os.path.join(_BUILD_DIR, "dense_grid.nvcc.log")
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def load_library(lib):
-    """Load a library built from `csrc/dense_grid.cu` and bind its C
-    entries."""
-    lib = ctypes.CDLL(lib)
+def _bind(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mvedit_dense_grid_forward.argtypes = [p, ll, i, p, p, i, i, i, p, p]
     lib.mvedit_dense_grid_forward.restype = i
     lib.mvedit_dense_grid_backward.argtypes = [p, ll, i, p, p, i, i, i, p,
                                                p, p, p, p]
     lib.mvedit_dense_grid_backward.restype = i
-    return lib
 
 
-def build():
-    """Compile the kernel (if its library is missing or older than the
-    source) and load it. Returns the ctypes library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                compile_source(_SRC, _LIB, BUILD_LOG)
-            _lib = load_library(_LIB)
-        return _lib
+# -fmad=false: no FMA contraction, so the weights and the blend round as
+# the plain version's separate ops do (its bits are the kernel's)
+LIBRARY = Library("dense_grid", "dense_grid.cu", nvcc("-fmad=false"), _bind)
 
 
 def _aligned(t):
@@ -140,9 +116,9 @@ def dense_grid(x, tables, resolutions, smooth=True,
     out = torch.empty((n, L * _F), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    lib = _lib or build()
-    err = _call(x.device, lib.mvedit_dense_grid_forward, x.data_ptr(), n, L,
-                ptrs, res, mode, _F, int(bool(smooth)), out.data_ptr())
+    err = on_stream(x.device, LIBRARY.load().mvedit_dense_grid_forward,
+                    x.data_ptr(), n, L, ptrs, res, mode, _F,
+                    int(bool(smooth)), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"dense_grid launch failed: CUDA error {err}")
     dense_grid.launches += 1
@@ -179,13 +155,13 @@ def dense_grid_backward(x, tables, resolutions, grad, smooth=True,
         gx = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return targets, contrib, gx
-    lib = _lib or build()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    err = _call(dev, lib.mvedit_dense_grid_backward, x.data_ptr(), n, L,
-                ptrs, res, mode, _F, int(bool(smooth)), grad.data_ptr(),
-                ptr(targets), ptr(contrib), ptr(gx))
+    err = on_stream(dev, LIBRARY.load().mvedit_dense_grid_backward,
+                    x.data_ptr(), n, L, ptrs, res, mode, _F,
+                    int(bool(smooth)), grad.data_ptr(), ptr(targets),
+                    ptr(contrib), ptr(gx))
     if err != 0:
         raise RuntimeError(f"dense_grid backward launch failed: CUDA error "
                            f"{err}")

@@ -7,8 +7,8 @@ PyTorch version.
 bf16 with f32 softmax statistics and returned in the input dtype.
 
 - CUDA tensors launch `csrc/flash_attention.cu` (sm_90a: TMA, wgmma, warp
-  specialisation), built with nvcc at first use into `_build/` and bound
-  through ctypes. A build or launch failure raises; nothing falls back.
+  specialisation), `LIBRARY` (built and bound by `library.py` at first
+  use). A build or launch failure raises; nothing falls back.
 - CPU tensors take `attention_reference`, the plain version, in their own
   dtype (the JAX package likewise runs its plain attention on the CPU).
 
@@ -28,15 +28,13 @@ JAX package's own flash API) also uses, with its own count.
 plain version.
 """
 import ctypes
-import os
-import subprocess
-import threading
 
 import torch
 
+from .library import Library, nvcc, on_stream
+
 __all__ = ["flash_attention", "launch", "plan", "attention_reference",
-           "agreement", "build", "compile_source", "load_library",
-           "MAX_HEAD_DIM"]
+           "agreement", "LIBRARY", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 # Kernel against the plain version from the same bf16 inputs, relative to
@@ -49,13 +47,16 @@ MAX_HEAD_DIM = 128
 MEAN_REL_TOL = 6e-3     # mean|d| / mean|ref|
 MAX_REL_TOL = 2e-2      # max|d| / max|ref|
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "flash_attention.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libmvedit_flash_attention.so")
-BUILD_LOG = os.path.join(_BUILD_DIR, "flash_attention.nvcc.log")
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib):
+    fn = lib.mvedit_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = Library("flash_attention", "flash_attention.cu", nvcc(), _bind)
 
 
 def attention_reference(q, k, v):
@@ -84,52 +85,6 @@ def agreement(out, ref):
                    and r["max_rel"] <= MAX_REL_TOL
                    and r["mean_rel"] <= MEAN_REL_TOL)
     return r
-
-
-def compile_source(src, lib, log):
-    """nvcc `src` for sm_90a into the shared library `lib`, and ptxas'
-    report (registers, shared memory, spills per instantiation) into
-    `log`."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError(f"no CUDA toolkit found to build {src}")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas=-v", "-o", tmp, src]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    with open(log, "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-
-
-def load_library(lib):
-    """Load a library built by `compile_source` and bind its C entry."""
-    lib = ctypes.CDLL(lib)
-    fn = lib.mvedit_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def build():
-    """Compile the kernel (if its library is missing or older than the
-    source) and load it. Returns the ctypes library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                compile_source(_SRC, _LIB, BUILD_LOG)
-            _lib = load_library(_LIB)
-        return _lib
 
 
 def _check(q, k, v):
@@ -207,8 +162,8 @@ def launch(q, k, v, scale, lib=None):
     """Launch the kernel on CUDA tensors (B, Lq, H, D) x (B, Lk, H, D) with
     softmax scale `scale`; returns (B, Lq, H, D) in q's dtype. Counts
     nothing but staged copies: each public wrapper keeps its own launch
-    count. `lib` is a library of `load_library` to launch instead of the
-    built one (an edited source, timed against it)."""
+    count. `lib` is a loaded library to launch instead of `LIBRARY` (an
+    edited source built alike, timed against it)."""
     how = plan(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -223,13 +178,11 @@ def launch(q, k, v, scale, lib=None):
         scale = abs(scale)
         launch.staged += 1
     out = torch.empty((B, Lq, H, Dp), dtype=torch.bfloat16, device=q.device)
-    lib = build() if lib is None else lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mvedit_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Lq, Lk, Dp, *_strides(q), *_strides(k), *_strides(v),
-            *out.stride()[:3], float(scale), stream)
+    lib = LIBRARY.load() if lib is None else lib
+    err = on_stream(q.device, lib.mvedit_flash_attention_fwd,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, H, Lq, Lk, Dp, *_strides(q), *_strides(k),
+                    *_strides(v), *out.stride()[:3], float(scale))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     if Dp != D:

@@ -17,8 +17,8 @@ nothing covers the pixel. It
 is not differentiable: gradients come from the winner recompute in
 `rasterize._winner_outputs`.
 
-- CUDA tensors launch `csrc/raster_select.cu` (sm_90a), built with nvcc at
-  first use into `_build/` and bound through ctypes, at the tiles it takes
+- CUDA tensors launch `csrc/raster_select.cu` (sm_90a), `LIBRARY` (built
+  and bound by `library.py` at first use), at the tiles it takes
   (`TILES`: 16, and 32 for texture superres's 2048^2 bake). A build or
   launch failure, or another tile, raises; nothing falls back.
 - CPU tensors take `raster_select_reference`, the plain version of the
@@ -42,25 +42,31 @@ plain version of the kernel's per-warp reject, used to count its work.
 """
 import ctypes
 import functools
-import os
-import subprocess
-import threading
 
 import torch
 
+from .library import Library, nvcc, on_stream
+
 __all__ = ["raster_select", "raster_select_reference", "select_reference",
            "prepare_coeffs", "block_masks", "plan", "launch", "splits_for",
-           "build", "compile_source", "load_library", "BIG", "TILES"]
+           "LIBRARY", "BIG", "TILES"]
 
 BIG = 3.0e38                 # key of a pixel that nothing covers
 TILES = (16, 32)             # the kernel's tile edges in pixels
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "raster_select.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libmvedit_raster_select.so")
-BUILD_LOG = os.path.join(_BUILD_DIR, "raster_select.nvcc.log")
-_lib = None
-_lib_lock = threading.Lock()
+
+
+def _bind(lib):
+    fn = lib.mvedit_raster_select
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p, i, i, p, p, i, i, i, i, i,
+                   p, p, p, p]
+    fn.restype = i
+
+
+# -fmad=false: no FMA contraction, so the affine tests round as the plain
+# version's separate ops do (its bits are the kernel's)
+LIBRARY = Library("raster_select", "raster_select.cu", nvcc("-fmad=false"),
+                  _bind)
 
 
 def prepare_coeffs(pts, faces, cand, cand_valid, cull_backface=False):
@@ -177,53 +183,6 @@ def block_masks(co, tiles_x, tile_ids=None, tile=16):
     return out
 
 
-def compile_source(src, lib, log):
-    """nvcc `src` for sm_90a into the shared library `lib`, and ptxas'
-    report (registers, shared memory, spills per instantiation) into
-    `log`. -fmad=false: no FMA contraction, so the affine tests round as
-    the plain version's separate ops do."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError(f"no CUDA toolkit found to build {src}")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, src]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    with open(log, "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-
-
-def load_library(lib):
-    """Load a library built by `compile_source` and bind its C entry."""
-    lib = ctypes.CDLL(lib)
-    fn = lib.mvedit_raster_select
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, ctypes.c_longlong, p, p, i, i, p, p, i, i, i, i, i,
-                   p, p, p, p]
-    fn.restype = i
-    return lib
-
-
-def build():
-    """Compile the kernel (if its library is missing or older than the
-    source) and load it. Returns the ctypes library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                compile_source(_SRC, _LIB, BUILD_LOG)
-            _lib = load_library(_LIB)
-        return _lib
-
-
 def plan(pts, faces, tile_tris, tile_valid, tile, big_tris=None,
          big_valid=None):
     """"direct" or "staged" for the kernel, decided from shapes, dtypes,
@@ -290,8 +249,8 @@ def launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
     """Launch the kernel on CUDA tensors; returns (best, key, face). Counts
     staged launches in `raster_select.staged`, and no launch: that count
     is `raster_select`'s.
-    `lib` is a library of `load_library` to launch instead of the built
-    one (an edited source, timed against it); `splits` overrides
+    `lib` is a loaded library to launch instead of `LIBRARY` (an edited
+    source built alike, timed against it); `splits` overrides
     `splits_for`."""
     how = plan(pts, faces, tile_tris, tile_valid, tile, big_tris, big_valid)
     dev = pts.device
@@ -312,7 +271,7 @@ def launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
     face = torch.empty((T, tile * tile), dtype=torch.int64, device=dev)
     if T == 0:
         return best, key, face
-    lib = build() if lib is None else lib
+    lib = LIBRARY.load() if lib is None else lib
     if splits is None:
         splits = splits_for(T, _sm_count(dev.index), tile)
     args = (pts.data_ptr(), faces.data_ptr(), faces.shape[0],
@@ -321,15 +280,7 @@ def launch(pts, faces, tile_tris, tile_valid, tile, tiles_x,
             None if big_valid is None else big_valid.data_ptr(), Kb,
             tiles_x, int(cull_backface), tile, splits, best.data_ptr(),
             key.data_ptr(), face.data_ptr())
-    # the launch goes to the runtime's current device: switch only when
-    # the tensors lie on another
-    if dev.index == torch.cuda.current_device():
-        err = lib.mvedit_raster_select(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.mvedit_raster_select(
-                *args, torch.cuda.current_stream(dev).cuda_stream)
+    err = on_stream(dev, lib.mvedit_raster_select, *args)
     if err != 0:
         raise RuntimeError(f"raster_select launch failed: CUDA error {err}")
     return best, key, face

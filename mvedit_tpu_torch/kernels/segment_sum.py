@@ -18,8 +18,8 @@ in whatever order the adds arrive.
   `searchsorted` for the offsets (a stable sort's permutation is unique,
   so both give the same perm and off).
 - CUDA tensors launch the sums of `csrc/segment_sum.cu` (sm_90a) on that
-  order, built with nvcc at first use into `_build/` and bound through
-  ctypes: one thread per (row, channel) adds a row of at most `LONG`
+  order, `LIBRARY` (built and bound by `library.py` at first use): one
+  thread per (row, channel) adds a row of at most `LONG`
   contributions in order in float32; one warp a row of at most `WARP`
   (32 strided partials, then a fixed tree); a longer row (a render's
   background pixels all gather one dummy face; retex's background points
@@ -43,30 +43,19 @@ neither float32 nor bfloat16, or not contiguous, or bf16 rows of 8 off a
 targets are read with their stride (a column of the mesh's faces).
 """
 import ctypes
-import os
-import threading
 
 import torch
 
-from .raster_select import compile_source
+from .library import Library, nvcc, on_stream
 
 __all__ = ["segment_sum", "segment_sum_reference", "segment_sum_ordered",
-           "segment_order", "launch", "rounding_bound",
-           "build", "load_library", "LONG", "WARP",
-           "SLICE", "BLOCK"]
+           "segment_order", "launch", "rounding_bound", "LIBRARY", "LONG",
+           "WARP", "SLICE", "BLOCK"]
 
 LONG = 64             # rows summed in order by one thread (csrc kLong)
 WARP = 1024           # rows summed by one warp (csrc kWarp)
 SLICE = 8192          # longer rows: contributions per slice CTA (kSlice)
 BLOCK = 256           # a slice CTA's threads, its partial sums (kBlock)
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "segment_sum.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libmvedit_segment_sum.so")
-BUILD_LOG = os.path.join(_BUILD_DIR, "segment_sum.nvcc.log")
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def _bits(size):
@@ -229,10 +218,7 @@ def rounding_bound(idx, vals, size):
     return (k * 2.0 ** -24 + n * 2.0 ** -53) * mag
 
 
-def load_library(lib):
-    """Load a library built from `csrc/segment_sum.cu` and bind its C
-    entries."""
-    lib = ctypes.CDLL(lib)
+def _bind(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mvedit_segment_order_temp_bytes.argtypes = [ll, i]
     lib.mvedit_segment_order_temp_bytes.restype = ll
@@ -250,29 +236,13 @@ def load_library(lib):
                                                p, ll, p, i, p]
     lib.mvedit_segment_sum_targets.restype = i
     lib.workspace = {}
-    return lib
 
 
-def build():
-    """Compile the kernel (if its library is missing or older than the
-    source) and load it. Returns the ctypes library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                compile_source(_SRC, _LIB, BUILD_LOG)
-            _lib = load_library(_LIB)
-        return _lib
-
-
-def _call(dev, fn, *args):
-    # the launch goes to the runtime's current device: switch only when
-    # the tensors lie on another
-    if dev.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+# -fmad=false, as the raster and dense-grid kernels: no multiply and add
+# ever fuse, so the sums stay the separate float32 adds that
+# `segment_sum_ordered` makes
+LIBRARY = Library("segment_sum", "segment_sum.cu", nvcc("-fmad=false"),
+                  _bind)
 
 
 def _order_launch(idx, size, lib):
@@ -289,10 +259,10 @@ def _order_launch(idx, size, lib):
     ws = torch.empty((pairs + max(temp, 1),), dtype=torch.uint8, device=dev)
     off = torch.empty((size + 1,), dtype=torch.int32, device=dev)
     sel = ctypes.c_int(0)
-    err = _call(dev, lib.mvedit_segment_order, idx.data_ptr(),
-                int(idx.dtype is torch.int64), idx.stride(0), n, size, bits,
-                ws.data_ptr(), ws.data_ptr() + pairs, temp, off.data_ptr(),
-                ctypes.byref(sel))
+    err = on_stream(dev, lib.mvedit_segment_order, idx.data_ptr(),
+                    int(idx.dtype is torch.int64), idx.stride(0), n, size,
+                    bits, ws.data_ptr(), ws.data_ptr() + pairs, temp,
+                    off.data_ptr(), ctypes.byref(sel))
     if err != 0:
         raise RuntimeError(f"segment_order launch failed: CUDA error {err}")
     perm = ws[4 * n * (2 + sel.value):4 * n * (3 + sel.value)]
@@ -309,7 +279,7 @@ def segment_order(idx, size):
         return _plain_order(idx, size)
     if idx.device.type != "cuda":
         raise ValueError(f"unsupported device {idx.device}")
-    return _order_launch(idx, size, _lib or build())
+    return _order_launch(idx, size, LIBRARY.load())
 
 
 def launch(vals, perm, off, size, out_dtype=torch.float32, lib=None):
@@ -336,14 +306,14 @@ def launch(vals, perm, off, size, out_dtype=torch.float32, lib=None):
     out = torch.empty((size, C), dtype=out_dtype, device=vals.device)
     if size * C == 0:
         return out
-    lib = build() if lib is None else lib
+    lib = LIBRARY.load() if lib is None else lib
     dev = vals.device
     scratch = torch.empty((lib.mvedit_segment_sum_scratch_bytes(n, C),),
                           dtype=torch.uint8, device=dev)
-    err = _call(dev, lib.mvedit_segment_sum, vals.data_ptr(),
-                int(vals.dtype is torch.bfloat16), perm.data_ptr(),
-                off.data_ptr(), C, size, n, scratch.data_ptr(),
-                out.data_ptr(), int(out_dtype is torch.bfloat16))
+    err = on_stream(dev, lib.mvedit_segment_sum, vals.data_ptr(),
+                    int(vals.dtype is torch.bfloat16), perm.data_ptr(),
+                    off.data_ptr(), C, size, n, scratch.data_ptr(),
+                    out.data_ptr(), int(out_dtype is torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     return out
@@ -385,7 +355,7 @@ def segment_sum(idx, vals, size, out_dtype=torch.float32):
         raise ValueError(f"unsupported devices {idx.device}, {vals.device}")
     n, C = vals.shape
     _check(n, size)
-    lib = _lib or build()
+    lib = LIBRARY.load()
     direct = out_dtype in (torch.float32, torch.bfloat16)
     out = torch.empty((size, C), dtype=out_dtype if direct else
                       torch.float32, device=vals.device)
@@ -406,11 +376,12 @@ def segment_sum(idx, vals, size, out_dtype=torch.float32):
         lib.workspace[key] = (total, temp.value)
     total, temp = lib.workspace[key]
     ws = torch.empty((total,), dtype=torch.uint8, device=vals.device)
-    err = _call(vals.device, lib.mvedit_segment_sum_targets, idx.data_ptr(),
-                int(idx.dtype is torch.int64), idx.stride(0), vals.data_ptr(),
-                int(vals.dtype is torch.bfloat16), C, size, n, bits,
-                ws.data_ptr(), temp, out.data_ptr(),
-                int(out.dtype is torch.bfloat16))
+    err = on_stream(vals.device, lib.mvedit_segment_sum_targets,
+                    idx.data_ptr(), int(idx.dtype is torch.int64),
+                    idx.stride(0), vals.data_ptr(),
+                    int(vals.dtype is torch.bfloat16), C, size, n, bits,
+                    ws.data_ptr(), temp, out.data_ptr(),
+                    int(out.dtype is torch.bfloat16))
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     segment_sum.launches += 1

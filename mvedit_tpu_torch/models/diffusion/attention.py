@@ -2,8 +2,11 @@
 
 Counterpart of `mvedit_tpu/models/diffusion/attention.py`. All attention
 funnels through `dot_product_attention`. CPU tensors never take the
-kernel, as the reference skips it on its CPU backend. On the card a call
-goes to the hand-written flash kernel when either of two rules holds:
+kernel, as the reference skips it on its CPU backend, and neither does a
+call that asks for a gradient: the kernel has no backward (the
+reference differentiates through its Pallas kernel). On the card any
+other call goes to the hand-written flash kernel when either of two
+rules holds:
 
 - `uses_flash`, the reference's own rule: long sequences (max(Lq, Lk) >
   1024) with both lengths divisible by 128 and D <= 128, the shapes for
@@ -17,11 +20,11 @@ goes to the hand-written flash kernel when either of two rules holds:
   every bf16 cross-attention over 77 text tokens, IP-Adapter's 4 or 16
   image tokens.
 
-Every other call, in f32 or carrying a gradient or wider than 128, keeps
-the reference's route: Lq * Lk > 4096 * 8192 goes to the chunked
-online-softmax; the rest (the f32 text and vision towers, the VAE's
-single-head D=512 mid-attention, a training step's attention) to plain
-matmul attention, whose large score tensors are recomputed in the
+Every other call, in f32 or carrying a gradient or wider than 128, takes
+the reference's route off the kernel: Lq * Lk > 4096 * 8192 goes to the
+chunked online-softmax; the rest (the f32 text and vision towers, the
+VAE's single-head D=512 mid-attention, a training step's attention) to
+plain matmul attention, whose large score tensors are recomputed in the
 backward rather than saved (the LoRA recipe's step).
 
 `AttnMode` keeps the reference's fields, plus `views` for a batch
@@ -103,11 +106,13 @@ def kernel_takes(q, k, v):
     gradient asked for, and `plan` sends them "direct" (no staged copy:
     D % 8 == 0, aligned). Decided on the host alone."""
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)) \
-            or q.shape[-1] > MAX_HEAD_DIM:
-        return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            or q.shape[-1] > MAX_HEAD_DIM or _asks_grad(q, k, v):
         return False
     return plan(q, k, v, q.shape[-1] ** -0.5) == "direct"
+
+
+def _asks_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _chunked_attention(q, k, v):
@@ -145,12 +150,26 @@ def _plain_attention(q, k, v):
     gradient is asked for and the scores are large: the backward runs the
     same forward again, so the bits do not change."""
     B, Lq, H, _ = q.shape
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad) \
-            and B * H * Lq * k.shape[1] >= RECOMPUTE_SCORES:
+    if _asks_grad(q, k, v) and B * H * Lq * k.shape[1] >= RECOMPUTE_SCORES:
         return torch.utils.checkpoint.checkpoint(
             attention_reference, q, k, v, use_reentrant=False)
     return attention_reference(q, k, v)
+
+
+def _route(q, k, v):
+    """Where `dot_product_attention` sends a call: "kernel" (`uses_flash`),
+    "ragged" (the kernel, admitted by `kernel_takes` alone), "chunked" or
+    "plain"."""
+    Lq, Lk, D = q.shape[1], k.shape[1], q.shape[-1]
+    # CPU tensors skip the kernel, as the reference does on its CPU
+    # backend; the kernel has no backward, so a call that asks for a
+    # gradient skips it too
+    if q.device.type != "cpu" and not _asks_grad(q, k, v):
+        if uses_flash(Lq, Lk, D):
+            return "kernel"
+        if kernel_takes(q, k, v):
+            return "ragged"
+    return "chunked" if Lq * Lk > 4096 * 8192 else "plain"
 
 
 def dot_product_attention(q, k, v):
@@ -159,18 +178,14 @@ def dot_product_attention(q, k, v):
     `attention.kernel` or `attention.plain` count (the chunked path is
     plain); a kernel call that `kernel_takes` alone admits also adds one
     to `attention.kernel.ragged`."""
-    Lq, Lk, D = q.shape[1], k.shape[1], q.shape[-1]
-    # CPU tensors skip the kernel, as the reference does on its CPU backend
-    if q.device.type != "cpu":
-        if uses_flash(Lq, Lk, D):
-            count("attention.kernel")
-            return flash_attention(q, k, v)
-        if kernel_takes(q, k, v):
-            count("attention.kernel")
+    route = _route(q, k, v)
+    if route == "kernel" or route == "ragged":
+        count("attention.kernel")
+        if route == "ragged":
             count("attention.kernel.ragged")
-            return flash_attention(q, k, v)
+        return flash_attention(q, k, v)
     count("attention.plain")
-    if Lq * Lk > 4096 * 8192:
+    if route == "chunked":
         return _chunked_attention(q, k, v)
     return _plain_attention(q, k, v)
 

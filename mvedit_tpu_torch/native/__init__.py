@@ -2,61 +2,44 @@
 `mvedit_tpu/native`).
 
 `weld_vertices` (the spatial-hash vertex merge) and `decimate_qem` (the
-quadric-error-metric edge collapse) call `csrc/mesh_native.cpp`, built
-with g++ at first use into `_build/` and bound through ctypes.
-`native_available()` says whether the library built. Without it
+quadric-error-metric edge collapse) call `csrc/mesh_native.cpp`,
+`LIBRARY` (built with g++ and bound by `kernels/library.py` at first
+use). `native_available()` says whether the library built. Without it
 `weld_vertices` takes the reference's numpy fallback (quantise and
 unique), and the pipeline skips decimation, as the reference does.
 """
 import ctypes
-import os
-import subprocess
-import threading
 
 import numpy as np
 
+from ..kernels.library import BuildError, Library
+
 __all__ = ["weld_vertices", "decimate_qem", "native_available"]
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "mesh_native.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD_DIR, "libmvedit_mesh_native.so")
-_lib = None
-_failed = False
-_lib_lock = threading.Lock()
+
+def _bind(lib):
+    lib.weld_vertices.restype = ctypes.c_int64
+    lib.weld_vertices.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64)]
+    lib.decimate_qem.restype = ctypes.c_int64
+    lib.decimate_qem.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)]
+
+
+LIBRARY = Library("mesh_native", "mesh_native.cpp",
+                  ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"], _bind,
+                  timeout=300)
 
 
 def _load():
-    """Build (if the library is missing or older than the source) and load
-    the library; None when it cannot be built or loaded."""
-    global _lib, _failed
-    with _lib_lock:
-        if _lib is not None or _failed:
-            return _lib
-        try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                tmp = f"{_LIB}.{os.getpid()}.tmp"
-                subprocess.run(["g++", "-O3", "-fPIC", "-shared",
-                                "-std=c++17", "-o", tmp, _SRC], check=True,
-                               capture_output=True, timeout=300)
-                os.replace(tmp, _LIB)
-            lib = ctypes.CDLL(_LIB)
-        except (OSError, subprocess.SubprocessError):
-            _failed = True
-            return None
-        lib.weld_vertices.restype = ctypes.c_int64
-        lib.weld_vertices.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64)]
-        lib.decimate_qem.restype = ctypes.c_int64
-        lib.decimate_qem.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)]
-        _lib = lib
-        return lib
+    """The bound library, or None when it cannot be built or loaded."""
+    try:
+        return LIBRARY.load()
+    except (BuildError, OSError):
+        return None
 
 
 def native_available():

@@ -105,10 +105,11 @@ def test_dispatch_routes(monkeypatch, Lq, Lk, D, device, dtype, grad):
     flash kernel, chunked online softmax (Lq * Lk > 4096 * 8192), or plain
     matmul attention; and, beyond that, every bf16 call the kernel reads
     as it is (D <= 128, D % 8 == 0) and no gradient is asked of, whatever
-    its lengths, to the kernel. f32 calls and calls that need a gradient
-    route as the JAX package's. The `meta` device stands in for the card
-    (any non-CPU device); CPU tensors never take the kernel, as JAX skips
-    `_pallas_flash` on its CPU backend."""
+    its lengths, to the kernel. f32 calls route as the JAX package's; a
+    call that needs a gradient never takes the kernel, which has no
+    backward, and goes where the chunked rule sends it. The `meta` device
+    stands in for the card (any non-CPU device); CPU tensors never take
+    the kernel, as JAX skips `_pallas_flash` on its CPU backend."""
     seen = []
     for name in ("flash_attention", "_chunked_attention",
                  "attention_reference"):
@@ -121,13 +122,29 @@ def test_dispatch_routes(monkeypatch, Lq, Lk, D, device, dtype, grad):
     TA.dot_product_attention(q, kv, kv)
     as_it_is = (dtype == torch.bfloat16 and not grad and D <= 128
                 and D % 8 == 0)
-    if device != "cpu" and (TA.uses_flash(Lq, Lk, D) or as_it_is):
+    if device != "cpu" and not grad and (TA.uses_flash(Lq, Lk, D)
+                                         or as_it_is):
         want = "flash_attention"
     elif Lq * Lk > 4096 * 8192:
         want = "_chunked_attention"
     else:
         want = "attention_reference"
     assert seen == [want]
+
+
+@pytest.mark.parametrize("L,want", [(4096, "plain"), (8192, "chunked")])
+def test_route_sends_a_gradient_off_the_kernel(L, want):
+    """An aligned call that `uses_flash` admits, on the card (`meta`
+    stands in), takes the kernel without a gradient and, asking for one,
+    the path off the kernel that the chunked rule picks: the kernel's
+    output has no `grad_fn`."""
+    q, kv = (torch.empty((1, L, 2, 64), device="meta", dtype=torch.bfloat16,
+                         requires_grad=True) for _ in range(2))
+    assert TA.uses_flash(L, L, 64)
+    assert TA._route(q, kv, kv) == want
+    with torch.no_grad():
+        assert TA._route(q, kv, kv) == "kernel"
+    assert TA._route(q.detach(), kv.detach(), kv.detach()) == "kernel"
 
 
 def test_ragged_counter_counts_the_new_route_alone(monkeypatch):

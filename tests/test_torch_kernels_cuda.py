@@ -10,7 +10,10 @@ Tolerances:
 - flash attention (both APIs, `kernels/flash_attention.py` and
   `ops/flash_attention.py`; through `attention.dot_product_attention` at
   each call that only `kernel_takes` routes, one launch and no staged
-  copy each): `FA.agreement`, which bounds max|d| and
+  copy each; a call that asks for a gradient, at a shape `uses_flash`
+  admits, launches nothing and its gradients are within 1e-5 relative
+  (L2) of the plain path's on the CPU): `FA.agreement`, which bounds
+  max|d| and
   mean|d| relative to the plain version's magnitude (from the same bf16
   inputs): both round P and the output to bf16 (eps 2^-8) at other points
   and sum in another order. The bounds fail a kernel that scales by
@@ -794,6 +797,29 @@ def test_flash_attention_ragged_path_shapes(cuda, shape, Lk):
     assert out.shape == q.shape and out.dtype == q.dtype
     r = FA.agreement(out, FA.attention_reference(q, k, v))
     assert r["ok"], r
+
+
+def test_attention_gradient_at_a_flash_shape_equals_the_cpu_plain(cuda):
+    """`dot_product_attention` at an aligned shape `uses_flash` admits,
+    asked for a gradient (the kernel has no backward): no launch, and the
+    output and the gradients to q, k and v within 1e-5 relative (L2) of
+    the plain path's on the CPU (sums in another order)."""
+    from mvedit_tpu_torch.models.diffusion import attention as TA
+    shape = (1, 2048, 2, 64)
+    assert TA.uses_flash(shape[1], shape[1], shape[-1])
+    g = torch.Generator().manual_seed(5)
+    qkv = [torch.randn(shape, generator=g) for _ in range(3)]
+    w = torch.randn(shape, generator=g)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        ts = [t.to(dev).requires_grad_() for t in qkv]
+        before = FA.flash_attention.launches
+        out = TA.dot_product_attention(*ts)
+        (out * w.to(dev)).sum().backward()
+        assert FA.flash_attention.launches == before
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for a, b in zip(*results):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
 
 
 def test_one_seed_gives_one_full_width_normal_pass(cuda):
